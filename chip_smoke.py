@@ -1,0 +1,281 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0]
+
+Drives the port's main path, ``Codec(CodecConfig()).compress(x)`` then
+``Codec.decompress(c)`` (gap-array plan, tile decode-write, two-pass
+dequantize, all on the card), at a real data size on two fields made from
+``--seed``:
+
+  (a) a Hurricane-ISABEL-shaped 3-D field, float32[100, 500, 500];
+  (b) a HACC-style 1-D field, float32[2**24] (HACC's fields hold 280 M
+      values; cut to 2**24 to keep the run short).
+
+Both are compressed at the paper's setting, eb=1e-3 relative.  The script
+
+  * builds the CUDA kernels (``src/repro_torch/csrc``) for sm_90a;
+  * zeroes every kernel's launch count, drives the main path on both
+    fields, and fails if a kernel of the path was not launched;
+  * checks each field: the codes decoded on the card equal the quantization
+    codes ``compress`` encoded, bit for bit; ``max|x - x'| <= eb_effective``;
+    each kernel equals its plain PyTorch version on the card at the same
+    inputs, bit for bit;
+  * prints CUDA-event times of each kernel, its plain version, the two-pass
+    dequantize, the plan and the whole ``decompress``; the decode
+    throughput (phases 1-4) and the ``decompress`` throughput in GB/s of
+    quant codes (2 B per code); the card's name and power limit; and a
+    ``kernels`` JSON line.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``.  The
+script exits non-zero, printing no result, when PyTorch sees no CUDA device
+or when any check fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+#: Published HBM3 bandwidth of the H100 SXM (bytes/s), for the byte bounds.
+HBM_BYTES_PER_S = 3.35e12
+#: The TPU kernels these CUDA kernels replace (file:line of the def).
+REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
+            "decode_tiles": "src/repro/kernels/huffman_decode.py:105"}
+SOURCES = {"count_subseq": "src/repro_torch/csrc/count_subseq.cu",
+           "decode_tiles": "src/repro_torch/csrc/decode_tiles.cu"}
+HACC_VALUES = 280_953_867
+
+
+def make_fields(seed: int):
+    """The two fields: smooth (Lorenzo-predictable) plus white noise of
+    2e-3 of the unit peak, float32, made with numpy from ``seed``."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import smooth_field
+
+    fields = {}
+    for name, shape, s in (("isabel3d", (100, 500, 500), seed),
+                           ("hacc1d", (1 << 24,), seed + 1)):
+        x = smooth_field(shape, seed=s)
+        noise = np.random.default_rng(s + 1000).standard_normal(shape)
+        fields[name] = (x + np.float32(2e-3) * noise.astype(np.float32))
+    return fields
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call of ``fn`` by CUDA events, warmed up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def kernel_inputs(codec, c):
+    """The inputs the main path gives each kernel for payload ``c``."""
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import ops
+
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, c.device)
+    s0 = ops._tile_inputs(plan.offsets, c.stream.n_subseq, c.n_symbols,
+                          codec.config.tile_syms)
+    count_args = (c.stream.units, plan.start_bits, plan.end_bits,
+                  c.stream.total_bits, luts.dec_sym, luts.dec_len,
+                  luts.max_len)
+    tile_args = (c.stream.units, plan.start_bits, plan.end_bits,
+                 plan.offsets, s0, c.stream.total_bits, luts.dec_sym,
+                 luts.dec_len, luts.max_len, codec.config.tile_syms,
+                 hp.ss_max_for_tile(codec.config.tile_syms, luts.max_len),
+                 c.n_symbols)
+    return count_args, tile_args
+
+
+def max_abs_diff(a, b) -> int:
+    import torch
+
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equality (unsigned tensors compared through signed
+    views, which every PyTorch build can compare on the card)."""
+    import torch
+
+    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    return torch.equal(a.view(signed.get(a.dtype, a.dtype)),
+                       b.view(signed.get(b.dtype, b.dtype)))
+
+
+def require(ok: bool, what: str) -> None:
+    """A check of the run: raises (exit code 1, no result line) if false."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 2
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.sz import compressor, lorenzo
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import huffman_decode as K
+
+    t_start = time.perf_counter()
+    secs = _build.build()
+    print(f"build: {secs:.2f} s for {len(_build.SIGNATURES)} kernels "
+          f"(nvcc, sm_90a, in parallel)")
+    for name, log in sorted(_build.build_log.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    fields = make_fields(args.seed)
+    print(f"fields: {', '.join(f'{k} float32{list(v.shape)}' for k, v in fields.items())}"
+          f" from seed {args.seed} in {time.perf_counter() - t0:.1f} s; "
+          f"hacc1d is cut from HACC's {HACC_VALUES} values to {1 << 24}")
+
+    # -- main path: counts zeroed just before, read just after ---------------
+    xs = {k: torch.from_numpy(v).cuda() for k, v in fields.items()}
+    torch.cuda.synchronize()
+    results = {}
+    K.reset_launch_counts()
+    for name, x in xs.items():
+        codec = Codec(CodecConfig())
+        t0 = time.perf_counter()
+        c = codec.compress(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y = codec.decompress(c)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        results[name] = (codec, c, y, t1 - t0, t2 - t1)
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    print(f"main path launches: {json.dumps(launches)}")
+    for kname, n in launches.items():
+        require(n > 0, f"kernel {kname} was not launched on the main path")
+
+    # -- checks ---------------------------------------------------------------
+    rows = []
+    for name, (codec, c, y, t_comp, t_dec) in results.items():
+        x = xs[name]
+        require(codec.device.type == "cuda" and c.device.type == "cuda"
+                and y.device.type == "cuda", f"{name}: ran off the card")
+        require(y.dtype == x.dtype and tuple(y.shape) == tuple(x.shape),
+                f"{name}: output {y.dtype}{list(y.shape)}")
+        require(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+        want = lorenzo.quantize_host(x, c.eb, c.radius)[0].reshape(-1)
+        got = codec.decode(c.stream, c.codebook, c.n_symbols)
+        require(got.device.type == "cuda" and same(got, want),
+                f"{name}: codes decoded on the card differ from the "
+                f"quantization codes compress encoded")
+        err = float((y.double() - x.double()).abs().max())
+        require(err <= c.eb_effective,
+                f"{name}: max|x - x'| = {err} > eb_effective "
+                f"{c.eb_effective}")
+
+        count_args, tile_args = kernel_inputs(codec, c)
+        kc, kl = K.count_subseq(*count_args)
+        pc, pl = K.count_subseq_plain(*count_args)
+        require(same(kc, pc) and same(kl, pl),
+                f"{name}: count_subseq differs from its plain version")
+        kt = K.decode_tiles(*tile_args)
+        pt = K.decode_tiles_plain(*tile_args)
+        require(same(kt, pt),
+                f"{name}: decode_tiles differs from its plain version")
+        torch.cuda.synchronize()
+
+        # -- times ------------------------------------------------------------
+        n_subseq = c.stream.n_subseq
+        payload = c.stream.total_bits / 8
+        row = {
+            "field": name, "shape": list(x.shape), "ratio": c.ratio,
+            "bits_per_code": c.stream.total_bits / c.n_symbols,
+            "n_subseq": n_subseq, "compress_s": t_comp,
+            "first_decompress_s": t_dec, "max_abs_err": err,
+            "eb_effective": c.eb_effective,
+            "count_subseq": {
+                "ms": cuda_ms(lambda: K.count_subseq(*count_args), 20),
+                "plain_ms": cuda_ms(lambda: K.count_subseq_plain(*count_args),
+                                    2),
+                "bound_ms": (payload + 16 * n_subseq) / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max(max_abs_diff(kc, pc),
+                                   max_abs_diff(kl, pl))},
+            "decode_tiles": {
+                "ms": cuda_ms(lambda: K.decode_tiles(*tile_args), 20),
+                "plain_ms": cuda_ms(lambda: K.decode_tiles_plain(*tile_args),
+                                    1),
+                "bound_ms": (payload + 12 * n_subseq + 2 * c.n_symbols)
+                / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max_abs_diff(kt, pt)},
+        }
+        row["dequantize_ms"] = cuda_ms(
+            lambda: compressor._dequantize(c, got), 10)
+        row["plan_ms"] = cuda_ms(
+            lambda: codec.build_plan(c.stream, c.codebook), 5)
+        row["decompress_cached_plan_ms"] = cuda_ms(
+            lambda: codec.decompress(c), 10)
+        row["decompress_with_plan_ms"] = cuda_ms(
+            lambda: compressor.decompress(c, backend=codec.backend), 5)
+        # The paper's decoder throughput: phases 1-4 (plan built, no
+        # dequantize) over the quant-code bytes, 2 B per code.
+        row["decode_ms"] = cuda_ms(
+            lambda: codec.decode(c.stream, c.codebook, c.n_symbols), 5)
+        for key, ms in (("decode_gbps", row["decode_ms"]),
+                        ("decompress_gbps", row["decompress_with_plan_ms"])):
+            row[key] = c.quant_code_bytes / (ms * 1e-3) / 1e9
+        rows.append(row)
+        print(f"field {json.dumps(row)}")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi)
+    main_row = rows[0]
+    kernels = []
+    for kname in ("count_subseq", "decode_tiles"):
+        k = main_row[kname]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": launches[kname],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

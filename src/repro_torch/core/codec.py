@@ -1,0 +1,240 @@
+"""Codec sessions: one configured object for compress / decompress.
+
+Port of ``src/repro/core/codec.py``.  ``CodecConfig`` freezes the
+compression and decode policy into one hashable, validated value, and
+``Codec`` binds it to the backend handle (with its dispatch and plan-build
+counters), a digest-keyed ``PlanCache`` and a device.
+
+The card is the default: ``CodecConfig()`` decodes on ``backend="cuda"``
+on device ``"cuda"``, and a ``Codec`` built on it raises ``RuntimeError``
+when PyTorch sees no CUDA device.  The CPU is used only when asked for:
+``backend="ref"`` (whose device defaults to ``"cpu"``) or ``device="cpu"``.
+
+    codec = Codec(CodecConfig(eb=1e-3))
+    c = codec.compress(x)                       # on the card
+    xhat = codec.decompress(c)                  # plan cached by digest
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.cache import PlanCache, compressed_digest
+from repro_torch.core.huffman import codebook as cb
+from repro_torch.core.huffman import encode as he
+from repro_torch.core.huffman import pipeline as hp
+from repro_torch.core.sz import compressor, lorenzo
+from repro_torch.core.sz.compressor import Compressed
+from repro_torch.kernels import huffman_decode as K
+
+VALID_MODES = ("rel", "abs")
+VALID_STRATEGIES = hp.VALID_STRATEGIES
+
+DEFAULT_EB = compressor.DEFAULT_EB
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecConfig:
+    """Frozen compression + decode policy; hashable, validates on build.
+
+    Quantizer / encoder side:
+      eb               error bound (relative to the value range for
+                       ``mode="rel"``, absolute for ``mode="abs"``)
+      mode             "rel" | "abs"
+      radius           Lorenzo quantization radius (2*radius bins)
+      max_len          codeword length cap (decode-LUT size is 2**max_len)
+      subseqs_per_seq  encoder framing (128-bit subsequences per sequence)
+      encode_backend   "ref": float64 prequantization, exact histogram and
+                       the bit-pack as torch ops on the codec's device
+
+    Decoder side:
+      method           "gap" (gap-array sync)
+      backend          "cuda" (the CUDA kernels) | "ref" (plain torch)
+      strategy         "tile" (fixed tiles, paper Alg. 1)
+      tile_syms        tile size of the "tile" strategy; on "cuda", one
+                       block's staging tile plus its 2**max_len-entry LUT
+                       must fit Hopper's 227 KB of shared memory, which
+                       bounds max_len at 16 for the default tile
+      fused            request the fused decode; no backend serves it yet,
+                       so it decodes two-pass and counts
+                       ``stats["fused_fallbacks"]``
+
+    Session side:
+      plan_cache_size  LRU bound of the codec's digest-keyed plan cache
+      device           where compress and decompress run; ``None`` means
+                       "cuda" for the "cuda" backend and "cpu" for "ref"
+
+    The reference's ``method="selfsync"``, ``strategy="tuned"`` /
+    ``"padded"`` and device encode backends raise ``NotImplementedError``
+    naming the ROADMAP.md item that ports them; ``t_high`` (read only by
+    "tuned") comes with that strategy.  The reference's sequential oracle
+    ``method="naive_ref"`` is no decode path of the port.
+    """
+
+    eb: float = DEFAULT_EB
+    mode: str = "rel"
+    radius: int = lorenzo.DEFAULT_RADIUS
+    max_len: int = cb.DEFAULT_MAX_LEN
+    subseqs_per_seq: int = he.DEFAULT_SUBSEQS_PER_SEQ
+    encode_backend: str = "ref"
+    method: str = "gap"
+    backend: str = "cuda"
+    strategy: str = "tile"
+    tile_syms: int = hp.DEFAULT_TILE_SYMS
+    fused: bool = False
+    plan_cache_size: int = 4096
+    device: "str | None" = None
+
+    def __post_init__(self):
+        if not (self.eb > 0):
+            raise ValueError(f"eb must be positive, got {self.eb!r}")
+        if self.mode not in VALID_MODES:
+            raise ValueError(
+                f"unknown mode {self.mode!r}; valid modes: {VALID_MODES}")
+        hp.check_method(self.method)
+        hp.check_ported("strategy", self.strategy)
+        if self.strategy not in VALID_STRATEGIES:
+            raise ValueError(f"unknown strategy {self.strategy!r}; valid "
+                             f"strategies: {VALID_STRATEGIES}")
+        if self.backend not in hp.available_backends():
+            raise ValueError(f"unknown backend {self.backend!r}; available: "
+                             f"{hp.available_backends()}")
+        hp.check_ported("encode_backend", self.encode_backend)
+        if self.encode_backend not in hp.available_encode_backends():
+            raise ValueError(
+                f"unknown encode_backend {self.encode_backend!r}; "
+                f"available: {hp.available_encode_backends()}")
+        if self.radius < 2:
+            raise ValueError(f"radius must be >= 2, got {self.radius}")
+        if not (1 <= self.max_len <= 24):
+            raise ValueError(f"max_len must be in [1, 24], got {self.max_len}")
+        if self.tile_syms < 1:
+            raise ValueError(f"tile_syms must be >= 1, got {self.tile_syms}")
+        smem = K.decode_tiles_smem(self.tile_syms, 1 << self.max_len)
+        if self.backend == "cuda" and smem > K.SMEM_LIMIT:
+            raise ValueError(
+                f"backend 'cuda' cannot decode max_len={self.max_len} with "
+                f"tile_syms={self.tile_syms}: a decode_tiles block needs "
+                f"{smem} B of shared memory, Hopper allows {K.SMEM_LIMIT}")
+        if self.subseqs_per_seq < 1:
+            raise ValueError("subseqs_per_seq must be >= 1, got "
+                             f"{self.subseqs_per_seq}")
+        if not isinstance(self.fused, bool):
+            raise ValueError(f"fused must be a bool, got {self.fused!r}")
+        if self.plan_cache_size < 0:
+            raise ValueError("plan_cache_size must be >= 0, got "
+                             f"{self.plan_cache_size}")
+        if self.device is not None:
+            torch.device(self.device)   # raises on a malformed device
+
+    def replace(self, **changes) -> "CodecConfig":
+        return dataclasses.replace(self, **changes)
+
+    def resolved_device(self) -> torch.device:
+        if self.device is not None:
+            return torch.device(self.device)
+        return torch.device("cuda" if self.backend == "cuda" else "cpu")
+
+
+class Codec:
+    """A configured compression/decompression session.
+
+    Holds a ``CodecConfig``, its device, the resolved backend handle (whose
+    ``stats`` count decode-write dispatches and plan builds) and a
+    digest-keyed ``PlanCache``.
+    """
+
+    def __init__(self, config: "CodecConfig | None" = None, *,
+                 plan_cache: "PlanCache | None" = None):
+        self.config = config if config is not None else CodecConfig()
+        device = self.config.resolved_device()
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"Codec(backend={self.config.backend!r}) runs on device "
+                    f"{device}, but torch.cuda.is_available() is False: no "
+                    f"CUDA device is visible to PyTorch.  Pass device='cpu' "
+                    f"or backend='ref' to run on the CPU.")
+            if device.index is None:  # tensors report their card's index
+                device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.backend = hp.get_backend(self.config.backend)
+        self.encode_backend = hp.get_encode_backend(
+            self.config.encode_backend)
+        self.plan_cache = (plan_cache if plan_cache is not None
+                           else PlanCache(self.config.plan_cache_size))
+
+    def __repr__(self):
+        c = self.config
+        return (f"Codec(eb={c.eb:g}, mode={c.mode!r}, method={c.method!r}, "
+                f"backend={c.backend!r}, strategy={c.strategy!r}, "
+                f"device={str(self.device)!r})")
+
+    @property
+    def stats(self) -> dict:
+        """Merged backend dispatch counters + plan-cache hit counters.
+
+        Backend handles are process-wide singletons per name, so their
+        counters are shared by every codec on the same backend.
+        """
+        return {**self.backend.stats, **self.encode_backend.stats,
+                **self.plan_cache.stats}
+
+    def reset_stats(self):
+        self.backend.reset_stats()
+        self.encode_backend.reset_stats()
+        self.plan_cache.reset_stats()
+
+    def _local(self, compressed: Compressed) -> Compressed:
+        if compressed.device == self.device:
+            return compressed
+        return compressed.to(self.device)
+
+    def compress(self, x) -> Compressed:
+        c = self.config
+        return compressor.compress(x, eb=c.eb, mode=c.mode, radius=c.radius,
+                                   max_len=c.max_len,
+                                   subseqs_per_seq=c.subseqs_per_seq,
+                                   encode_backend=self.encode_backend,
+                                   device=self.device)
+
+    def build_plan(self, stream, codebook) -> hp.DecoderPlan:
+        """Phase 1-3 plan under this codec's (method, backend)."""
+        return hp.build_plan(stream, codebook, method=self.config.method,
+                             backend=self.backend)
+
+    def plan_for(self, compressed: Compressed) -> hp.DecoderPlan:
+        """Cached ``DecoderPlan`` for one tensor, keyed by content digest
+        (single-flight: concurrent misses on one payload build it once)."""
+        compressed = self._local(compressed)
+        key = (compressed_digest(compressed), self.config.method)
+        return self.plan_cache.get_or_build_plan(
+            key, lambda: self.build_plan(compressed.stream,
+                                         compressed.codebook))
+
+    def decompress(self, compressed: Compressed, *, plan=None):
+        """Decompress one tensor under the codec's policy, on its device.
+
+        The phase 1-3 plan comes from / goes into the plan cache by content
+        digest; ``config.fused`` decodes two-pass and counts
+        ``stats["fused_fallbacks"]`` (no backend serves it yet).
+        """
+        c = self.config
+        compressed = self._local(compressed)
+        if plan is None:
+            plan = self.plan_for(compressed)
+        return compressor.decompress(compressed, method=c.method,
+                                     tile_syms=c.tile_syms,
+                                     backend=self.backend,
+                                     strategy=c.strategy, plan=plan,
+                                     fused=c.fused)
+
+    def decode(self, stream, codebook, n_out: int, *, plan=None):
+        """Decode a raw encoded stream to uint16 quant codes (no
+        dequantization), on the stream's device."""
+        c = self.config
+        return hp.decode(stream, codebook, n_out, plan=plan, method=c.method,
+                         backend=self.backend, strategy=c.strategy,
+                         tile_syms=c.tile_syms)

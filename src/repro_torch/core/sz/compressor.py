@@ -1,0 +1,289 @@
+"""End-to-end SZ-style compressor: Lorenzo -> quantize -> Huffman.
+
+Port of ``src/repro/core/sz/compressor.py`` (``compress`` on the "ref"
+encode path and the two-pass ``decompress``).  Codebook construction is
+host numpy; quantization, histogram, bit-pack, decode and dequantization
+run as torch ops and CUDA kernels on the input's device.
+
+:func:`compressed_from_arrays` and :func:`compressed_to_arrays` carry a
+``Compressed`` across as plain numpy arrays and scalars, the form in which a
+payload written by the JAX package enters the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.huffman import codebook as cb
+from repro_torch.core.huffman import encode as he
+from repro_torch.core.huffman import pipeline as hp
+from repro_torch.core.sz import lorenzo
+
+DEFAULT_EB = 1e-3
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "float64": torch.float64}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"`` (numpy's / ml_dtypes' names)."""
+    return str(dtype).removeprefix("torch.")
+
+
+@dataclasses.dataclass
+class Compressed:
+    """A compressed tensor (host container; tensor fields on one device)."""
+
+    stream: he.EncodedStream
+    codebook: cb.Codebook
+    outlier_pos: torch.Tensor  # int32[m_pad], -1 padded
+    outlier_val: torch.Tensor  # int32[m_pad] Lorenzo residuals
+    shape: tuple
+    dtype: torch.dtype
+    eb: float
+    radius: int
+    rel_range: float           # value range used for relative error bounds
+    max_abs: float = 0.0       # max |x|, for the effective-bound guarantee
+
+    @property
+    def n_symbols(self) -> int:
+        return int(np.prod(self.shape))
+
+    @property
+    def device(self) -> torch.device:
+        return self.stream.units.device
+
+    def to(self, device) -> "Compressed":
+        return dataclasses.replace(
+            self, stream=self.stream.to(device),
+            outlier_pos=self.outlier_pos.to(device),
+            outlier_val=self.outlier_val.to(device))
+
+    @property
+    def compressed_bytes(self) -> int:
+        """Storage accounting (paper's compression-ratio definition)."""
+        unit_bytes = int(np.ceil(int(self.stream.total_bits) / 8))
+        gap_bytes = self.stream.gaps.shape[0]  # 1 B / subsequence
+        outlier_bytes = 8 * int((self.outlier_pos >= 0).sum())
+        codebook_bytes = 2 * (1 << self.codebook.max_len)
+        return unit_bytes + gap_bytes + outlier_bytes + codebook_bytes
+
+    @property
+    def original_bytes(self) -> int:
+        return self.n_symbols * self.dtype.itemsize
+
+    @property
+    def ratio(self) -> float:
+        return self.original_bytes / max(self.compressed_bytes, 1)
+
+    @property
+    def quant_code_bytes(self) -> int:
+        """Size of the quantization-code array (2 bytes per code): the
+        paper's decoder throughput is relative to it."""
+        return 2 * self.n_symbols
+
+    @property
+    def eb_effective(self) -> float:
+        """Guaranteed bound: eb + reconstruction rounding.
+
+        The lattice value q is exact (float64 prequantization); the further
+        rounding is the float32 product ``q * 2*eb`` (one f32 ulp at max
+        |x|), plus -- for bf16/f16 outputs -- the single final cast (half an
+        output-dtype ulp at max |x'|).
+        """
+        bound = self.eb + float(np.spacing(np.float32(self.max_abs + self.eb)))
+        if self.dtype.itemsize < 4:
+            bound += 0.5 * float(torch.finfo(self.dtype).eps) * (
+                self.max_abs + bound)
+        return bound
+
+
+def _outlier_m_pad(n_out: int) -> int:
+    """Power-of-two side-list padding, as in the reference."""
+    return max(8, int(2 ** np.ceil(np.log2(max(n_out, 1) + 1))))
+
+
+def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
+             radius: int = lorenzo.DEFAULT_RADIUS,
+             max_len: int = cb.DEFAULT_MAX_LEN,
+             subseqs_per_seq: int = he.DEFAULT_SUBSEQS_PER_SEQ,
+             encode_backend: "str | hp.EncodeBackend" = "ref",
+             device="cuda") -> Compressed:
+    """Compress a float tensor with error bound ``eb``.
+
+    mode="rel": bound is ``eb * (max(x) - min(x))`` (the paper's setting,
+    "relative error bound 1e-3"); mode="abs": bound is ``eb`` directly.
+    ``x`` (a tensor or numpy array) is moved to ``device`` (the card unless
+    the caller asks for the CPU) and compressed there.
+    """
+    ebe = hp.get_encode_backend(encode_backend)
+    x = torch.as_tensor(x).to(device)
+    if mode == "rel":
+        rng = float(x.max() - x.min())
+        rng = rng if rng > 0 else 1.0
+        abs_eb = eb * rng
+    elif mode == "abs":
+        rng = 1.0
+        abs_eb = eb
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    max_abs = float(x.abs().max())
+
+    codes, outlier, resid = ebe.quantize_fn(x, abs_eb, radius)
+    codes_flat = codes.reshape(-1)
+
+    # Outlier side list (exact residuals), padded to power-of-two length.
+    pos = torch.nonzero(outlier.reshape(-1)).reshape(-1)
+    m_pad = _outlier_m_pad(pos.shape[0])
+    pos_pad = torch.full((m_pad,), -1, dtype=torch.int32, device=x.device)
+    val_pad = torch.zeros(m_pad, dtype=torch.int32, device=x.device)
+    pos_pad[: pos.shape[0]] = pos.to(torch.int32)
+    val_pad[: pos.shape[0]] = resid.reshape(-1)[pos].to(torch.int32)
+    freq = ebe.hist_fn(codes_flat, 2 * radius)
+
+    # Histogram -> codebook (host package-merge) -> bit-pack.
+    plan = hp.build_encoder_plan(freq, max_len=max_len,
+                                 subseqs_per_seq=subseqs_per_seq,
+                                 backend=ebe, device=x.device)
+    stream = hp.encode_with_plan(codes_flat, plan, backend=ebe)
+    return Compressed(stream=stream, codebook=plan.codebook,
+                      outlier_pos=pos_pad, outlier_val=val_pad,
+                      shape=tuple(x.shape), dtype=x.dtype, eb=abs_eb,
+                      radius=radius, rel_range=rng, max_abs=max_abs)
+
+
+def _dequantize(c: Compressed, codes: torch.Tensor) -> torch.Tensor:
+    return lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
+                              c.outlier_val, c.eb, c.shape, radius=c.radius,
+                              dtype=c.dtype)
+
+
+def fused_unsupported_reason(backend) -> "str | None":
+    """Why the fused decode path cannot serve a tensor (``None`` = it can).
+
+    No backend of the port registers fused ops yet (ROADMAP.md queue A item
+    1, which also ports the reference's shape and dtype bounds), so every
+    backend reports its own name here and ``fused=True`` decodes two-pass,
+    counted in ``stats["fused_fallbacks"]``.
+    """
+    be = hp.get_backend(backend)
+    if not be.supports_fused:
+        return f"backend {be.name!r} registers no fused ops"
+    return None
+
+
+def _guard_symbol_count(c: Compressed, plan, backend) -> None:
+    """Decoder guard: a plan must decode exactly ``c.n_symbols`` symbols;
+    a mismatch (corrupt stream metadata) counts a guard trip and raises
+    ``DecodeGuardError``."""
+    total = int(np.asarray(plan.seq_counts).sum())
+    if total != c.n_symbols:
+        hp.get_backend(backend).bump("decode_guard_trips")
+        raise hp.DecodeGuardError(
+            f"symbol-count mismatch: plan decodes {total} symbols but the "
+            f"tensor records n_symbols={c.n_symbols} (shape "
+            f"{tuple(c.shape)}) -- corrupt stream metadata")
+
+
+def decompress(c: Compressed, method: str = "gap",
+               tile_syms: int = hp.DEFAULT_TILE_SYMS, *,
+               backend: "str | hp.DecodeBackend" = "cuda",
+               strategy: str = "tile", plan=None,
+               fused: bool = False) -> torch.Tensor:
+    """Decompress on the device ``c`` lives on; ``method`` is "gap".
+
+    Decoding goes through ``pipeline.decode`` on ``backend``; ``plan`` may
+    carry a prebuilt ``DecoderPlan``.  ``fused=True`` falls back to the
+    two-pass path when the backend cannot serve it (see
+    :func:`fused_unsupported_reason`: always, so far) and increments
+    ``backend.stats["fused_fallbacks"]``.
+    """
+    book = c.codebook
+    hp.check_method(method)
+    hp.check_ported("strategy", strategy)
+    if plan is None:
+        plan = hp.build_plan(c.stream, book, method=method, backend=backend)
+    _guard_symbol_count(c, plan, backend)
+
+    if fused and fused_unsupported_reason(backend) is not None:
+        hp.get_backend(backend).bump("fused_fallbacks")
+
+    codes = hp.decode(c.stream, book, c.n_symbols, plan=plan, method=method,
+                      backend=backend, strategy=strategy, tile_syms=tile_syms)
+    return _dequantize(c, codes)
+
+
+# ---------------------------------------------------------------------------
+# Carrying a payload across as plain arrays
+# ---------------------------------------------------------------------------
+
+#: Keys of the dict form of a ``Compressed``.
+ARRAY_FIELDS = ("units", "gaps", "counts", "seq_counts", "total_bits",
+                "n_symbols", "subseqs_per_seq", "enc_code", "enc_len",
+                "max_len", "outlier_pos", "outlier_val", "shape", "dtype",
+                "eb", "radius", "rel_range", "max_abs")
+
+
+def compressed_from_arrays(fields: dict, device) -> Compressed:
+    """Build a ``Compressed`` on ``device`` from numpy arrays and scalars.
+
+    ``fields`` has the keys of ``ARRAY_FIELDS``: the stream (``units``
+    uint32, ``gaps`` uint8, ``counts`` / ``seq_counts`` int32,
+    ``total_bits``, ``n_symbols``, ``subseqs_per_seq``), the codebook's
+    encoder tables (``enc_code`` uint32, ``enc_len`` uint8, ``max_len``; the
+    decode LUT is rebuilt from them), the outlier side list, ``shape``,
+    ``dtype`` as a string ("float32", "bfloat16", "float16") and the
+    quantizer scalars.
+    """
+    missing = [k for k in ARRAY_FIELDS if k not in fields]
+    if missing:
+        raise KeyError(f"compressed_from_arrays: missing fields {missing}")
+    f = fields
+
+    def t(name, np_dtype):
+        return torch.from_numpy(np.array(f[name], np_dtype)).to(device)
+
+    stream = he.EncodedStream(
+        units=t("units", np.uint32), gaps=t("gaps", np.uint8),
+        counts=t("counts", np.int32), seq_counts=t("seq_counts", np.int32),
+        total_bits=int(f["total_bits"]), n_symbols=int(f["n_symbols"]),
+        subseqs_per_seq=int(f["subseqs_per_seq"]))
+    enc_code = np.asarray(f["enc_code"], np.uint32)
+    enc_len = np.asarray(f["enc_len"], np.uint8)
+    max_len = int(f["max_len"])
+    dec_sym, dec_len = cb.build_decode_lut(enc_code, enc_len, max_len)
+    book = cb.Codebook(n_symbols=int(enc_code.shape[0]), max_len=max_len,
+                       enc_code=enc_code, enc_len=enc_len, dec_sym=dec_sym,
+                       dec_len=dec_len)
+    dtype = _DTYPES.get(str(f["dtype"]))
+    if dtype is None:
+        raise ValueError(f"unsupported dtype {f['dtype']!r}; "
+                         f"known: {sorted(_DTYPES)}")
+    return Compressed(
+        stream=stream, codebook=book,
+        outlier_pos=t("outlier_pos", np.int32),
+        outlier_val=t("outlier_val", np.int32),
+        shape=tuple(int(s) for s in f["shape"]), dtype=dtype,
+        eb=float(f["eb"]), radius=int(f["radius"]),
+        rel_range=float(f["rel_range"]), max_abs=float(f["max_abs"]))
+
+
+def compressed_to_arrays(c: Compressed) -> dict:
+    """Inverse of :func:`compressed_from_arrays` (host numpy copies)."""
+    s = c.stream
+    host = {k: v.cpu().numpy() for k, v in (
+        ("units", s.units), ("gaps", s.gaps), ("counts", s.counts),
+        ("seq_counts", s.seq_counts), ("outlier_pos", c.outlier_pos),
+        ("outlier_val", c.outlier_val))}
+    return {**host, "total_bits": int(s.total_bits),
+            "n_symbols": int(s.n_symbols),
+            "subseqs_per_seq": int(s.subseqs_per_seq),
+            "enc_code": np.asarray(c.codebook.enc_code, np.uint32),
+            "enc_len": np.asarray(c.codebook.enc_len, np.uint8),
+            "max_len": int(c.codebook.max_len), "shape": tuple(c.shape),
+            "dtype": dtype_name(c.dtype), "eb": float(c.eb),
+            "radius": int(c.radius), "rel_range": float(c.rel_range),
+            "max_abs": float(c.max_abs)}

@@ -1,0 +1,109 @@
+// Device functions shared by the Huffman decode kernels.
+//
+// CUDA counterparts of src/repro_torch/kernels/common.py (itself the port of
+// src/repro/kernels/common.py): the window rules, the per-lane unit row, the
+// peek and the masked lane decode loop.  The plain torch versions there are
+// the arithmetic these functions are held against.
+//
+// Coordinates: a lane owns a row of kRowUnits uint32 units starting at the
+// subsequence its start falls in (192 bits >= 128 body + 24 codeword + 31
+// alignment); bit positions are local to that row.
+#pragma once
+
+#include <cstdint>
+
+namespace repro_torch {
+
+constexpr int kRowUnits = 6;
+constexpr int kRowBits = kRowUnits * 32;
+constexpr int kMaxSyms = 128;      // a subsequence holds <= 128 codewords
+constexpr int kSubseqBits = 128;
+
+// ops._subseq_windows: row = subsequence of the start (floor division; the
+// arithmetic shift floors negative starts as the reference does), end
+// clamped to total_bits and to the row.
+__device__ __forceinline__ void subseq_window(int start_abs, int end_abs,
+                                              int total_bits, int* row,
+                                              int* start_local,
+                                              int* end_local) {
+  const int id = start_abs >> 7;
+  const int base = id * kSubseqBits;
+  *row = id;
+  *start_local = start_abs - base;
+  *end_local = min(max(min(end_abs, total_bits) - base, 0), kRowBits);
+}
+
+// common.gather_subseq_rows: units[4*id + i]; reads past the stream are 0
+// and a negative index reads unit 0, exactly as the reference's clip does.
+__device__ __forceinline__ void load_row(const uint32_t* __restrict__ units,
+                                         long long n_units, int id,
+                                         uint32_t row[kRowUnits]) {
+#pragma unroll
+  for (int i = 0; i < kRowUnits; ++i) {
+    const long long idx = static_cast<long long>(id) * 4 + i;
+    row[i] = idx < n_units ? __ldg(units + (idx < 0 ? 0 : idx)) : 0u;
+  }
+}
+
+// Register-resident select: row[u] without indexing into local memory.
+__device__ __forceinline__ uint32_t row_unit(const uint32_t row[kRowUnits],
+                                             int u) {
+  uint32_t w = 0;
+#pragma unroll
+  for (int i = 0; i < kRowUnits; ++i) w = (i == u) ? row[i] : w;
+  return w;
+}
+
+// common.peek_rows: the next max_len bits at row-local position pos.  The
+// reference masks `w1 >> (32 - sh)` at sh == 0 (a shift by 32 is undefined
+// in C); one 64-bit window shifted by sh gives the same bits with no
+// undefined shift.
+__device__ __forceinline__ int peek_row(const uint32_t row[kRowUnits],
+                                        int pos, int max_len) {
+  const int u = min(max(pos >> 5, 0), kRowUnits - 1);
+  const int sh = pos & 31;
+  const uint32_t w0 = row_unit(row, u);
+  const uint32_t w1 = (u + 1 < kRowUnits) ? row_unit(row, u + 1) : 0u;
+  const uint64_t w = (static_cast<uint64_t>(w0) << 32) | w1;
+  const uint32_t window = static_cast<uint32_t>((w << sh) >> 32);
+  return static_cast<int>(window >> (32 - max_len));
+}
+
+// common.decode_window for one lane: decode [start, end), calling
+// emit(k, sym) for the k-th codeword; emit returns false to stop early
+// (the lane's remaining symbols are known to be unwanted).  The LUT index
+// is clamped into the table and a zero-length entry advances one bit, so a
+// corrupt table can neither read outside it nor loop forever.  Returns the
+// count; *landing gets the final position.
+template <typename Emit>
+__device__ __forceinline__ int decode_lane(const uint32_t row[kRowUnits],
+                                           int start, int end,
+                                           const uint16_t* sym,
+                                           const uint8_t* len, int lut_size,
+                                           int lut_base, int max_len,
+                                           int* landing, Emit emit) {
+  int pos = max(min(start, end), 0);
+  int count = 0;
+  while (pos < end) {
+    const int win =
+        min(max(peek_row(row, pos, max_len) + lut_base, 0), lut_size - 1);
+    if (!emit(count, static_cast<int>(sym[win]))) break;
+    ++count;
+    pos += max(static_cast<int>(len[win]), 1);
+  }
+  *landing = pos;
+  return count;
+}
+
+// Stage the decode LUT (u16 symbol + u8 length per entry) in shared memory.
+__device__ __forceinline__ void stage_lut(const uint16_t* __restrict__ dec_sym,
+                                          const uint8_t* __restrict__ dec_len,
+                                          int lut_size, uint16_t* s_sym,
+                                          uint8_t* s_len) {
+  for (int i = threadIdx.x; i < lut_size; i += blockDim.x) {
+    s_sym[i] = dec_sym[i];
+    s_len[i] = dec_len[i];
+  }
+}
+
+}  // namespace repro_torch

@@ -1,0 +1,244 @@
+"""Gap-array Huffman decode kernels: CUDA wrappers and plain versions.
+
+Port of ``src/repro/kernels/huffman_decode.py``:
+
+  * :func:`count_subseq` -- phase 1 ("get output idx."): codewords and
+    landing position per subsequence window (``csrc/count_subseq.cu``).
+  * :func:`decode_tiles` -- phase 4 (paper Alg. 1): tile-staged decode and
+    dense write of the quant codes (``csrc/decode_tiles.cu``).
+
+Each wrapper checks its inputs, then launches its CUDA kernel for CUDA
+tensors and runs its plain version (``*_plain``, beside it) for CPU
+tensors.  Any other device raises.  Each wrapper counts its kernel launches
+in its ``launches`` attribute.  The plain versions run on any device, so a
+check on the card can hold a kernel against its plain version on the same
+inputs.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import common as C
+
+#: Shared memory one block may use on Hopper (227 KB).
+SMEM_LIMIT = 232448
+
+_launch_lock = threading.Lock()
+
+
+def _launched(wrapper):
+    with _launch_lock:
+        wrapper.launches += 1
+
+
+def reset_launch_counts():
+    """Zero the launch counters of every kernel wrapper."""
+    with _launch_lock:
+        for wrapper in KERNELS:
+            wrapper.launches = 0
+
+
+def _expect(name, t, dtype, shape=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_stream(units, dec_sym, dec_len, max_len, total_bits, extra):
+    _expect("units", units, torch.uint32)
+    if units.ndim != 1:
+        raise ValueError(f"units must be 1-D, got shape {tuple(units.shape)}")
+    if not 1 <= max_len <= 24:
+        raise ValueError(f"max_len must be in [1, 24], got {max_len}")
+    _expect("dec_sym", dec_sym, torch.uint16)
+    if dec_sym.ndim != 1 or dec_sym.numel() < 1:
+        raise ValueError("dec_sym must be a non-empty 1-D LUT")
+    _expect("dec_len", dec_len, torch.uint8, dec_sym.shape)
+    if not 0 <= int(total_bits) < 2**31:
+        raise ValueError(f"total_bits {total_bits} outside the int32 range")
+    for name, t in {"dec_sym": dec_sym, "dec_len": dec_len,
+                    **extra}.items():
+        if t is not None and t.device != units.device:
+            raise ValueError(f"{name} is on {t.device}, units on "
+                             f"{units.device}: all inputs must share a "
+                             f"device")
+    if units.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel and no plain path for device "
+                         f"{units.device}")
+
+
+def decode_tiles_smem(tile_syms: int, lut: int) -> int:
+    """Shared memory of one ``decode_tiles`` block: the uint16 staging tile
+    plus the LUT (uint16 symbol and uint8 length per entry).  It bounds
+    ``count_subseq`` too, whose block holds the LUT alone."""
+    return 2 * tile_syms + 3 * lut
+
+
+def _check_smem(name, nbytes):
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name} needs {nbytes} B of shared memory per "
+                         f"block; Hopper allows {SMEM_LIMIT}")
+
+
+def _stream_ptr(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: per-subsequence counts
+# ---------------------------------------------------------------------------
+
+
+def count_subseq_plain(units, start_abs, end_abs, total_bits: int, dec_sym,
+                       dec_len, max_len: int):
+    """Plain version of :func:`count_subseq` (any device)."""
+    ids, start, end = C.subseq_windows(start_abs, end_abs, total_bits)
+    rows = C.gather_subseq_rows(units, ids)
+    landing, counts = C.decode_window(rows, start, end, dec_sym, dec_len,
+                                      max_len)
+    return counts, landing
+
+
+def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
+                 dec_len, max_len: int):
+    """Codewords per absolute window ``[start_abs[i], end_abs[i])``.
+
+    units: uint32[n_units]; start_abs/end_abs: int32[n]; dec_sym:
+    uint16[lut]; dec_len: uint8[lut].  Returns ``(counts, landing)``
+    int32[n], ``landing`` row-local as in the reference.
+    """
+    _check_stream(units, dec_sym, dec_len, max_len, total_bits,
+                  {"start_abs": start_abs, "end_abs": end_abs})
+    _expect("start_abs", start_abs, torch.int32)
+    if start_abs.ndim != 1:
+        raise ValueError("start_abs must be 1-D")
+    _expect("end_abs", end_abs, torch.int32, start_abs.shape)
+    if units.device.type == "cpu":
+        return count_subseq_plain(units, start_abs, end_abs, total_bits,
+                                  dec_sym, dec_len, max_len)
+    lut = dec_sym.numel()
+    _check_smem("count_subseq", 3 * lut)
+    n = start_abs.shape[0]
+    counts = torch.empty(n, dtype=torch.int32, device=units.device)
+    landing = torch.empty_like(counts)
+    if n == 0:
+        return counts, landing
+    launch = _build.load("count_subseq")
+    rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
+                end_abs.data_ptr(), n, int(total_bits), dec_sym.data_ptr(),
+                dec_len.data_ptr(), lut, max_len, counts.data_ptr(),
+                landing.data_ptr(), _stream_ptr(units.device))
+    if rc != 0:
+        raise RuntimeError(f"count_subseq kernel launch failed: CUDA error "
+                           f"{rc}")
+    _launched(count_subseq)
+    return counts, landing
+
+
+count_subseq.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: tile-staged decode + write
+# ---------------------------------------------------------------------------
+
+
+def decode_tiles_plain(units, start_abs, end_abs, offsets, s0,
+                       total_bits: int, dec_sym, dec_len, max_len: int,
+                       tile_syms: int, ss_max: int, n_out: int,
+                       lut_base=None):
+    """Plain version of :func:`decode_tiles` (any device).
+
+    Lane ``j`` of tile ``t`` is subsequence ``s0[t] + j``; lanes past the
+    last subsequence do no work (``ops._tile_inputs`` in the reference).
+    """
+    device = units.device
+    n_subseq = start_abs.shape[0]
+    n_tiles = s0.shape[0]
+    tile_base = torch.arange(n_tiles, dtype=torch.int64,
+                             device=device) * tile_syms
+    subs_raw = (s0.to(torch.int64)[:, None]
+                + torch.arange(ss_max, device=device)[None, :])
+    valid = subs_raw < n_subseq
+    subs = subs_raw.clamp(max=n_subseq - 1)
+    ids, start, end = C.subseq_windows(start_abs[subs], end_abs[subs],
+                                       total_bits)
+    start = torch.where(valid, start, 0)
+    end = torch.where(valid, end, 0)
+    off = torch.where(valid, offsets[subs].to(torch.int64)
+                      - tile_base[:, None], tile_syms)
+    lb = (torch.zeros_like(off) if lut_base is None
+          else torch.where(valid, lut_base[subs].to(torch.int64), 0))
+    rows = C.gather_subseq_rows(units, ids)
+    tiles = C.stage_tile(rows, start, end, off, lb, dec_sym, dec_len,
+                         max_len, tile_syms)
+    return tiles.reshape(-1)[:n_out]
+
+
+def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
+                 dec_sym, dec_len, max_len: int, tile_syms: int, ss_max: int,
+                 n_out: int, lut_base=None):
+    """Tile-centric decode + write of ``n_out`` quant codes.
+
+    units:      uint32[n_units]
+    start_abs:  int32[n_subseq]   absolute window starts
+    end_abs:    int32[n_subseq]   absolute window ends
+    offsets:    int32[n_subseq+1] exclusive prefix sum of the counts
+    s0:         int32[n_tiles]    first subsequence overlapping each tile
+    lut_base:   optional int32[n_subseq] per-subsequence offset into a
+                merged decode LUT (``None`` for one codebook)
+    Returns uint16[n_out].
+    """
+    _check_stream(units, dec_sym, dec_len, max_len, total_bits,
+                  {"start_abs": start_abs, "end_abs": end_abs,
+                   "offsets": offsets, "s0": s0, "lut_base": lut_base})
+    _expect("start_abs", start_abs, torch.int32)
+    if start_abs.ndim != 1 or start_abs.numel() < 1:
+        raise ValueError("start_abs must be a non-empty 1-D tensor")
+    n_subseq = start_abs.shape[0]
+    _expect("end_abs", end_abs, torch.int32, (n_subseq,))
+    _expect("offsets", offsets, torch.int32, (n_subseq + 1,))
+    if tile_syms < 1 or ss_max < 1 or n_out < 0:
+        raise ValueError(f"bad tiling: tile_syms={tile_syms}, "
+                         f"ss_max={ss_max}, n_out={n_out}")
+    n_tiles = (n_out + tile_syms - 1) // tile_syms
+    _expect("s0", s0, torch.int32, (n_tiles,))
+    if lut_base is not None:
+        _expect("lut_base", lut_base, torch.int32, (n_subseq,))
+    if units.device.type == "cpu":
+        return decode_tiles_plain(units, start_abs, end_abs, offsets, s0,
+                                  total_bits, dec_sym, dec_len, max_len,
+                                  tile_syms, ss_max, n_out, lut_base)
+    lut = dec_sym.numel()
+    _check_smem("decode_tiles", decode_tiles_smem(tile_syms, lut))
+    out = torch.empty(n_out, dtype=torch.uint16, device=units.device)
+    if n_tiles == 0:
+        return out
+    launch = _build.load("decode_tiles")
+    rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
+                end_abs.data_ptr(), offsets.data_ptr(), s0.data_ptr(),
+                None if lut_base is None else lut_base.data_ptr(), n_subseq,
+                int(total_bits), dec_sym.data_ptr(), dec_len.data_ptr(), lut,
+                max_len, tile_syms, ss_max, n_out, n_tiles, out.data_ptr(),
+                _stream_ptr(units.device))
+    if rc != 0:
+        raise RuntimeError(f"decode_tiles kernel launch failed: CUDA error "
+                           f"{rc}")
+    _launched(decode_tiles)
+    return out
+
+
+decode_tiles.launches = 0
+
+#: Every kernel wrapper of this module (the launch counters live on them).
+KERNELS = (count_subseq, decode_tiles)

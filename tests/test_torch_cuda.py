@@ -1,0 +1,185 @@
+"""The CUDA kernels on the card, held against their plain versions.
+
+Every test here needs a CUDA device: it is marked ``cuda`` and skips when
+``torch.cuda.is_available()`` is false (decided in the fixture, never at
+import).  This file imports no JAX, so it also runs on a machine that has
+PyTorch for CUDA and nothing of the JAX stack:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.codec import Codec, CodecConfig
+from repro_torch.core.huffman import codebook, encode
+from repro_torch.core.huffman import decode as hd
+from repro_torch.core.huffman import pipeline as hp
+from repro_torch.core.sz import lorenzo
+from repro_torch.data.pipeline import smooth_field
+from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+def _signed(t):
+    return t.view({torch.uint16: torch.int16,
+                   torch.uint32: torch.int32}.get(t.dtype, t.dtype))
+
+
+def _payload(cuda, shape, seed, noise, radius=512, max_len=12):
+    rng = np.random.default_rng(seed)
+    x = smooth_field(shape, seed=seed) + np.float32(noise) * \
+        rng.standard_normal(shape).astype(np.float32)
+    codec = Codec(CodecConfig(radius=radius, max_len=max_len,
+                              device=str(cuda)))
+    return codec, torch.from_numpy(x).to(cuda), codec.compress(
+        torch.from_numpy(x).to(cuda))
+
+
+@pytest.mark.parametrize("shape,noise,tile", [
+    ((20000,), 1e-4, 4096), ((30, 40, 50), 2e-3, 4096),
+    ((300, 400), 3e-2, 1024), ((7, 9), 0.0, 512),
+    # > 48 KB of shared memory and > 1024 lanes a block
+    ((200000,), 1e-3, 20000)])
+def test_kernels_match_plain(cuda, shape, noise, tile):
+    codec, x, c = _payload(cuda, shape, 3, noise)
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, cuda)
+    args = (c.stream.units, plan.start_bits, plan.end_bits,
+            c.stream.total_bits, luts.dec_sym, luts.dec_len, luts.max_len)
+    before = K.count_subseq.launches
+    kc, kl = K.count_subseq(*args)
+    assert K.count_subseq.launches == before + 1
+    pc, pl = K.count_subseq_plain(*args)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+    s0 = ops._tile_inputs(plan.offsets, c.stream.n_subseq, c.n_symbols,
+                          tile)
+    targs = (c.stream.units, plan.start_bits, plan.end_bits, plan.offsets,
+             s0, c.stream.total_bits, luts.dec_sym, luts.dec_len,
+             luts.max_len, tile, hp.ss_max_for_tile(tile, luts.max_len),
+             c.n_symbols)
+    kt = K.decode_tiles(*targs)
+    pt = K.decode_tiles_plain(*targs)
+    assert torch.equal(_signed(kt), _signed(pt))
+    want = lorenzo.quantize_host(x, c.eb, c.radius)[0].reshape(-1)
+    assert torch.equal(_signed(kt), _signed(want))
+
+
+def test_merged_lut_base(cuda):
+    codec, x, c = _payload(cuda, (5000,), 5, 1e-3)
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, cuda)
+    size = 1 << luts.max_len
+    ds = torch.cat([torch.zeros(size, dtype=torch.uint16, device=cuda),
+                    luts.dec_sym])
+    dl = torch.cat([torch.ones(size, dtype=torch.uint8, device=cuda),
+                    luts.dec_len])
+    base = torch.full((c.stream.n_subseq,), size, dtype=torch.int32,
+                      device=cuda)
+    args = (c.stream.units, ds, dl, plan.start_bits, plan.end_bits,
+            plan.offsets, c.stream.total_bits, luts.max_len, c.n_symbols,
+            4096, hp.ss_max_for_tile(4096, luts.max_len))
+    got = ops.decode_write_tiles(*args, lut_base=base)
+    ref = codec.decode(c.stream, c.codebook, c.n_symbols)
+    assert torch.equal(_signed(got), _signed(ref))
+
+
+def test_default_codec_round_trip(cuda):
+    x = torch.from_numpy(smooth_field((64, 64, 64), seed=2)).to(cuda)
+    codec = Codec()
+    K.reset_launch_counts()
+    c = codec.compress(x)
+    y = codec.decompress(c)
+    assert y.device.type == "cuda" and y.dtype == x.dtype
+    assert (y.double() - x.double()).abs().max().item() <= c.eb_effective
+    assert K.count_subseq.launches == 1 and K.decode_tiles.launches == 1
+    ref = Codec(CodecConfig(backend="ref")).decompress(c.to("cpu"))
+    assert torch.equal(y.cpu(), ref)
+    codec.reset_stats()
+    codec.decompress(c)                   # same payload: plan cache hit
+    assert codec.stats["plan_hits"] == 1 and codec.stats["plan_builds"] == 0
+
+
+def test_shared_memory_bound(cuda):
+    """A LUT that cannot sit in shared memory next to the tile raises."""
+    units = torch.zeros(128, dtype=torch.uint32, device=cuda)
+    s = torch.zeros(32, dtype=torch.int32, device=cuda)
+    ds = torch.zeros(1 << 17, dtype=torch.uint16, device=cuda)
+    dl = torch.zeros(1 << 17, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        K.count_subseq(units, s, s + 128, 0, ds, dl, 17)
+
+
+def test_cpu_inputs_never_launch(cuda):
+    units = torch.zeros(128, dtype=torch.uint32)
+    s = torch.zeros(32, dtype=torch.int32)
+    before = K.count_subseq.launches
+    K.count_subseq(units, s, s + 128, 0, torch.zeros(16, dtype=torch.uint16),
+                   torch.ones(16, dtype=torch.uint8), 4)
+    assert K.count_subseq.launches == before
+
+
+def _stream(cuda, freq, n, max_len, seed):
+    rng = np.random.default_rng(seed)
+    book = codebook.build_codebook(freq, max_len=max_len)
+    syms = rng.choice(len(freq), size=n, p=freq / freq.sum())
+    stream = encode.encode(torch.from_numpy(syms).to(cuda),
+                           torch.from_numpy(book.enc_code).to(cuda),
+                           torch.from_numpy(book.enc_len).to(cuda))
+    return book, syms, stream
+
+
+@pytest.mark.parametrize("name,max_len", [("one-bit", 12), ("flat", 16),
+                                          ("short", 4)])
+def test_codebooks_at_the_edges(cuda, name, max_len):
+    """1-bit codes (128 codewords a subsequence, the slot-127 clamp), a
+    2**16-entry LUT (196 KB of shared memory) and a 4-bit cap."""
+    freq = {"one-bit": np.array([10**6, 3, 2, 1]),
+            "flat": np.full(1024, 5),
+            "short": np.arange(1, 17)}[name]
+    book, syms, stream = _stream(cuda, freq, 30000, max_len, 1)
+    ds = torch.from_numpy(book.dec_sym).to(cuda)
+    dl = torch.from_numpy(book.dec_len).to(cuda)
+    bnd = torch.arange(stream.n_subseq, dtype=torch.int32, device=cuda) * 128
+    start = bnd + stream.gaps.to(torch.int32)
+    args = (stream.units, start, bnd + 128, stream.total_bits, ds, dl,
+            max_len)
+    kc, kl = K.count_subseq(*args)
+    pc, pl = K.count_subseq_plain(*args)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+    assert int(kc.sum()) == syms.shape[0]
+    got = ops.decode_write_tiles(stream.units, ds, dl, start, bnd + 128,
+                                 hd.output_offsets(kc), stream.total_bits,
+                                 max_len, syms.shape[0], 4096,
+                                 hp.ss_max_for_tile(4096, max_len))
+    assert np.array_equal(got.cpu().to(torch.int64).numpy(), syms)
+
+
+def test_corrupt_windows_match_plain(cuda):
+    """Negative, inverted, overlong and out-of-stream windows follow the
+    reference's window rules in the kernel as in the plain version."""
+    freq = np.bincount(np.random.default_rng(0).zipf(1.3, 20000) % 300,
+                       minlength=300)
+    book, _, stream = _stream(cuda, freq, 5000, 12, 2)
+    rng = np.random.default_rng(3)
+    nbits = stream.units.shape[0] * 32
+    start = rng.integers(-300, nbits + 300, size=4000)
+    end = start + rng.integers(-60, 500, size=4000)
+    args = (stream.units, torch.from_numpy(start.astype(np.int32)).to(cuda),
+            torch.from_numpy(end.astype(np.int32)).to(cuda),
+            stream.total_bits, torch.from_numpy(book.dec_sym).to(cuda),
+            torch.from_numpy(book.dec_len).to(cuda), 12)
+    kc, kl = K.count_subseq(*args)
+    pc, pl = K.count_subseq_plain(*args)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
