@@ -3,29 +3,41 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the port's main path, ``Codec(CodecConfig()).compress(x)`` then
-``Codec.decompress(c)`` (gap-array plan, tile decode-write, two-pass
-dequantize, all on the card), at a real data size on two fields made from
-``--seed``:
+Drives the port's two decode paths through ``Codec``, all on the card, at a
+real data size on three fields made from ``--seed``:
 
   (a) a Hurricane-ISABEL-shaped 3-D field, float32[100, 500, 500];
-  (b) a HACC-style 1-D field, float32[2**24] (HACC's fields hold 280 M
+  (b) a CESM-ATM-shaped 2-D field, float32[1800, 3600] (one CESM field of
+      SDRBench, the paper's 2-D dataset);
+  (c) a HACC-style 1-D field, float32[2**24] (HACC's fields hold 280 M
       values; cut to 2**24 to keep the run short).
 
-Both are compressed at the paper's setting, eb=1e-3 relative.  The script
+All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
+
+  * two-pass, ``Codec(CodecConfig())``: gap-array plan (``count_subseq``
+    kernel), tile decode-write (``decode_tiles`` kernel), dequantize;
+  * fused, ``Codec(CodecConfig(fused=True))``: the same plan, then one
+    kernel that decodes, dequantizes and reconstructs
+    (``decode_tiles_fused`` for the 1-D field, ``decode_tiles_fused_nd``
+    for the 2-D and 3-D ones), with no quant-code array in device memory.
+
+The script
 
   * builds the CUDA kernels (``src/repro_torch/csrc``) for sm_90a;
-  * zeroes every kernel's launch count, drives the main path on both
-    fields, and fails if a kernel of the path was not launched;
+  * zeroes every kernel's launch count just before each path, drives it on
+    the three fields, and fails if a kernel of that path was not launched
+    (or a kernel of the other path was);
   * checks each field: the codes decoded on the card equal the quantization
     codes ``compress`` encoded, bit for bit; ``max|x - x'| <= eb_effective``;
-    each kernel equals its plain PyTorch version on the card at the same
-    inputs, bit for bit;
-  * prints CUDA-event times of each kernel, its plain version, the two-pass
-    dequantize, the plan and the whole ``decompress``; the decode
-    throughput (phases 1-4) and the ``decompress`` throughput in GB/s of
-    quant codes (2 B per code); the card's name and power limit; and a
-    ``kernels`` JSON line.
+    the fused output equals the two-pass output bit for bit, with
+    ``fused_dispatches >= 1`` and ``fused_fallbacks == 0``; each kernel
+    equals its plain PyTorch version on the card at the path's inputs, bit
+    for bit;
+  * prints CUDA-event times of each kernel, its plain version and its byte
+    bound, the two-pass dequantize, the plan and the whole ``decompress`` of
+    both paths; the decode throughput (phases 1-4) and the ``decompress``
+    throughputs in GB/s of quant codes (2 B per code); the card's name and
+    power limit; and a ``kernels`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -48,14 +60,19 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12
 #: The TPU kernels these CUDA kernels replace (file:line of the def).
 REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
-            "decode_tiles": "src/repro/kernels/huffman_decode.py:105"}
-SOURCES = {"count_subseq": "src/repro_torch/csrc/count_subseq.cu",
-           "decode_tiles": "src/repro_torch/csrc/decode_tiles.cu"}
+            "decode_tiles": "src/repro/kernels/huffman_decode.py:105",
+            "decode_tiles_fused": "src/repro/kernels/fused_decode.py:155",
+            "decode_tiles_fused_nd": "src/repro/kernels/fused_decode.py:222"}
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+#: The kernels each path must launch, and those it must not.
+TWO_PASS_KERNELS = ("count_subseq", "decode_tiles")
+FUSED_KERNELS = ("count_subseq", "decode_tiles_fused",
+                 "decode_tiles_fused_nd")
 HACC_VALUES = 280_953_867
 
 
 def make_fields(seed: int):
-    """The two fields: smooth (Lorenzo-predictable) plus white noise of
+    """The three fields: smooth (Lorenzo-predictable) plus white noise of
     2e-3 of the unit peak, float32, made with numpy from ``seed``."""
     import numpy as np
 
@@ -63,6 +80,7 @@ def make_fields(seed: int):
 
     fields = {}
     for name, shape, s in (("isabel3d", (100, 500, 500), seed),
+                           ("cesm2d", (1800, 3600), seed + 2),
                            ("hacc1d", (1 << 24,), seed + 1)):
         x = smooth_field(shape, seed=s)
         noise = np.random.default_rng(s + 1000).standard_normal(shape)
@@ -88,7 +106,7 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 
 
 def kernel_inputs(codec, c):
-    """The inputs the main path gives each kernel for payload ``c``."""
+    """The inputs the two-pass path gives each kernel for payload ``c``."""
     from repro_torch.core.huffman import pipeline as hp
     from repro_torch.kernels import ops
 
@@ -107,22 +125,50 @@ def kernel_inputs(codec, c):
     return count_args, tile_args
 
 
+def fused_inputs(codec, c):
+    """The fused kernel the fused path launches for ``c``, its plain
+    version, and the inputs it gives them."""
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import ops
+
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, c.device)
+    tile = codec.config.tile_syms
+    return ops.fused_tile_inputs(
+        c.stream.units, luts.dec_sym, luts.dec_len, plan.start_bits,
+        plan.end_bits, plan.offsets, c.stream.total_bits, luts.max_len,
+        c.n_symbols, tile, hp.ss_max_for_tile(tile, luts.max_len),
+        c.outlier_pos, c.outlier_val, c.eb, c.radius, shape=c.shape,
+        out_dtype=c.dtype)
+
+
 def max_abs_diff(a, b) -> int:
     import torch
 
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def same(a, b) -> bool:
-    """Bit-for-bit equality (unsigned tensors compared through signed
-    views, which every PyTorch build can compare on the card)."""
+def bits(t):
+    """An integer view of ``t`` with its bits (unsigned and float tensors
+    compared through signed views, which every build compares on the card)."""
     import torch
 
-    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equality."""
+    import torch
+
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    return torch.equal(a.view(signed.get(a.dtype, a.dtype)),
-                       b.view(signed.get(b.dtype, b.dtype)))
+    return torch.equal(bits(a), bits(b))
+
+
+def max_abs_err(a, b) -> float:
+    """Largest absolute difference of two float tensors."""
+    return float((a.double() - b.double()).abs().max())
 
 
 def require(ok: bool, what: str) -> None:
@@ -145,7 +191,7 @@ def main() -> int:
 
     from repro_torch.core.codec import Codec, CodecConfig
     from repro_torch.core.sz import compressor, lorenzo
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, launches
     from repro_torch.kernels import huffman_decode as K
 
     t_start = time.perf_counter()
@@ -163,11 +209,12 @@ def main() -> int:
           f" from seed {args.seed} in {time.perf_counter() - t0:.1f} s; "
           f"hacc1d is cut from HACC's {HACC_VALUES} values to {1 << 24}")
 
-    # -- main path: counts zeroed just before, read just after ---------------
     xs = {k: torch.from_numpy(v).cuda() for k, v in fields.items()}
     torch.cuda.synchronize()
+
+    # -- two-pass path: counts zeroed just before, read just after ----------
     results = {}
-    K.reset_launch_counts()
+    launches.reset()
     for name, x in xs.items():
         codec = Codec(CodecConfig())
         t0 = time.perf_counter()
@@ -178,10 +225,37 @@ def main() -> int:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         results[name] = (codec, c, y, t1 - t0, t2 - t1)
-    launches = {k.__name__: k.launches for k in K.KERNELS}
-    print(f"main path launches: {json.dumps(launches)}")
-    for kname, n in launches.items():
-        require(n > 0, f"kernel {kname} was not launched on the main path")
+    two_pass_launches = launches.counts()
+    print(f"two-pass path launches: {json.dumps(two_pass_launches)}")
+    for kname, n in two_pass_launches.items():
+        if kname in TWO_PASS_KERNELS:
+            require(n > 0, f"kernel {kname} was not launched on the "
+                    f"two-pass path")
+        else:
+            require(n == 0, f"kernel {kname} was launched on the two-pass "
+                    f"path")
+
+    # -- fused path: counts zeroed just before, read just after -------------
+    fused = {}
+    launches.reset()
+    for name, (_, c, _, _, _) in results.items():
+        codec = Codec(CodecConfig(fused=True))
+        before = launches.counts()
+        t0 = time.perf_counter()
+        y = codec.decompress(c)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        after = launches.counts()
+        fused[name] = (codec, y, t1 - t0, dict(codec.stats),
+                       {k: after[k] - before[k] for k in after})
+    fused_launches = launches.counts()
+    print(f"fused path launches: {json.dumps(fused_launches)}")
+    for kname, n in fused_launches.items():
+        if kname in FUSED_KERNELS:
+            require(n > 0, f"kernel {kname} was not launched on the fused "
+                    f"path")
+        else:
+            require(n == 0, f"kernel {kname} was launched on the fused path")
 
     # -- checks ---------------------------------------------------------------
     rows = []
@@ -202,6 +276,17 @@ def main() -> int:
                 f"{name}: max|x - x'| = {err} > eb_effective "
                 f"{c.eb_effective}")
 
+        fcodec, fy, t_fused, fstats, flaunch = fused[name]
+        fname = ("decode_tiles_fused" if len(x.shape) == 1
+                 else "decode_tiles_fused_nd")
+        require(fstats["fused_dispatches"] >= 1
+                and fstats["fused_fallbacks"] == 0,
+                f"{name}: fused path stats {fstats}")
+        require(flaunch[fname] == 1 and flaunch["decode_tiles"] == 0,
+                f"{name}: fused path launches {flaunch}")
+        require(fy.device.type == "cuda" and same(fy, y),
+                f"{name}: fused output differs from the two-pass output")
+
         count_args, tile_args = kernel_inputs(codec, c)
         kc, kl = K.count_subseq(*count_args)
         pc, pl = K.count_subseq_plain(*count_args)
@@ -211,16 +296,27 @@ def main() -> int:
         pt = K.decode_tiles_plain(*tile_args)
         require(same(kt, pt),
                 f"{name}: decode_tiles differs from its plain version")
+        fkernel, fplain, fargs = fused_inputs(fcodec, c)
+        require(fkernel.__name__ == fname, f"{name}: {fkernel.__name__}")
+        kf = fkernel(*fargs)
+        pf = fplain(*fargs)
+        require(same(kf, pf),
+                f"{name}: {fname} differs from its plain version")
+        require(same(kf, y.reshape(-1)),
+                f"{name}: {fname} differs from the two-pass output")
         torch.cuda.synchronize()
 
         # -- times ------------------------------------------------------------
         n_subseq = c.stream.n_subseq
         payload = c.stream.total_bits / 8
+        n_outliers = int((c.outlier_pos >= 0).sum())
+        out_bytes = c.n_symbols * x.element_size()
         row = {
             "field": name, "shape": list(x.shape), "ratio": c.ratio,
             "bits_per_code": c.stream.total_bits / c.n_symbols,
-            "n_subseq": n_subseq, "compress_s": t_comp,
-            "first_decompress_s": t_dec, "max_abs_err": err,
+            "n_subseq": n_subseq, "n_outliers": n_outliers,
+            "compress_s": t_comp, "first_decompress_s": t_dec,
+            "first_fused_decompress_s": t_fused, "max_abs_err": err,
             "eb_effective": c.eb_effective,
             "count_subseq": {
                 "ms": cuda_ms(lambda: K.count_subseq(*count_args), 20),
@@ -236,6 +332,12 @@ def main() -> int:
                 "bound_ms": (payload + 12 * n_subseq + 2 * c.n_symbols)
                 / HBM_BYTES_PER_S * 1e3,
                 "max_abs_err": max_abs_diff(kt, pt)},
+            fname: {
+                "ms": cuda_ms(lambda: fkernel(*fargs), 20),
+                "plain_ms": cuda_ms(lambda: fplain(*fargs), 1),
+                "bound_ms": (payload + 12 * n_subseq + out_bytes
+                             + 8 * n_outliers) / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max_abs_err(kf, pf)},
         }
         row["dequantize_ms"] = cuda_ms(
             lambda: compressor._dequantize(c, got), 10)
@@ -243,14 +345,22 @@ def main() -> int:
             lambda: codec.build_plan(c.stream, c.codebook), 5)
         row["decompress_cached_plan_ms"] = cuda_ms(
             lambda: codec.decompress(c), 10)
+        row["decompress_fused_cached_plan_ms"] = cuda_ms(
+            lambda: fcodec.decompress(c), 10)
         row["decompress_with_plan_ms"] = cuda_ms(
             lambda: compressor.decompress(c, backend=codec.backend), 5)
+        row["decompress_fused_with_plan_ms"] = cuda_ms(
+            lambda: compressor.decompress(c, backend=fcodec.backend,
+                                          fused=True), 5)
         # The paper's decoder throughput: phases 1-4 (plan built, no
         # dequantize) over the quant-code bytes, 2 B per code.
         row["decode_ms"] = cuda_ms(
             lambda: codec.decode(c.stream, c.codebook, c.n_symbols), 5)
-        for key, ms in (("decode_gbps", row["decode_ms"]),
-                        ("decompress_gbps", row["decompress_with_plan_ms"])):
+        for key, ms in (
+                ("decode_gbps", row["decode_ms"]),
+                ("decompress_gbps", row["decompress_with_plan_ms"]),
+                ("decompress_fused_gbps",
+                 row["decompress_fused_with_plan_ms"])):
             row[key] = c.quant_code_bytes / (ms * 1e-3) / 1e9
         rows.append(row)
         print(f"field {json.dumps(row)}")
@@ -259,13 +369,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
-    main_row = rows[0]
+    # Each kernel's numbers on the field of the smoke run that drives it:
+    # isabel3d for the two-pass kernels and the N-D fused kernel, hacc1d for
+    # the 1-D fused kernel.  Launch counts are those of each path's run.
+    by_field = {r["field"]: r for r in rows}
     kernels = []
-    for kname in ("count_subseq", "decode_tiles"):
-        k = main_row[kname]
+    for kname, field, counts in (
+            ("count_subseq", "isabel3d", two_pass_launches),
+            ("decode_tiles", "isabel3d", two_pass_launches),
+            ("decode_tiles_fused", "hacc1d", fused_launches),
+            ("decode_tiles_fused_nd", "isabel3d", fused_launches)):
+        k = by_field[field][kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
-            "replaces": REPLACES[kname], "launches": launches[kname],
+            "replaces": REPLACES[kname], "launches": counts[kname],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": None})

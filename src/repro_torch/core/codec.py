@@ -57,8 +57,11 @@ class CodecConfig:
                        block's staging tile plus its 2**max_len-entry LUT
                        must fit Hopper's 227 KB of shared memory, which
                        bounds max_len at 16 for the default tile
-      fused            request the fused decode; no backend serves it yet,
-                       so it decodes two-pass and counts
+      fused            decode, dequantize and reconstruct in one dispatch
+                       (on "cuda": one CUDA kernel per tensor, no quant-code
+                       array in device memory); a tensor the fused path
+                       cannot serve (``compressor.fused_unsupported_reason``)
+                       decodes two-pass and counts
                        ``stats["fused_fallbacks"]``
 
     Session side:
@@ -218,8 +221,9 @@ class Codec:
         """Decompress one tensor under the codec's policy, on its device.
 
         The phase 1-3 plan comes from / goes into the plan cache by content
-        digest; ``config.fused`` decodes two-pass and counts
-        ``stats["fused_fallbacks"]`` (no backend serves it yet).
+        digest; ``config.fused`` runs the fused decode (``fused_dispatches``)
+        or, for a tensor it cannot serve, decodes two-pass and counts
+        ``stats["fused_fallbacks"]``.
         """
         c = self.config
         compressed = self._local(compressed)

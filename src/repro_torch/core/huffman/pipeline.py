@@ -6,7 +6,9 @@ the "tile" strategy:
     build_plan()    phases 1-3: gap-array sync starts, per-subsequence
                     counts, output-offset prefix sum.
     decode()        phase 4 through a named *backend*: fixed-tile staged
-                    decode-write (paper Alg. 1).
+                    decode-write (paper Alg. 1), or with an
+                    ``OutputTransform`` the fused decode -> dequantize ->
+                    inverse Lorenzo (``fused=True``).
 
 Backends live in a registry: "ref" is the plain torch reference
 (``core.huffman.decode``); "cuda" runs the hand-written CUDA kernels
@@ -97,10 +99,17 @@ def ss_max_for_tile(tile_syms: int, max_len: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class OutputTransform:
     """Fused decode epilogue: dequantization + inverse Lorenzo attached to a
-    decode call (``x = 2*eb * cumsum(code - radius)`` with the outlier side
-    list scattered in first, over ``shape``, cast once to ``out_dtype``).
-    Served only by backends that register fused ops; none does in the port
-    yet (ROADMAP.md queue A item 1)."""
+    decode call, so phase 4 emits reconstructed floats directly.
+
+    The transform is ``x = 2*eb * cumsum(code - radius)`` with the outlier
+    side list (``outlier_pos`` int32[m_pad] flat positions, -1 padded;
+    ``outlier_val`` the exact residuals) scattered in before the prefix sum
+    -- exactly ``core.sz.lorenzo.dequantize``.  ``shape`` selects the
+    geometry: ``None`` (or at most one non-unit axis) is the 1-D epilogue,
+    2-D/3-D shapes cumsum along every axis.  ``out_dtype`` (a torch dtype,
+    float32 by default) is the output type; the product is f32 and cast
+    once.  Served by backends that register ``fused_tiles_fn``.
+    """
 
     eb: float
     radius: int
@@ -119,14 +128,21 @@ class DecodeBackend:
     ``tiles_fn``  phase-4 tile decode; signature of
                   ``decode.decode_write_tiles`` (+ optional ``lut_base``)
 
-    No backend registers fused phase-4 ops yet (ROADMAP.md queue A item 1):
-    every ``fused=True`` request decodes two-pass and is recorded in
-    ``stats["fused_fallbacks"]``.
+    Optional fused phase-4 op (decode + dequantize + reconstruct in one
+    dispatch; see :class:`OutputTransform`):
+
+    ``fused_tiles_fn``  tiles_fn signature + (opos, oval, eb, radius,
+                        shape=, out_dtype=) -> reconstructed
+                        ``out_dtype[n_out]`` (flat, C order)
+
+    A backend registered without it still works everywhere; fused requests
+    fall back to the two-pass path, recorded in ``stats["fused_fallbacks"]``.
     """
 
     name: str
     count_fn: Callable
     tiles_fn: Callable
+    fused_tiles_fn: "Callable | None" = None
     stats: dict = dataclasses.field(
         default_factory=lambda: {"decode_write_dispatches": 0,
                                  "plan_builds": 0,
@@ -136,7 +152,12 @@ class DecodeBackend:
     _stats_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
 
-    supports_fused = False
+    @property
+    def supports_fused(self) -> bool:
+        """Whether the backend serves ``fused=True``.  The reference also
+        needs ``fused_padded_fn``; the port needs only ``fused_tiles_fn``
+        until the padded strategy is ported (ROADMAP.md queue A item 2)."""
+        return self.fused_tiles_fn is not None
 
     def bump(self, key: str, n: int = 1):
         """Atomic counter increment (one handle serves every codec)."""
@@ -152,6 +173,12 @@ class DecodeBackend:
         """Counted phase-4 dispatch."""
         self.bump("decode_write_dispatches")
         return self.tiles_fn(*args, **kwargs)
+
+    def decode_tiles_fused(self, *args, **kwargs):
+        """Counted fused phase-4 dispatch."""
+        self.bump("decode_write_dispatches")
+        self.bump("fused_dispatches")
+        return self.fused_tiles_fn(*args, **kwargs)
 
 
 _BACKEND_FACTORIES: dict[str, Callable[[], DecodeBackend]] = {}
@@ -185,8 +212,25 @@ def _make_ref_backend() -> DecodeBackend:
                                    total_bits, max_len)
         return counts
 
+    # The fused op composes the plain paths (decode, then the exact N-D
+    # dequantize the two-pass path uses), as the reference's _epilogue does,
+    # so fused-vs-two-pass parity holds by construction.
+    def fused_tiles(units, ds, dl, starts, ends, offsets, total_bits,
+                    max_len, n_out, tile_syms, ss_max, opos, oval, eb,
+                    radius, shape=None, out_dtype=None, **kwargs):
+        from repro_torch.core.sz import lorenzo  # core.sz imports this module
+
+        codes = hd.decode_write_tiles(units, ds, dl, starts, ends, offsets,
+                                      total_bits, max_len, n_out, tile_syms,
+                                      ss_max, **kwargs)
+        shape = tuple(shape) if shape is not None else (n_out,)
+        dtype = out_dtype if out_dtype is not None else torch.float32
+        return lorenzo.dequantize(codes.reshape(shape), opos, oval, eb, shape,
+                                  radius=radius, dtype=dtype).reshape(-1)
+
     return DecodeBackend(name="ref", count_fn=count,
-                         tiles_fn=hd.decode_write_tiles)
+                         tiles_fn=hd.decode_write_tiles,
+                         fused_tiles_fn=fused_tiles)
 
 
 def _make_cuda_backend() -> DecodeBackend:
@@ -200,7 +244,8 @@ def _make_cuda_backend() -> DecodeBackend:
         return counts
 
     return DecodeBackend(name="cuda", count_fn=count,
-                         tiles_fn=ops.decode_write_tiles)
+                         tiles_fn=ops.decode_write_tiles,
+                         fused_tiles_fn=ops.decode_write_tiles_fused)
 
 
 register_backend("ref", _make_ref_backend)
@@ -444,16 +489,19 @@ def decode(stream: EncodedStream, codebook, n_out: int, *,
     ``plan`` may carry a prebuilt ``DecoderPlan`` (phases 1-3); ``None``
     builds one with ``method``.  ``strategy="tile"`` runs the fixed-tile
     staged decode-write (paper Alg. 1) with tiles of ``tile_syms`` codes.
-    ``transform`` asks for the fused epilogue, which needs a backend with
-    fused ops: none has them yet, so it raises ``ValueError`` as the
-    reference does for such a backend.
+    ``transform`` (an ``OutputTransform``) runs the backend's fused op
+    instead: the decoded symbols go through dequantization and the inverse
+    Lorenzo inside the decode-write dispatch, and the return value is the
+    reconstructed ``out_dtype[n_out]``, flat in C order (no quant-code
+    array).  A backend without fused ops raises ``ValueError``, as in the
+    reference; ``sz.compressor.decompress`` checks first and falls back.
     """
     be = get_backend(backend)
     check_ported("strategy", strategy)
     if strategy not in VALID_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; valid strategies: "
                          f"{list(VALID_STRATEGIES)}")
-    if transform is not None:
+    if transform is not None and not be.supports_fused:
         raise ValueError(
             f"backend {be.name!r} registers no fused ops; check "
             f"backend.supports_fused before attaching a transform")
@@ -461,6 +509,15 @@ def decode(stream: EncodedStream, codebook, n_out: int, *,
         plan = build_plan(stream, codebook, method=method, backend=be)
     luts = _as_luts(codebook, stream.units.device)
     ss_max = ss_max_for_tile(tile_syms, luts.max_len)
+    if transform is not None:
+        t = transform
+        return be.decode_tiles_fused(
+            stream.units, luts.dec_sym, luts.dec_len, plan.start_bits,
+            plan.end_bits, plan.offsets, stream.total_bits, luts.max_len,
+            n_out, tile_syms, ss_max, t.outlier_pos, t.outlier_val, t.eb,
+            t.radius, shape=None if t.shape is None else tuple(t.shape),
+            out_dtype=(t.out_dtype if t.out_dtype is not None
+                       else torch.float32))
     return be.decode_tiles(stream.units, luts.dec_sym, luts.dec_len,
                            plan.start_bits, plan.end_bits, plan.offsets,
                            stream.total_bits, luts.max_len, n_out, tile_syms,

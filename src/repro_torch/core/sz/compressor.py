@@ -1,7 +1,7 @@
 """End-to-end SZ-style compressor: Lorenzo -> quantize -> Huffman.
 
 Port of ``src/repro/core/sz/compressor.py`` (``compress`` on the "ref"
-encode path and the two-pass ``decompress``).  Codebook construction is
+encode path, the two-pass ``decompress`` and its fused form).  Codebook construction is
 host numpy; quantization, histogram, bit-pack, decode and dequantization
 run as torch ops and CUDA kernels on the input's device.
 
@@ -21,6 +21,9 @@ from repro_torch.core.huffman import codebook as cb
 from repro_torch.core.huffman import encode as he
 from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import lorenzo
+from repro_torch.kernels import fused_decode as fd
+from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels.ops import fused_squeeze, fused_tile_rows
 
 DEFAULT_EB = 1e-3
 
@@ -161,17 +164,82 @@ def _dequantize(c: Compressed, codes: torch.Tensor) -> torch.Tensor:
                               dtype=c.dtype)
 
 
-def fused_unsupported_reason(backend) -> "str | None":
-    """Why the fused decode path cannot serve a tensor (``None`` = it can).
+def _fused_transform(c: Compressed) -> hp.OutputTransform:
+    return hp.OutputTransform(eb=c.eb, radius=c.radius,
+                              outlier_pos=c.outlier_pos,
+                              outlier_val=c.outlier_val,
+                              shape=tuple(c.shape), out_dtype=c.dtype)
 
-    No backend of the port registers fused ops yet (ROADMAP.md queue A item
-    1, which also ports the reference's shape and dtype bounds), so every
-    backend reports its own name here and ``fused=True`` decodes two-pass,
-    counted in ``stats["fused_fallbacks"]``.
+
+#: Output dtypes the fused epilogue serves (f32 compute, one final cast).
+FUSED_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def fused_max_cols(max_len: int) -> int:
+    """Widest row the N-D fused kernel takes at ``max_len``: a one-row tile
+    (int32 residuals), its scan scratch and the 2**max_len-entry LUT must
+    fit one block's shared memory on Hopper (227 KB)."""
+    free = K.SMEM_LIMIT - fd.decode_tiles_fused_nd_smem(0, 1 << max_len)
+    return max(free // 4, 0)
+
+
+#: Widest fastest axis of the N-D fused kernel at the default max_len (12):
+#: 54,960 columns (the TPU's VMEM bound was 2**15).
+FUSED_MAX_COLS = fused_max_cols(cb.DEFAULT_MAX_LEN)
+#: Largest 3-D plane (rows * cols) the fused kernel carries.  The plane
+#: carry is one (rows, cols) buffer of tagged 8-byte words in global memory,
+#: no longer in on-chip memory; 2**20 values keep it at 8 MiB, resident in
+#: the H100's 50 MB L2, where each plane's tiles read what the previous
+#: plane's wrote.  Kept at the reference's value.
+FUSED_MAX_PLANE = 1 << 20
+
+
+def fused_unsupported_reason(c: Compressed, backend, method: str,
+                             strategy: str,
+                             tile_syms: int = hp.DEFAULT_TILE_SYMS
+                             ) -> "str | None":
+    """Why the fused decode path cannot serve this tensor (None = it can).
+
+    The reference's checks and reason strings, in its order: the fused
+    epilogue covers 1-D/2-D/3-D inverse Lorenzo (unit axes squeezed first,
+    ``ops.fused_squeeze``) over float32, bfloat16 and float16 outputs
+    (``FUSED_DTYPES``).  Falling back to the two-pass path (recorded in
+    ``stats["fused_fallbacks"]``): >3-D tensors, other dtypes, rows wider
+    than ``fused_max_cols(max_len)``, 3-D planes larger than
+    ``FUSED_MAX_PLANE``, strategies other than "tile"/"padded", backends
+    without fused ops -- and, new in the port, a tile of ``tile_syms``
+    codes (or of the N-D kernel's whole rows) whose block would not fit
+    Hopper's shared memory.  The bounds apply on every backend, as the
+    reference's VMEM bounds do, so both backends fall back alike.
     """
     be = hp.get_backend(backend)
+    if method == "naive_ref":
+        return "method 'naive_ref' is the sequential oracle"
+    if strategy not in ("tile", "padded"):
+        return ("strategy 'tuned' gathers sequences by CR class, which "
+                "breaks the sequential reconstruction carry")
     if not be.supports_fused:
         return f"backend {be.name!r} registers no fused ops"
+    if dtype_name(c.dtype) not in FUSED_DTYPES:
+        return f"dtype {dtype_name(c.dtype)} not in fused set {FUSED_DTYPES}"
+    sq = tuple(s for s in c.shape if s != 1)
+    if len(sq) > 3:
+        return (f"{len(sq)}-D Lorenzo reconstruction (fused epilogue "
+                f"covers up to 3-D)")
+    max_cols = fused_max_cols(c.codebook.max_len)
+    if len(sq) >= 2 and sq[-1] > max_cols:
+        return (f"fastest axis {sq[-1]} exceeds the per-tile row bound "
+                f"{max_cols}")
+    if len(sq) == 3 and sq[-2] * sq[-1] > FUSED_MAX_PLANE:
+        return (f"plane {sq[-2]}x{sq[-1]} exceeds the VMEM plane-carry "
+                f"bound {FUSED_MAX_PLANE}")
+    nd = fused_squeeze(c.shape)
+    block = tile_syms if nd is None else fused_tile_rows(nd, tile_syms) * \
+        nd[-1]
+    smem = fd.decode_tiles_fused_smem(block, 1 << c.codebook.max_len)
+    if smem > K.SMEM_LIMIT:
+        return (f"a fused tile of {block} codes needs {smem} B of shared "
+                f"memory per block; Hopper allows {K.SMEM_LIMIT}")
     return None
 
 
@@ -196,9 +264,11 @@ def decompress(c: Compressed, method: str = "gap",
     """Decompress on the device ``c`` lives on; ``method`` is "gap".
 
     Decoding goes through ``pipeline.decode`` on ``backend``; ``plan`` may
-    carry a prebuilt ``DecoderPlan``.  ``fused=True`` falls back to the
-    two-pass path when the backend cannot serve it (see
-    :func:`fused_unsupported_reason`: always, so far) and increments
+    carry a prebuilt ``DecoderPlan``.  ``fused=True`` runs phase 4,
+    dequantization and the inverse Lorenzo in one dispatch (one CUDA kernel
+    on "cuda"), never writing the uint16 quant-code array; the output is
+    bit-exact with the two-pass path.  A tensor the fused path cannot serve
+    (:func:`fused_unsupported_reason`) decodes two-pass and increments
     ``backend.stats["fused_fallbacks"]``.
     """
     book = c.codebook
@@ -208,7 +278,15 @@ def decompress(c: Compressed, method: str = "gap",
         plan = hp.build_plan(c.stream, book, method=method, backend=backend)
     _guard_symbol_count(c, plan, backend)
 
-    if fused and fused_unsupported_reason(backend) is not None:
+    if fused:
+        reason = fused_unsupported_reason(c, backend, method, strategy,
+                                          tile_syms)
+        if reason is None:
+            out = hp.decode(c.stream, book, c.n_symbols, plan=plan,
+                            method=method, backend=backend,
+                            strategy=strategy, tile_syms=tile_syms,
+                            transform=_fused_transform(c))
+            return out.reshape(c.shape)
         hp.get_backend(backend).bump("fused_fallbacks")
 
     codes = hp.decode(c.stream, book, c.n_symbols, plan=plan, method=method,

@@ -3,13 +3,11 @@
 // Replaces the TPU kernel src/repro/kernels/huffman_decode.py:decode_tiles
 // (body decode_tiles_kernel_body -> common.stage_tile; lane metadata in
 // ops._tile_inputs).  One block per output tile of tile_syms codes.  The
-// block stages the decode LUT and a zeroed u16 tile in shared memory; lane
-// j decodes subsequence s0[tile] + j and writes its k-th symbol at
-// offset - tile_base + min(k, 127) when that falls inside the tile.  For a
-// well-formed stream exactly one lane owns each position, so the staging
-// writes never conflict.  After __syncthreads() the block writes the tile
-// to device memory densely and coalesced: the paper's shared-memory staged
-// write.  The lane budget is ss_max = pipeline.ss_max_for_tile(tile_syms,
+// block stages the decode LUT and a zeroed u16 tile in shared memory, and
+// its lanes decode into the tile through common.cuh's stage_tile_codes (the
+// decode stage the fused kernels share).  After __syncthreads() the block
+// writes the tile to device memory densely and coalesced: the paper's
+// shared-memory staged write.  The lane budget is ss_max = pipeline.ss_max_for_tile(tile_syms,
 // max_len) (411 at the defaults); above blockDim lanes a thread loops.
 //
 // What bounds it on the H100: the byte floor is the payload plus 12 B read
@@ -43,28 +41,12 @@ __global__ void decode_tiles_kernel(
   stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
   __syncthreads();
 
-  const int tile_base = static_cast<int>(blockIdx.x) * tile_syms;
-  const int first = s0[blockIdx.x];
-  for (int j = threadIdx.x; j < ss_max; j += blockDim.x) {
-    const int s = first + j;
-    if (s >= n_subseq) continue;             // clipped lane: no work
-    const int off = offsets[s] - tile_base;
-    if (off >= tile_syms) continue;          // output starts past the tile
-    int row_id, start, end;
-    subseq_window(start_abs[s], end_abs[s], total_bits, &row_id, &start,
-                  &end);
-    uint32_t row[kRowUnits];
-    load_row(units, n_units, row_id, row);
-    const int lb = lut_base != nullptr ? lut_base[s] : 0;
-    int land;
-    decode_lane(row, start, end, s_sym, s_len, lut_size, lb, max_len, &land,
-                [&](int k, int sym) {
-                  const int local = off + min(k, kMaxSyms - 1);
-                  if (local >= tile_syms) return false;
-                  if (local >= 0) stage[local] = static_cast<uint16_t>(sym);
-                  return true;
-                });
-  }
+  stage_tile_codes(units, n_units, start_abs, end_abs, offsets, s0,
+                   lut_base, n_subseq, total_bits, s_sym, s_len, lut_size,
+                   max_len, static_cast<int>(blockIdx.x), tile_syms, ss_max,
+                   [&](int local, int sym) {
+                     stage[local] = static_cast<uint16_t>(sym);
+                   });
   __syncthreads();
 
   const long long base = static_cast<long long>(blockIdx.x) * tile_syms;

@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 #: C entry point and argument types of each kernel library.
 SIGNATURES = {
     "count_subseq": ("repro_count_subseq",
@@ -36,6 +37,14 @@ SIGNATURES = {
     "decode_tiles": ("repro_decode_tiles",
                      [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                       _I, _I, _L, _I, _P, _P]),
+    "decode_tiles_fused": ("repro_decode_tiles_fused",
+                           [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                            _I, _I, _I, _L, _I, _P, _P, _P, _I, _F, _P, _P,
+                            _I, _P, _P]),
+    "decode_tiles_fused_nd": ("repro_decode_tiles_fused_nd",
+                              [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I,
+                               _P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

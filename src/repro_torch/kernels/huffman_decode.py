@@ -10,36 +10,22 @@ Port of ``src/repro/kernels/huffman_decode.py``:
 Each wrapper checks its inputs, then launches its CUDA kernel for CUDA
 tensors and runs its plain version (``*_plain``, beside it) for CPU
 tensors.  Any other device raises.  Each wrapper counts its kernel launches
-in its ``launches`` attribute.  The plain versions run on any device, so a
+in its ``launches`` attribute (``kernels/launches.py`` holds the counters of
+every kernel).  The plain versions run on any device, so a
 check on the card can hold a kernel against its plain version on the same
 inputs.
 """
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import common as C
+from repro_torch.kernels import launches
 
 #: Shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
-
-_launch_lock = threading.Lock()
-
-
-def _launched(wrapper):
-    with _launch_lock:
-        wrapper.launches += 1
-
-
-def reset_launch_counts():
-    """Zero the launch counters of every kernel wrapper."""
-    with _launch_lock:
-        for wrapper in KERNELS:
-            wrapper.launches = 0
 
 
 def _expect(name, t, dtype, shape=None):
@@ -109,6 +95,7 @@ def count_subseq_plain(units, start_abs, end_abs, total_bits: int, dec_sym,
     return counts, landing
 
 
+@launches.counted
 def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
                  dec_len, max_len: int):
     """Codewords per absolute window ``[start_abs[i], end_abs[i])``.
@@ -141,11 +128,9 @@ def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
     if rc != 0:
         raise RuntimeError(f"count_subseq kernel launch failed: CUDA error "
                            f"{rc}")
-    _launched(count_subseq)
+    launches.launched(count_subseq)
     return counts, landing
 
-
-count_subseq.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +170,7 @@ def decode_tiles_plain(units, start_abs, end_abs, offsets, s0,
     return tiles.reshape(-1)[:n_out]
 
 
+@launches.counted
 def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
                  dec_sym, dec_len, max_len: int, tile_syms: int, ss_max: int,
                  n_out: int, lut_base=None):
@@ -234,11 +220,6 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
     if rc != 0:
         raise RuntimeError(f"decode_tiles kernel launch failed: CUDA error "
                            f"{rc}")
-    _launched(decode_tiles)
+    launches.launched(decode_tiles)
     return out
 
-
-decode_tiles.launches = 0
-
-#: Every kernel wrapper of this module (the launch counters live on them).
-KERNELS = (count_subseq, decode_tiles)

@@ -1,7 +1,9 @@
 """Kernel-backed decode phases: the "cuda" backend's entry points.
 
 Port of the decode half of ``src/repro/kernels/ops.py`` (``subseq_counts``,
-``_tile_inputs``, ``decode_write_tiles``), signature-compatible with the
+``_tile_inputs``, ``decode_write_tiles`` and the tile branch of
+``decode_write_tiles_fused`` with its helpers ``_two_eb_f32``,
+``fused_squeeze`` and ``fused_tile_rows``), signature-compatible with the
 reference decoders in ``core/huffman/decode.py``.  The window rules of the
 reference's ``_subseq_windows`` run inside the kernels here
 (``common.subseq_windows`` in the plain versions), so the per-lane metadata
@@ -10,8 +12,11 @@ never round-trips through device memory.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core.huffman.pipeline import ss_max_for_tile
+from repro_torch.kernels import fused_decode as _fus
 from repro_torch.kernels import huffman_decode as _dec
 
 
@@ -44,3 +49,116 @@ def decode_write_tiles(units, dec_sym, dec_len, start_bits, end_bits, offsets,
                              end_bits.to(torch.int32).contiguous(), offsets,
                              s0, total_bits, dec_sym, dec_len, max_len,
                              tile_syms, ss_max, n_out, lut_base)
+
+
+# ---------------------------------------------------------------------------
+# Fused phase 4: decode + dequantize + inverse Lorenzo
+# ---------------------------------------------------------------------------
+
+
+def _two_eb_f32(eb) -> float:
+    """The reconstruction scale ``float32(eb) * 2`` as a Python float.
+
+    Doubling commutes with float32 rounding (power-of-two scaling), so this
+    is bit-identical to the ``2 * eb`` inside ``lorenzo.dequantize``.
+    """
+    return float(np.float32(eb) * np.float32(2))
+
+
+def fused_squeeze(shape):
+    """Canonical fused-path view of ``shape``: unit axes dropped.
+
+    Cumsum along a unit axis is the identity, so reconstruction over the
+    squeezed shape is bitwise the reconstruction over the full shape.
+    Returns ``None`` when at most one axis is left (the 1-D kernel), as the
+    reference does; the eligibility check (``compressor.
+    fused_unsupported_reason``) and the dispatch below agree on this rule.
+    """
+    if shape is None:
+        return None
+    sq = tuple(int(s) for s in shape if s != 1)
+    return sq if len(sq) > 1 else None
+
+
+def fused_tile_rows(shape, tile_syms: int) -> int:
+    """Rows per tile for the N-D fused kernel: ~``tile_syms`` codes rounded
+    to whole rows; for 3-D the row count divides the plane height, so no
+    tile crosses a plane (the row carry resets between tiles)."""
+    plane_rows, cols = shape[-2], shape[-1]
+    w = max(1, tile_syms // cols)
+    w = min(w, plane_rows)
+    if len(shape) == 3:
+        while plane_rows % w:
+            w -= 1
+    return w
+
+
+def _outlier_bounds(opos, n_tiles: int, block: int):
+    """Each tile's slice ``[b[t], b[t + 1])`` of the outlier side list
+    (int32[n_tiles + 1]).  Assumes the positions ascend with the ``-1``
+    padding at the tail, as both packages' ``compress`` write them."""
+    key = torch.where(opos >= 0, opos.to(torch.int64),
+                      torch.iinfo(torch.int64).max)
+    edges = torch.arange(n_tiles + 1, dtype=torch.int64,
+                         device=opos.device) * block
+    return torch.searchsorted(key, edges).to(torch.int32)
+
+
+def fused_tile_inputs(units, dec_sym, dec_len, start_bits, end_bits,
+                      offsets, total_bits: int, max_len: int, n_out: int,
+                      tile_syms: int, ss_max: int, opos, oval, eb,
+                      radius: int, lut_base=None, shape=None,
+                      out_dtype=torch.float32):
+    """The fused kernel :func:`decode_write_tiles_fused` launches, its plain
+    version, and the arguments it gives them: ``(kernel, plain, args)``."""
+    sq = fused_squeeze(shape)
+    offsets = offsets.to(torch.int32).contiguous()
+    starts = start_bits.to(torch.int32).contiguous()
+    ends = end_bits.to(torch.int32).contiguous()
+    opos = opos.to(device=units.device, dtype=torch.int32).contiguous()
+    oval = oval.to(device=units.device, dtype=torch.int32).contiguous()
+    two_eb = _two_eb_f32(eb)
+    n_subseq = starts.shape[0]
+    if sq is None:
+        n_tiles = (n_out + tile_syms - 1) // tile_syms
+        s0 = _tile_inputs(offsets, n_subseq, n_out, tile_syms)
+        return _fus.decode_tiles_fused, _fus.decode_tiles_fused_plain, (
+            units, starts, ends, offsets, s0, total_bits, dec_sym, dec_len,
+            max_len, tile_syms, ss_max, n_out, opos, oval,
+            _outlier_bounds(opos, n_tiles, tile_syms), two_eb, radius,
+            out_dtype, lut_base)
+    if int(np.prod(sq)) != n_out:
+        raise ValueError(f"n_out {n_out} differs from the size of shape "
+                         f"{tuple(shape)}")
+    # N-D: re-tile along whole rows; the lane budget follows the new tile.
+    rows_per_tile = fused_tile_rows(sq, tile_syms)
+    block = rows_per_tile * sq[-1]
+    n_tiles = (n_out + block - 1) // block
+    s0 = _tile_inputs(offsets, n_subseq, n_out, block)
+    return _fus.decode_tiles_fused_nd, _fus.decode_tiles_fused_nd_plain, (
+        units, starts, ends, offsets, s0, total_bits, dec_sym, dec_len,
+        max_len, rows_per_tile, sq, ss_max_for_tile(block, max_len), opos,
+        oval, _outlier_bounds(opos, n_tiles, block), two_eb, radius,
+        out_dtype, lut_base)
+
+
+def decode_write_tiles_fused(units, dec_sym, dec_len, start_bits, end_bits,
+                             offsets, total_bits: int, max_len: int,
+                             n_out: int, tile_syms: int, ss_max: int, opos,
+                             oval, eb, radius: int, lut_base=None,
+                             shape=None, out_dtype=torch.float32):
+    """Fused phase 4: tile decode + dequantize + inverse-Lorenzo epilogue.
+
+    Same tile mapping as :func:`decode_write_tiles` for a flat field; the
+    kernel carries the decoded symbols through ``2*eb*cumsum(code -
+    radius)`` (outlier side list ``opos``/``oval`` scattered in) without
+    writing the quant-code array.  ``shape`` selects the 2-D/3-D epilogue
+    after its unit axes are squeezed, so ``(1, n)`` still takes the 1-D
+    kernel; the N-D kernel re-tiles to whole rows and re-derives the lane
+    budget for that tile.  Returns ``out_dtype[n_out]`` (flat, C order).
+    """
+    kernel, _, args = fused_tile_inputs(
+        units, dec_sym, dec_len, start_bits, end_bits, offsets, total_bits,
+        max_len, n_out, tile_syms, ss_max, opos, oval, eb, radius, lut_base,
+        shape, out_dtype)
+    return kernel(*args)

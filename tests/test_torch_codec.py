@@ -27,6 +27,7 @@ from repro_torch.core.codec import Codec, CodecConfig
 from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import compressor
 from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels import launches
 
 from test_torch_stream import (DTYPES, RADIUS, SHAPES, TILE_SYMS, as_bytes,
                                both, jax_arrays, spiky_field)
@@ -147,7 +148,7 @@ def test_counters(backend):
     _, _, want, ct = _case(1, "f32", "rel", 1e-4)
     codec = Codec(_config(1e-4, backend=backend))
     codec.reset_stats()
-    K.reset_launch_counts()
+    launches.reset()
     assert as_bytes(codec.decompress(ct)) == want
     s = codec.stats
     assert (s["plan_builds"], s["decode_write_dispatches"]) == (1, 1)
@@ -163,24 +164,41 @@ def test_counters(backend):
 
 @pytest.mark.parametrize("backend", ["cuda", "ref"])
 def test_fused_falls_back_two_pass(backend):
-    """No port backend registers fused ops yet: fused=True decodes
-    two-pass, bit-exact, and counts one fallback per tensor."""
+    """fused=True decodes two-pass, bit-exact, and counts one fallback per
+    tensor where the fused path cannot serve it: on a backend without fused
+    ops (where a transform raises, as in the reference) and for a tensor
+    outside the fused bounds (4-D) on a backend with them."""
+    import dataclasses
+
     _, _, want, ct = _case(2, "bf16", "rel", 1e-4)
-    codec = Codec(_config(1e-4, backend=backend, fused=True))
-    codec.reset_stats()
-    assert not codec.backend.supports_fused
-    reason = compressor.fused_unsupported_reason(codec.backend)
-    assert reason == f"backend {backend!r} registers no fused ops"
-    assert as_bytes(codec.decompress(ct)) == want
-    assert codec.stats["fused_fallbacks"] == 1
-    assert codec.stats["fused_dispatches"] == 0
-    codec.decompress(ct)
-    assert codec.stats["fused_fallbacks"] == 2
+    base = hp.get_backend(backend)
+    two_pass_only = hp.DecodeBackend(name=f"{backend}-two-pass",
+                                     count_fn=base.count_fn,
+                                     tiles_fn=base.tiles_fn)
+    assert base.supports_fused and not two_pass_only.supports_fused
+    reason = compressor.fused_unsupported_reason(ct, two_pass_only, "gap",
+                                                 "tile")
+    assert reason == f"backend '{backend}-two-pass' registers no fused ops"
+    for n in (1, 2):
+        got = compressor.decompress(ct, tile_syms=TILE_SYMS,
+                                    backend=two_pass_only, fused=True)
+        assert as_bytes(got) == want
+        assert two_pass_only.stats["fused_fallbacks"] == n
+    assert two_pass_only.stats["fused_dispatches"] == 0
     with pytest.raises(ValueError, match="registers no fused ops"):
-        hp.decode(ct.stream, ct.codebook, ct.n_symbols, backend=backend,
+        hp.decode(ct.stream, ct.codebook, ct.n_symbols,
+                  backend=two_pass_only,
                   transform=hp.OutputTransform(eb=ct.eb, radius=ct.radius,
                                                outlier_pos=ct.outlier_pos,
                                                outlier_val=ct.outlier_val))
+    four_d = dataclasses.replace(ct, shape=(2, 4, 5, 56))
+    codec = Codec(_config(1e-4, backend=backend, fused=True))
+    codec.reset_stats()
+    got = codec.decompress(four_d)
+    assert as_bytes(got) == as_bytes(
+        Codec(_config(1e-4, backend=backend)).decompress(four_d))
+    assert codec.stats["fused_fallbacks"] == 1
+    assert codec.stats["fused_dispatches"] == 0
 
 
 def test_guards_count_trips():

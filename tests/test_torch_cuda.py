@@ -19,6 +19,7 @@ from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import lorenzo
 from repro_torch.data.pipeline import smooth_field
 from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels import launches
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
@@ -98,7 +99,7 @@ def test_merged_lut_base(cuda):
 def test_default_codec_round_trip(cuda):
     x = torch.from_numpy(smooth_field((64, 64, 64), seed=2)).to(cuda)
     codec = Codec()
-    K.reset_launch_counts()
+    launches.reset()
     c = codec.compress(x)
     y = codec.decompress(c)
     assert y.device.type == "cuda" and y.dtype == x.dtype
@@ -183,3 +184,128 @@ def test_corrupt_windows_match_plain(cuda):
     kc, kl = K.count_subseq(*args)
     pc, pl = K.count_subseq_plain(*args)
     assert torch.equal(kc, pc) and torch.equal(kl, pl)
+
+
+# ---------------------------------------------------------------------------
+# Fused decode kernels: carry-heavy shapes against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _bits(t):
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _fused_call(codec, c, tile):
+    """The fused kernel, its plain version and their arguments for ``c``."""
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, c.device)
+    return ops.fused_tile_inputs(
+        c.stream.units, luts.dec_sym, luts.dec_len, plan.start_bits,
+        plan.end_bits, plan.offsets, c.stream.total_bits, luts.max_len,
+        c.n_symbols, tile, hp.ss_max_for_tile(tile, luts.max_len),
+        c.outlier_pos, c.outlier_val, c.eb, c.radius, shape=c.shape,
+        out_dtype=c.dtype)
+
+
+def _fused_payload(cuda, shape, seed, noise, dtype, radius=512, max_len=12):
+    rng = np.random.default_rng(seed)
+    x = smooth_field(shape, seed=seed) + np.float32(noise) * \
+        rng.standard_normal(shape).astype(np.float32)
+    codec = Codec(CodecConfig(radius=radius, max_len=max_len,
+                              device=str(cuda)))
+    return codec, codec.compress(torch.from_numpy(x).to(cuda).to(dtype))
+
+
+FUSED_CASES = {
+    # 15,625 tiles of 64 codes: a long decoupled look-back
+    "1d-64-code-tiles": ((1_000_000,), 64, 1e-3, 512, 12, "decode_tiles_fused"),
+    # one row per tile: a 20,000-tile row-carry chain
+    "2d-row-per-tile": ((20000, 64), 64, 1e-3, 512, 12,
+                        "decode_tiles_fused_nd"),
+    # 200 planes of 4 tiles: a ring of 4 row-carry vectors, so each
+    # plane's first tile waits for the plane 4 before it; fused_tile_rows
+    # steps w from 10 down to 8
+    "3d-200-planes": ((200, 32, 48), 512, 1e-3, 512, 12,
+                      "decode_tiles_fused_nd"),
+    # 4 planes of 50 tiles: fewer planes than tiles a plane (the last
+    # diagonals of the tile order shrink)
+    "3d-4-planes": ((4, 600, 40), 512, 1e-3, 512, 12,
+                    "decode_tiles_fused_nd"),
+    # most codes are outliers
+    "outlier-dense": ((300, 500), 4096, 5e-2, 4, 12,
+                      "decode_tiles_fused_nd"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_kernels_match_plain(cuda, case, dtype):
+    shape, tile, noise, radius, max_len, name = FUSED_CASES[case]
+    codec, c = _fused_payload(cuda, shape, 11, noise, dtype, radius, max_len)
+    kernel, plain, args = _fused_call(codec, c, tile)
+    assert kernel.__name__ == name
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1
+    want = plain(*args)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    if case == "outlier-dense":
+        assert int((c.outlier_pos >= 0).sum()) > c.n_symbols // 4
+    # the codec's fused path gives the two-pass bytes
+    fused = Codec(codec.config.replace(fused=True, tile_syms=tile))
+    fused.reset_stats()
+    y = fused.decompress(c)
+    assert fused.stats["fused_dispatches"] == 1
+    assert fused.stats["fused_fallbacks"] == 0
+    two_pass = Codec(codec.config.replace(tile_syms=tile)).decompress(c)
+    assert torch.equal(_bits(y), _bits(two_pass))
+
+
+def test_fused_row_at_the_shared_memory_bound(cuda):
+    """The widest row the N-D kernel takes at max_len 12 (a one-row tile
+    of 54,960 codes, 5,498 lanes); one column more falls back."""
+    import dataclasses
+
+    from repro_torch.core.sz import compressor
+
+    cols = compressor.fused_max_cols(12)
+    codec, c = _fused_payload(cuda, (3, cols), 4, 1e-3, torch.float32)
+    kernel, plain, args = _fused_call(codec, c, 4096)
+    assert kernel.__name__ == "decode_tiles_fused_nd" and args[9] == 1
+    assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+    assert compressor.fused_unsupported_reason(c, "cuda", "gap",
+                                               "tile") is None
+    wide = dataclasses.replace(c, shape=(3, cols + 1))
+    assert "per-tile row bound" in compressor.fused_unsupported_reason(
+        wide, "cuda", "gap", "tile")
+
+
+@pytest.mark.parametrize("case", ["1d-64-code-tiles", "2d-row-per-tile",
+                                  "3d-200-planes", "3d-4-planes"])
+def test_fused_repeated_launches_identical(cuda, case):
+    """20 launches on one stream, all bit-identical: a race in the carry
+    scratch or the ticket order would show as a difference."""
+    shape, tile, noise, radius, max_len, _ = FUSED_CASES[case]
+    codec, c = _fused_payload(cuda, shape, 12, noise, torch.float32, radius,
+                              max_len)
+    kernel, plain, args = _fused_call(codec, c, tile)
+    outs = [kernel(*args) for _ in range(20)]
+    want = plain(*args)
+    for out in outs:
+        assert torch.equal(_bits(out), _bits(want))
+
+
+def test_fused_default_codec(cuda):
+    """Codec(fused=True) on the card: one fused launch per tensor, no
+    count_subseq on a cached plan, the two-pass bytes."""
+    x = torch.from_numpy(smooth_field((40, 64, 64), seed=2)).to(cuda)
+    codec = Codec(CodecConfig(fused=True))
+    c = codec.compress(x)
+    codec.plan_for(c)
+    launches.reset()
+    y = codec.decompress(c)
+    counts = launches.counts()
+    assert counts["decode_tiles_fused_nd"] == 1
+    assert counts["decode_tiles"] == 0 and counts["count_subseq"] == 0
+    assert torch.equal(y, Codec().decompress(c))

@@ -23,6 +23,7 @@ from repro.kernels import ops as jops
 from repro_torch.core.huffman import decode as hd
 from repro_torch.kernels import common as C
 from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels import launches
 from repro_torch.kernels import ops
 
 from conftest import make_book_and_stream
@@ -77,7 +78,7 @@ def test_count_subseq_matches_pallas(case):
                                 jnp.asarray(ends), stream.total_bits,
                                 book.max_len)
     units, _ = _t(stream)
-    K.reset_launch_counts()
+    launches.reset()
     tc, tl = ops.subseq_counts(units, *_luts(book), torch.from_numpy(starts),
                                torch.from_numpy(ends),
                                int(stream.total_bits), book.max_len)
