@@ -3,8 +3,10 @@
 Port of ``src/repro/core/cache.py``.  The digests hash the same bytes as the
 reference's (tensors are copied to the host first), so a payload has the
 same ``compressed_digest`` in both packages.  ``PlanCache`` maps
-(chunk digest, method) -> ``DecoderPlan`` with LRU eviction and
-single-flight builds.
+(chunk digest, method, t_high) -> ``DecoderPlan`` with LRU eviction and
+single-flight builds.  ``t_high`` is in the key, as in the reference, so a
+cached plan's CR classes (built from it when first read) are never those
+of another ``t_high``.
 """
 
 from __future__ import annotations

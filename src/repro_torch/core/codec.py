@@ -13,6 +13,7 @@ when PyTorch sees no CUDA device.  The CPU is used only when asked for:
     codec = Codec(CodecConfig(eb=1e-3))
     c = codec.compress(x)                       # on the card
     xhat = codec.decompress(c)                  # plan cached by digest
+    xs = codec.decompress_batch([c, c2, c3])    # one dispatch per CR class
 """
 
 from __future__ import annotations
@@ -52,28 +53,34 @@ class CodecConfig:
     Decoder side:
       method           "gap" (gap-array sync)
       backend          "cuda" (the CUDA kernels) | "ref" (plain torch)
-      strategy         "tile" (fixed tiles, paper Alg. 1)
+      strategy         "tile" (fixed tiles, paper Alg. 1) | "tuned"
+                       (per-CR-class tiles, paper Alg. 2) | "padded" (the
+                       original decoders' baseline layout)
+      t_high           highest non-overflow CR class of the tuner (read by
+                       "tuned" and by ``decompress_batch``)
       tile_syms        tile size of the "tile" strategy; on "cuda", one
                        block's staging tile plus its 2**max_len-entry LUT
-                       must fit Hopper's 227 KB of shared memory, which
-                       bounds max_len at 16 for the default tile
-      fused            decode, dequantize and reconstruct in one dispatch
-                       (on "cuda": one CUDA kernel per tensor, no quant-code
-                       array in device memory); a tensor the fused path
-                       cannot serve (``compressor.fused_unsupported_reason``)
-                       decodes two-pass and counts
-                       ``stats["fused_fallbacks"]``
+                       must fit Hopper's 227 KB of shared memory, for this
+                       tile and for the largest class tile of ``t_high``
+                       (8,192 codes at t_high 8), which bounds max_len at
+                       16 at the defaults
+      fused            decode, dequantize and reconstruct without a
+                       two-pass dequantize (on "cuda": one CUDA kernel per
+                       tensor for "tile", the padded decode plus one
+                       epilogue kernel for "padded"); a tensor the fused
+                       path cannot serve (every "tuned" decode included,
+                       ``compressor.fused_unsupported_reason``) decodes
+                       two-pass and counts ``stats["fused_fallbacks"]``
 
     Session side:
       plan_cache_size  LRU bound of the codec's digest-keyed plan cache
       device           where compress and decompress run; ``None`` means
                        "cuda" for the "cuda" backend and "cpu" for "ref"
 
-    The reference's ``method="selfsync"``, ``strategy="tuned"`` /
-    ``"padded"`` and device encode backends raise ``NotImplementedError``
-    naming the ROADMAP.md item that ports them; ``t_high`` (read only by
-    "tuned") comes with that strategy.  The reference's sequential oracle
-    ``method="naive_ref"`` is no decode path of the port.
+    The reference's ``method="selfsync"`` and device encode backends raise
+    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    The reference's sequential oracle ``method="naive_ref"`` is no decode
+    path of the port.
     """
 
     eb: float = DEFAULT_EB
@@ -85,6 +92,7 @@ class CodecConfig:
     method: str = "gap"
     backend: str = "cuda"
     strategy: str = "tile"
+    t_high: int = hp.T_HIGH_DEFAULT
     tile_syms: int = hp.DEFAULT_TILE_SYMS
     fused: bool = False
     plan_cache_size: int = 4096
@@ -97,7 +105,6 @@ class CodecConfig:
             raise ValueError(
                 f"unknown mode {self.mode!r}; valid modes: {VALID_MODES}")
         hp.check_method(self.method)
-        hp.check_ported("strategy", self.strategy)
         if self.strategy not in VALID_STRATEGIES:
             raise ValueError(f"unknown strategy {self.strategy!r}; valid "
                              f"strategies: {VALID_STRATEGIES}")
@@ -109,18 +116,25 @@ class CodecConfig:
             raise ValueError(
                 f"unknown encode_backend {self.encode_backend!r}; "
                 f"available: {hp.available_encode_backends()}")
+        if self.t_high < 1:
+            raise ValueError(f"t_high must be >= 1, got {self.t_high}")
         if self.radius < 2:
             raise ValueError(f"radius must be >= 2, got {self.radius}")
         if not (1 <= self.max_len <= 24):
             raise ValueError(f"max_len must be in [1, 24], got {self.max_len}")
         if self.tile_syms < 1:
             raise ValueError(f"tile_syms must be >= 1, got {self.tile_syms}")
-        smem = K.decode_tiles_smem(self.tile_syms, 1 << self.max_len)
+        # The largest tile this codec's decodes stage: tile_syms, and the
+        # largest class tile of the tuned dispatch, which decompress_batch
+        # runs whatever the strategy.
+        tile = max(self.tile_syms, hp.max_class_tile(self.t_high))
+        smem = K.decode_tiles_smem(tile, 1 << self.max_len)
         if self.backend == "cuda" and smem > K.SMEM_LIMIT:
             raise ValueError(
                 f"backend 'cuda' cannot decode max_len={self.max_len} with "
-                f"tile_syms={self.tile_syms}: a decode_tiles block needs "
-                f"{smem} B of shared memory, Hopper allows {K.SMEM_LIMIT}")
+                f"tile_syms={self.tile_syms} and t_high={self.t_high}: a "
+                f"decode_tiles block of {tile} codes needs {smem} B of "
+                f"shared memory, Hopper allows {K.SMEM_LIMIT}")
         if self.subseqs_per_seq < 1:
             raise ValueError("subseqs_per_seq must be >= 1, got "
                              f"{self.subseqs_per_seq}")
@@ -204,15 +218,19 @@ class Codec:
                                    device=self.device)
 
     def build_plan(self, stream, codebook) -> hp.DecoderPlan:
-        """Phase 1-3 plan under this codec's (method, backend)."""
-        return hp.build_plan(stream, codebook, method=self.config.method,
-                             backend=self.backend)
+        """Phase 1-3 plan under this codec's (method, backend, t_high)."""
+        c = self.config
+        return hp.build_plan(stream, codebook, method=c.method,
+                             backend=self.backend, t_high=c.t_high)
 
     def plan_for(self, compressed: Compressed) -> hp.DecoderPlan:
-        """Cached ``DecoderPlan`` for one tensor, keyed by content digest
-        (single-flight: concurrent misses on one payload build it once)."""
+        """Cached ``DecoderPlan`` for one tensor, keyed by content digest,
+        method and ``t_high`` (so a cached plan's CR classes are always
+        those of this codec's ``t_high``); single-flight: concurrent misses
+        on one payload build it once."""
         compressed = self._local(compressed)
-        key = (compressed_digest(compressed), self.config.method)
+        c = self.config
+        key = (compressed_digest(compressed), c.method, c.t_high)
         return self.plan_cache.get_or_build_plan(
             key, lambda: self.build_plan(compressed.stream,
                                          compressed.codebook))
@@ -232,8 +250,26 @@ class Codec:
         return compressor.decompress(compressed, method=c.method,
                                      tile_syms=c.tile_syms,
                                      backend=self.backend,
-                                     strategy=c.strategy, plan=plan,
-                                     fused=c.fused)
+                                     strategy=c.strategy, t_high=c.t_high,
+                                     plan=plan, fused=c.fused)
+
+    def decompress_batch(self, cs, *, plans=None) -> list:
+        """Decompress many tensors: one decode-write dispatch per CR class
+        across ALL of them, phase 1-3 plans served from the cache.  With
+        ``config.fused``, eligible tensors instead decode through the fused
+        per-tensor path (see ``compressor.decompress_batch``)."""
+        cs = [self._local(x) for x in cs]
+        if not cs:
+            return []
+        c = self.config
+        if plans is None:
+            plans = [self.plan_for(x) for x in cs]
+        return compressor.decompress_batch(cs, method=c.method,
+                                           tile_syms=c.tile_syms,
+                                           backend=self.backend,
+                                           strategy=c.strategy,
+                                           t_high=c.t_high, plans=plans,
+                                           fused=c.fused)
 
     def decode(self, stream, codebook, n_out: int, *, plan=None):
         """Decode a raw encoded stream to uint16 quant codes (no
@@ -241,4 +277,4 @@ class Codec:
         c = self.config
         return hp.decode(stream, codebook, n_out, plan=plan, method=c.method,
                          backend=self.backend, strategy=c.strategy,
-                         tile_syms=c.tile_syms)
+                         tile_syms=c.tile_syms, t_high=c.t_high)

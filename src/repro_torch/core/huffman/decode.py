@@ -5,6 +5,7 @@ Port of the gap-array half of ``src/repro/core/huffman/decode.py``:
   1. count decode ("get output idx.")    -> :func:`subseq_scan`
   2. prefix sum                          -> :func:`output_offsets`
   3. tile-staged decode + write          -> :func:`decode_write_tiles`
+     (or the padded baseline layout      -> :func:`decode_write`)
 
 These work in absolute stream coordinates (:func:`bits.peek`) and are the
 oracles of the CUDA kernels in ``repro_torch.kernels``.
@@ -103,6 +104,31 @@ def output_offsets(counts: torch.Tensor) -> torch.Tensor:
                       device=counts.device)
     torch.cumsum(counts, 0, dtype=torch.int32, out=out[1:])
     return out
+
+
+def decode_write(units, dec_sym, dec_len, start_bits, total_bits: int,
+                 max_len: int, n_out: int):
+    """Phase 4 (baseline layout): padded per-subsequence decode + compaction.
+
+    The *original* decoders' write behaviour: each subsequence produces its
+    symbols into its own padded row of ``MAX_SYMS_PER_SUBSEQ`` slots, which
+    are then gather-compacted into the output.  Windows run from each start
+    to the next subsequence boundary.  Returns ``(uint16[n_out], counts)``.
+    """
+    device = start_bits.device
+    n_subseq = start_bits.shape[0]
+    ends = (torch.arange(n_subseq, dtype=torch.int32, device=device)
+            * SUBSEQ_BITS + SUBSEQ_BITS)
+    _, counts, padded = subseq_scan(units, dec_sym, dec_len, start_bits, ends,
+                                    total_bits, max_len, collect=True)
+    if n_subseq == 0 or n_out == 0:
+        return torch.zeros(n_out, dtype=torch.uint16, device=device), counts
+    offsets = output_offsets(counts)
+    out_pos = torch.arange(n_out, dtype=torch.int32, device=device)
+    owner = (torch.searchsorted(offsets, out_pos, right=True) - 1).clamp(
+        0, n_subseq - 1)
+    within = (out_pos - offsets[owner]).clamp(0, MAX_SYMS_PER_SUBSEQ - 1)
+    return padded[owner, within].to(torch.uint16), counts
 
 
 def decode_write_tiles(units, dec_sym, dec_len, start_bits, end_bits, offsets,

@@ -1,14 +1,22 @@
 """Plan/execute decoder pipeline: the single entry point for decoding.
 
-Port of ``src/repro/core/huffman/pipeline.py`` for the gap-array method and
-the "tile" strategy:
+Port of ``src/repro/core/huffman/pipeline.py`` for the gap-array method:
 
     build_plan()    phases 1-3: gap-array sync starts, per-subsequence
-                    counts, output-offset prefix sum.
-    decode()        phase 4 through a named *backend*: fixed-tile staged
-                    decode-write (paper Alg. 1), or with an
-                    ``OutputTransform`` the fused decode -> dequantize ->
-                    inverse Lorenzo (``fused=True``).
+                    counts, output-offset prefix sum; the per-CR-class
+                    dispatch plan (paper Alg. 2) is built from the plan's
+                    per-sequence counts on first read (``plan.classes``).
+    decode()        phase 4 through a named *backend*; strategies:
+                    "tile"   fixed-tile staged decode-write (paper Alg. 1),
+                    "tuned"  per-CR-class tile decode (paper Alg. 1 + 2),
+                    "padded" padded-layout baseline (the original decoders'
+                             uncoalesced-write cost structure).
+                    With an ``OutputTransform`` the "tile" and "padded"
+                    strategies run their fused form: decode -> dequantize
+                    -> inverse Lorenzo (``fused=True``).
+    decode_batch()  class-merged decode of many tensors: sequences of equal
+                    CR class from all tensors go into one decode-write
+                    dispatch, so N tensors cost one dispatch per class.
 
 Backends live in a registry: "ref" is the plain torch reference
 (``core.huffman.decode``); "cuda" runs the hand-written CUDA kernels
@@ -17,11 +25,9 @@ CPU tensors.  Every backend counts plan builds and decode-write dispatches
 in ``backend.stats``.  The encode side keeps the reference's registry with
 its "ref" backend.
 
-Options whose code is not ported yet (``method="selfsync"``, the "tuned"
-and "padded" strategies, device encode backends) raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
-The reference's per-CR-class dispatch plan (paper Alg. 2) is read only by
-the "tuned" strategy, so it is ported with that strategy.
+Options whose code is not ported yet (``method="selfsync"``, device encode
+backends) raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+ports them.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 from repro_torch.core.huffman import codebook as _cb
 from repro_torch.core.huffman import decode as hd
 from repro_torch.core.huffman import encode as he
-from repro_torch.core.huffman.bits import SUBSEQ_BITS
+from repro_torch.core.huffman.bits import SUBSEQ_BITS, UNIT_BITS
 from repro_torch.core.huffman.encode import EncodedStream
 
 
@@ -50,9 +56,14 @@ class DecodeGuardError(RuntimeError):
     """
 
 
+# Paper Alg. 2 constants: class c in {1..T_high} covers CR in (c-1, c];
+# class T_high+1 covers (T_high, 16].
+T_HIGH_DEFAULT = 8          # the paper's V100 value, kept as the reference's
+OVERFLOW_TILE = 3584        # paper: optimal buffer for CR > T_high on V100
+SYMBOL_BYTES = 2
 DEFAULT_TILE_SYMS = 4096
 
-#: Decode-write strategies of the reference (only "tile" is ported).
+#: Decode-write strategies accepted by ``decode`` (and ``CodecConfig``).
 VALID_STRATEGIES = ("tuned", "tile", "padded")
 #: Sync-discovery methods of the reference (only "gap" is ported).  The
 #: reference's sequential oracle method "naive_ref" is no decode path of the
@@ -63,8 +74,6 @@ VALID_PLAN_METHODS = ("gap", "selfsync")
 #: ROADMAP.md item that ports each.
 UNPORTED = {
     ("method", "selfsync"): "queue A item 3 (self-sync method)",
-    ("strategy", "tuned"): "queue A item 2 (tuned and padded strategies)",
-    ("strategy", "padded"): "queue A item 2 (tuned and padded strategies)",
     ("encode_backend", "jnp"): "queue A item 4 (device write side)",
     ("encode_backend", "pallas"): "queue A item 4 (device write side)",
 }
@@ -89,6 +98,85 @@ def ss_max_for_tile(tile_syms: int, max_len: int) -> int:
     """
     min_starts = (SUBSEQ_BITS - max_len) // max_len + 1
     return tile_syms // min_starts + 2
+
+
+# ---------------------------------------------------------------------------
+# CR classification (paper Alg. 2: CLASSIFY / HISTOGRAM / SORT / plan)
+# ---------------------------------------------------------------------------
+# Host numpy over the per-sequence counts the plan already holds: built only
+# when the "tuned" strategy or ``decode_batch`` reads it, so the default
+# "tile" path never pays for it.
+
+
+def sequence_ratios(seq_counts, subseqs_per_seq: int) -> np.ndarray:
+    """Per-sequence compression ratio: decoded bytes / encoded bytes
+    (float32, as in the reference)."""
+    enc_bytes = subseqs_per_seq * SUBSEQ_BITS // 8
+    return (np.asarray(seq_counts).astype(np.float32)
+            * np.float32(SYMBOL_BYTES) / np.float32(enc_bytes))
+
+
+def classify(ratios, t_high: int = T_HIGH_DEFAULT) -> np.ndarray:
+    """CLASSIFYCR: CR in (c-1, c] -> class c; CR > t_high -> t_high + 1."""
+    return np.clip(np.ceil(ratios).astype(np.int32), 1, t_high + 1)
+
+
+def class_histogram(classes, t_high: int = T_HIGH_DEFAULT) -> np.ndarray:
+    """HISTOGRAM: sequences per class, over classes 0..t_high+1."""
+    return np.bincount(classes, minlength=t_high + 2)
+
+
+def sort_by_class(classes):
+    """ParKeyValueSort: stable sort of sequence ids by class; returns
+    (sorted classes, sequence ids)."""
+    order = np.argsort(classes, kind="stable").astype(np.int32)
+    return classes[order], order
+
+
+def tile_for_class(c: int, t_high: int = T_HIGH_DEFAULT) -> int:
+    """Buffer (tile) size for a class: 1024 symbols per CR unit, as in the
+    paper ("sequences in the (3,4] group ... buffer of length 4096"), with
+    the overflow class pinned at OVERFLOW_TILE.  The paper's V100 values,
+    kept as the reference's: the output does not depend on them."""
+    if c > t_high:
+        return OVERFLOW_TILE
+    return 1024 * max(c, 1)
+
+
+def max_class_tile(t_high: int = T_HIGH_DEFAULT) -> int:
+    """The largest tile any class of ``t_high`` uses."""
+    return max(tile_for_class(c, t_high) for c in range(1, t_high + 2))
+
+
+@dataclasses.dataclass
+class ClassPlan:
+    """Host-side per-CR-class dispatch plan (per-class sequence id lists)."""
+
+    t_high: int
+    classes: np.ndarray          # int32[n_seq]
+    seq_order: np.ndarray        # int32[n_seq] sequence ids sorted by class
+    class_start: np.ndarray      # int32[t_high+3] prefix offsets into seq_order
+    tile_syms: dict              # class -> tile size
+
+    def class_seq_ids(self, c: int) -> np.ndarray:
+        lo, hi = int(self.class_start[c]), int(self.class_start[c + 1])
+        return self.seq_order[lo:hi]
+
+
+def make_plan(stream, seq_counts, subseqs_per_seq: int,
+              t_high: int = T_HIGH_DEFAULT) -> ClassPlan:
+    """Build the per-CR-class dispatch plan from per-sequence symbol counts
+    (``stream`` is accepted and ignored, as in the reference)."""
+    del stream
+    classes = classify(sequence_ratios(seq_counts, subseqs_per_seq), t_high)
+    hist = class_histogram(classes, t_high)
+    _, order = sort_by_class(classes)
+    class_start = np.zeros(t_high + 3, np.int32)
+    class_start[1:] = np.cumsum(hist)
+    return ClassPlan(
+        t_high=t_high, classes=classes, seq_order=order,
+        class_start=class_start,
+        tile_syms={c: tile_for_class(c, t_high) for c in range(1, t_high + 2)})
 
 
 # ---------------------------------------------------------------------------
@@ -127,22 +215,30 @@ class DecodeBackend:
                   -> counts
     ``tiles_fn``  phase-4 tile decode; signature of
                   ``decode.decode_write_tiles`` (+ optional ``lut_base``)
+    ``padded_fn`` phase-4 padded baseline: (units, ds, dl, start_abs,
+                  end_abs, total_bits, max_len, n_out) -> out
 
-    Optional fused phase-4 op (decode + dequantize + reconstruct in one
-    dispatch; see :class:`OutputTransform`):
+    Optional fused phase-4 ops (decode + dequantize + reconstruct; see
+    :class:`OutputTransform`):
 
-    ``fused_tiles_fn``  tiles_fn signature + (opos, oval, eb, radius,
-                        shape=, out_dtype=) -> reconstructed
-                        ``out_dtype[n_out]`` (flat, C order)
+    ``fused_tiles_fn``   tiles_fn signature + (opos, oval, eb, radius,
+                         shape=, out_dtype=) -> reconstructed
+                         ``out_dtype[n_out]`` (flat, C order)
+    ``fused_padded_fn``  padded_fn signature + (opos, oval, eb, radius,
+                         shape=, out_dtype=) -> reconstructed
+                         ``out_dtype[n_out]`` (flat, C order)
 
-    A backend registered without it still works everywhere; fused requests
-    fall back to the two-pass path, recorded in ``stats["fused_fallbacks"]``.
+    A backend registered without them still works everywhere; fused
+    requests fall back to the two-pass path, recorded in
+    ``stats["fused_fallbacks"]``.
     """
 
     name: str
     count_fn: Callable
     tiles_fn: Callable
+    padded_fn: Callable
     fused_tiles_fn: "Callable | None" = None
+    fused_padded_fn: "Callable | None" = None
     stats: dict = dataclasses.field(
         default_factory=lambda: {"decode_write_dispatches": 0,
                                  "plan_builds": 0,
@@ -154,10 +250,9 @@ class DecodeBackend:
 
     @property
     def supports_fused(self) -> bool:
-        """Whether the backend serves ``fused=True``.  The reference also
-        needs ``fused_padded_fn``; the port needs only ``fused_tiles_fn``
-        until the padded strategy is ported (ROADMAP.md queue A item 2)."""
-        return self.fused_tiles_fn is not None
+        """Whether the backend serves ``fused=True``: both fused ops."""
+        return (self.fused_tiles_fn is not None
+                and self.fused_padded_fn is not None)
 
     def bump(self, key: str, n: int = 1):
         """Atomic counter increment (one handle serves every codec)."""
@@ -174,11 +269,22 @@ class DecodeBackend:
         self.bump("decode_write_dispatches")
         return self.tiles_fn(*args, **kwargs)
 
+    def decode_padded(self, *args, **kwargs):
+        """Counted padded phase-4 dispatch."""
+        self.bump("decode_write_dispatches")
+        return self.padded_fn(*args, **kwargs)
+
     def decode_tiles_fused(self, *args, **kwargs):
         """Counted fused phase-4 dispatch."""
         self.bump("decode_write_dispatches")
         self.bump("fused_dispatches")
         return self.fused_tiles_fn(*args, **kwargs)
+
+    def decode_padded_fused(self, *args, **kwargs):
+        """Counted fused padded phase-4 dispatch."""
+        self.bump("decode_write_dispatches")
+        self.bump("fused_dispatches")
+        return self.fused_padded_fn(*args, **kwargs)
 
 
 _BACKEND_FACTORIES: dict[str, Callable[[], DecodeBackend]] = {}
@@ -212,25 +318,45 @@ def _make_ref_backend() -> DecodeBackend:
                                    total_bits, max_len)
         return counts
 
-    # The fused op composes the plain paths (decode, then the exact N-D
+    def padded(units, ds, dl, start_abs, end_abs, total_bits, max_len,
+               n_out):
+        del end_abs  # the padded reference derives windows from boundaries
+        out, _ = hd.decode_write(units, ds, dl, start_abs, total_bits,
+                                 max_len, n_out)
+        return out
+
+    # The fused ops compose the plain paths (decode, then the exact N-D
     # dequantize the two-pass path uses), as the reference's _epilogue does,
     # so fused-vs-two-pass parity holds by construction.
-    def fused_tiles(units, ds, dl, starts, ends, offsets, total_bits,
-                    max_len, n_out, tile_syms, ss_max, opos, oval, eb,
-                    radius, shape=None, out_dtype=None, **kwargs):
+    def _epilogue(codes, n_out, opos, oval, eb, radius, shape, out_dtype):
         from repro_torch.core.sz import lorenzo  # core.sz imports this module
 
-        codes = hd.decode_write_tiles(units, ds, dl, starts, ends, offsets,
-                                      total_bits, max_len, n_out, tile_syms,
-                                      ss_max, **kwargs)
         shape = tuple(shape) if shape is not None else (n_out,)
         dtype = out_dtype if out_dtype is not None else torch.float32
         return lorenzo.dequantize(codes.reshape(shape), opos, oval, eb, shape,
                                   radius=radius, dtype=dtype).reshape(-1)
 
+    def fused_tiles(units, ds, dl, starts, ends, offsets, total_bits,
+                    max_len, n_out, tile_syms, ss_max, opos, oval, eb,
+                    radius, shape=None, out_dtype=None, **kwargs):
+        codes = hd.decode_write_tiles(units, ds, dl, starts, ends, offsets,
+                                      total_bits, max_len, n_out, tile_syms,
+                                      ss_max, **kwargs)
+        return _epilogue(codes, n_out, opos, oval, eb, radius, shape,
+                         out_dtype)
+
+    def fused_padded(units, ds, dl, start_abs, end_abs, total_bits, max_len,
+                     n_out, opos, oval, eb, radius, shape=None,
+                     out_dtype=None):
+        codes = padded(units, ds, dl, start_abs, end_abs, total_bits,
+                       max_len, n_out)
+        return _epilogue(codes, n_out, opos, oval, eb, radius, shape,
+                         out_dtype)
+
     return DecodeBackend(name="ref", count_fn=count,
-                         tiles_fn=hd.decode_write_tiles,
-                         fused_tiles_fn=fused_tiles)
+                         tiles_fn=hd.decode_write_tiles, padded_fn=padded,
+                         fused_tiles_fn=fused_tiles,
+                         fused_padded_fn=fused_padded)
 
 
 def _make_cuda_backend() -> DecodeBackend:
@@ -243,9 +369,16 @@ def _make_cuda_backend() -> DecodeBackend:
                                       total_bits, max_len)
         return counts
 
+    def padded(units, ds, dl, start_abs, end_abs, total_bits, max_len,
+               n_out):
+        out, _ = ops.decode_padded_compact(units, ds, dl, start_abs, end_abs,
+                                           total_bits, max_len, n_out)
+        return out
+
     return DecodeBackend(name="cuda", count_fn=count,
-                         tiles_fn=ops.decode_write_tiles,
-                         fused_tiles_fn=ops.decode_write_tiles_fused)
+                         tiles_fn=ops.decode_write_tiles, padded_fn=padded,
+                         fused_tiles_fn=ops.decode_write_tiles_fused,
+                         fused_padded_fn=ops.decode_padded_fused)
 
 
 register_backend("ref", _make_ref_backend)
@@ -408,7 +541,12 @@ def _as_luts(codebook, device) -> DecodeLuts:
 
 @dataclasses.dataclass
 class DecoderPlan:
-    """Everything phase 4 needs: sync starts, counts, offsets."""
+    """Everything phase 4 needs: sync starts, counts, offsets, CR classes.
+
+    ``classes`` (the per-CR-class dispatch plan for ``t_high``) is built
+    from ``seq_counts`` on the host when first read, so a plan that only
+    the "tile" or "padded" strategy decodes never builds it.
+    """
 
     method: str                 # "gap"
     start_bits: torch.Tensor    # int32[n_subseq] absolute sync starts
@@ -417,6 +555,17 @@ class DecoderPlan:
     offsets: torch.Tensor       # int32[n_subseq+1] exclusive prefix sum
     seq_counts: np.ndarray      # int64[n_seq] symbols per sequence (host)
     subseqs_per_seq: int
+    t_high: int = T_HIGH_DEFAULT
+    _classes: "ClassPlan | None" = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def classes(self) -> ClassPlan:
+        """The per-CR-class dispatch plan (paper Alg. 2), built once."""
+        if self._classes is None:
+            self._classes = make_plan(None, self.seq_counts,
+                                      self.subseqs_per_seq, self.t_high)
+        return self._classes
 
 
 def check_method(method: str):
@@ -429,14 +578,16 @@ def check_method(method: str):
 
 
 def build_plan(stream: EncodedStream, codebook, method: str = "gap",
-               backend: "str | DecodeBackend" = "cuda") -> DecoderPlan:
+               backend: "str | DecodeBackend" = "cuda",
+               t_high: int = T_HIGH_DEFAULT) -> DecoderPlan:
     """Run decode phases 1-3 on ``backend``.
 
     Phase 1 takes the per-subsequence sync points from the stored gap array
     and counts the codewords per 128-bit window; phase 3 prefix-sums the
     counts into output offsets.  The per-sequence counts come to the host
-    once, for the symbol-count guard of ``sz.compressor.decompress``.  The
-    plan is backend-portable and every build is counted in
+    once, for the symbol-count guard of ``sz.compressor.decompress`` and
+    the CR classes of ``t_high`` (built when first read).  The plan is
+    backend-portable and every build is counted in
     ``backend.stats["plan_builds"]``.
     """
     be = get_backend(backend)
@@ -470,7 +621,7 @@ def build_plan(stream: EncodedStream, codebook, method: str = "gap",
     seq_counts = seq_counts.cpu().numpy()
     return DecoderPlan(method=method, start_bits=starts, end_bits=ends,
                        counts=counts, offsets=offsets, seq_counts=seq_counts,
-                       subseqs_per_seq=sps)
+                       subseqs_per_seq=sps, t_high=t_high)
 
 
 # ---------------------------------------------------------------------------
@@ -478,47 +629,333 @@ def build_plan(stream: EncodedStream, codebook, method: str = "gap",
 # ---------------------------------------------------------------------------
 
 
+
+
 def decode(stream: EncodedStream, codebook, n_out: int, *,
            plan: "DecoderPlan | None" = None,
            backend: "str | DecodeBackend" = "cuda",
            method: str = "gap", strategy: str = "tile",
            tile_syms: int = DEFAULT_TILE_SYMS,
+           t_high: int = T_HIGH_DEFAULT,
            transform: "OutputTransform | None" = None) -> torch.Tensor:
     """Decode one stream to ``n_out`` uint16 quant codes.
 
     ``plan`` may carry a prebuilt ``DecoderPlan`` (phases 1-3); ``None``
-    builds one with ``method``.  ``strategy="tile"`` runs the fixed-tile
-    staged decode-write (paper Alg. 1) with tiles of ``tile_syms`` codes.
-    ``transform`` (an ``OutputTransform``) runs the backend's fused op
-    instead: the decoded symbols go through dequantization and the inverse
-    Lorenzo inside the decode-write dispatch, and the return value is the
-    reconstructed ``out_dtype[n_out]``, flat in C order (no quant-code
-    array).  A backend without fused ops raises ``ValueError``, as in the
-    reference; ``sz.compressor.decompress`` checks first and falls back.
+    builds one with ``method`` and ``t_high``.  ``strategy``: "tile" runs
+    the fixed-tile staged decode-write (paper Alg. 1) with tiles of
+    ``tile_syms`` codes; "tuned" decodes the sequences of each CR class of
+    the plan with that class's tile (paper Alg. 2), one dispatch per class;
+    "padded" is the original decoders' baseline layout.  ``transform`` (an
+    ``OutputTransform``) runs the backend's fused op for "tile" and
+    "padded": the decoded symbols go through dequantization and the inverse
+    Lorenzo, and the return value is the reconstructed ``out_dtype[n_out]``,
+    flat in C order.  A backend without fused ops, and the "tuned"
+    strategy, raise ``ValueError`` with a transform, as in the reference;
+    ``sz.compressor.decompress`` checks first and falls back.
     """
     be = get_backend(backend)
-    check_ported("strategy", strategy)
     if strategy not in VALID_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; valid strategies: "
                          f"{list(VALID_STRATEGIES)}")
+    if transform is not None and strategy == "tuned":
+        raise ValueError(
+            f"fused decode (transform=) supports strategies 'tile' and "
+            f"'padded', not {strategy!r}: the tuned per-CR-class gather "
+            f"reorders the output, which breaks the sequential Lorenzo "
+            f"reconstruction carry")
     if transform is not None and not be.supports_fused:
         raise ValueError(
             f"backend {be.name!r} registers no fused ops; check "
             f"backend.supports_fused before attaching a transform")
     if plan is None:
-        plan = build_plan(stream, codebook, method=method, backend=be)
+        plan = build_plan(stream, codebook, method=method, backend=be,
+                          t_high=t_high)
     luts = _as_luts(codebook, stream.units.device)
-    ss_max = ss_max_for_tile(tile_syms, luts.max_len)
+    lut_args = (stream.units, luts.dec_sym, luts.dec_len)
     if transform is not None:
         t = transform
+        out = dict(shape=None if t.shape is None else tuple(t.shape),
+                   out_dtype=(t.out_dtype if t.out_dtype is not None
+                              else torch.float32))
+        if strategy == "padded":
+            return be.decode_padded_fused(
+                *lut_args, plan.start_bits, plan.end_bits, stream.total_bits,
+                luts.max_len, n_out, t.outlier_pos, t.outlier_val, t.eb,
+                t.radius, **out)
         return be.decode_tiles_fused(
-            stream.units, luts.dec_sym, luts.dec_len, plan.start_bits,
-            plan.end_bits, plan.offsets, stream.total_bits, luts.max_len,
-            n_out, tile_syms, ss_max, t.outlier_pos, t.outlier_val, t.eb,
-            t.radius, shape=None if t.shape is None else tuple(t.shape),
-            out_dtype=(t.out_dtype if t.out_dtype is not None
-                       else torch.float32))
-    return be.decode_tiles(stream.units, luts.dec_sym, luts.dec_len,
-                           plan.start_bits, plan.end_bits, plan.offsets,
-                           stream.total_bits, luts.max_len, n_out, tile_syms,
-                           ss_max)
+            *lut_args, plan.start_bits, plan.end_bits, plan.offsets,
+            stream.total_bits, luts.max_len, n_out, tile_syms,
+            ss_max_for_tile(tile_syms, luts.max_len), t.outlier_pos,
+            t.outlier_val, t.eb, t.radius, **out)
+    if strategy == "padded":
+        return be.decode_padded(*lut_args, plan.start_bits, plan.end_bits,
+                                stream.total_bits, luts.max_len, n_out)
+    if strategy == "tile":
+        return be.decode_tiles(*lut_args, plan.start_bits, plan.end_bits,
+                               plan.offsets, stream.total_bits, luts.max_len,
+                               n_out, tile_syms,
+                               ss_max_for_tile(tile_syms, luts.max_len))
+    return _class_dispatch(be.decode_tiles, *lut_args, luts.max_len,
+                           stream.total_bits,
+                           [_tensor_meta(plan, n_out, plan.t_high)],
+                           plan.t_high)[0]
+
+
+def _max_tile_span(offsets: torch.Tensor, tile_syms: int, n_sym: int) -> int:
+    """Most subsequences any ``tile_syms``-symbol output tile overlaps.
+
+    ``offsets`` is the exclusive prefix sum over the gathered subsequences;
+    the ``searchsorted`` tile -> subsequence mapping of the decode-write
+    kernels.  Torch ops on the offsets' device; one host sync.
+    """
+    if n_sym <= 0 or offsets.shape[0] <= 1:
+        return 1
+    offsets = offsets.to(torch.int64)
+    n_tiles = (n_sym + tile_syms - 1) // tile_syms
+    base = torch.arange(n_tiles, dtype=torch.int64,
+                        device=offsets.device) * tile_syms
+    s0 = torch.searchsorted(offsets, base, right=True) - 1
+    last = torch.clamp(base + tile_syms, max=n_sym) - 1
+    s1 = torch.maximum(torch.searchsorted(offsets, last, right=True) - 1, s0)
+    return int((s1 - s0 + 1).max())
+
+
+def _tensor_meta(plan: DecoderPlan, n_out: int, t_high: int,
+                 bit_offset: int = 0, lut_base: "int | None" = None,
+                 clamp_bits: "int | None" = None) -> dict:
+    """Phase-4 view of one tensor for ``_class_dispatch``: its plan, its CR
+    classes under ``t_high``, where its bits sit in the merged stream
+    (``bit_offset``, with window ends clamped at ``clamp_bits`` first), its
+    slice of a merged LUT (``lut_base``) and its output size."""
+    classes = (plan.classes if plan.t_high == t_high else
+               make_plan(None, plan.seq_counts, plan.subseqs_per_seq,
+                         t_high))
+    return {"plan": plan, "classes": classes, "bit_offset": bit_offset,
+            "lut_base": lut_base, "clamp_bits": clamp_bits, "n_out": n_out}
+
+
+def _class_dispatch(tiles_fn, units, dec_sym, dec_len, max_len: int,
+                    total_bits, tensors: list, t_high: int) -> list:
+    """Per-CR-class decode-write over one or many tensors.
+
+    ``tensors`` holds one ``_tensor_meta`` per decoded tensor.  For every
+    class, the subsequences of that class's sequences in ALL tensors are
+    gathered into ONE ``tiles_fn`` dispatch with the class's tile, in
+    (tensor, sequence, subsequence) order, dropping count-0 lanes (the
+    zero-padded tail of a tensor's final sequence), which would consume
+    tile lanes without carrying symbols; the class's output is then
+    scattered back to each tensor's positions.  Bit-exact with the
+    reference's loop over classes and tensors, built with torch ops on the
+    device instead: one stable sort of the subsequences by class, one
+    gather and one scatter per class, and one host sync per class for the
+    lane budget.  Classes whose sequences hold no symbols are not
+    dispatched.  The outputs are views into one buffer.
+    """
+    device = units.device
+    plans = [m["plan"] for m in tensors]
+    # Each tensor's region of the concatenated output holds every symbol
+    # its plan decodes, so the scatter needs no bound check; its output is
+    # the region's first n_out codes (zeros past the decoded symbols).
+    region = [max(m["n_out"], int(np.sum(p.seq_counts)))
+              for m, p in zip(tensors, plans)]
+    out_base = np.concatenate([[0], np.cumsum(region)]).astype(np.int64)
+
+    # Per sequence (host): class, symbols, and where its first symbol lands
+    # in the concatenated output.
+    seq_cls = np.concatenate([m["classes"].classes for m in tensors])
+    seq_cnt = np.concatenate([np.asarray(p.seq_counts, np.int64)
+                              for p in plans])
+    seq_dest = np.concatenate([
+        out_base[i] + np.cumsum(p.seq_counts) - p.seq_counts
+        for i, p in enumerate(plans)]).astype(np.int64)
+
+    # Per subsequence (device), in (tensor, sequence, subsequence) order:
+    # windows shifted into the merged bit space after clamping at each
+    # tensor's own payload end, counts, LUT slice and class.  Each
+    # subsequence finds its tensor by a search over the tensors' ends (a
+    # repeat_interleave would give one tensor's subsequences to one warp).
+    counts = torch.cat([p.counts.to(torch.int32) for p in plans])
+    sub_end = torch.as_tensor(np.cumsum([p.start_bits.shape[0]
+                                         for p in plans]), device=device)
+    owner = torch.searchsorted(
+        sub_end, torch.arange(counts.shape[0], device=device), right=True)
+    per_tensor = torch.as_tensor(np.array(
+        [[m["bit_offset"] for m in tensors],
+         [2**31 - 1 if m["clamp_bits"] is None else m["clamp_bits"]
+          for m in tensors],
+         [m["lut_base"] or 0 for m in tensors]], np.int64), device=device)
+    shift, clamp, lut = per_tensor[:, owner]
+    starts = (torch.cat([p.start_bits.to(torch.int64) for p in plans])
+              + shift).to(torch.int32)
+    ends = (torch.minimum(torch.cat([p.end_bits.to(torch.int64)
+                                     for p in plans]), clamp)
+            + shift).to(torch.int32)
+    lut = (lut.to(torch.int32)
+           if any(m["lut_base"] is not None for m in tensors) else None)
+    seq_sps = np.repeat([p.subseqs_per_seq for p in plans],
+                        [len(p.seq_counts) for p in plans])
+    sub_cls = torch.repeat_interleave(
+        torch.as_tensor(seq_cls.astype(np.int64), device=device),
+        torch.as_tensor(seq_sps.astype(np.int64), device=device),
+        output_size=counts.shape[0])
+    key, order = torch.sort(torch.where(counts > 0, sub_cls, 0), stable=True)
+    # lane_end[c]: where class c's lanes end in `order` (class 0: dropped)
+    lane_end = torch.searchsorted(
+        key, torch.arange(t_high + 2, device=device), right=True).cpu()
+
+    out = torch.zeros(int(out_base[-1]), dtype=torch.int16, device=device)
+    for c in range(1, t_high + 2):
+        sel = seq_cls == c
+        class_n = int(seq_cnt[sel].sum())
+        if class_n == 0:
+            continue
+        idx = order[int(lane_end[c - 1]):int(lane_end[c])]
+        offsets = hd.output_offsets(counts[idx])
+        tile = tile_for_class(c, t_high)
+        # Lane provisioning: the static bound assumes every subsequence in a
+        # tile's span carries >= min_starts codewords; the (at most one per
+        # tensor) partial subsequence at a stream tail can carry fewer, so
+        # also bound by the worst actual span any tile needs.
+        ss_max = max(ss_max_for_tile(tile, max_len),
+                     _max_tile_span(offsets, tile, class_n) + 2)
+        kwargs = {} if lut is None else {"lut_base": lut[idx]}
+        class_out = tiles_fn(units, dec_sym, dec_len, starts[idx], ends[idx],
+                             offsets, total_bits, max_len, class_n, tile,
+                             ss_max, **kwargs)
+        # Scatter: the j-th code of the class goes to its sequence's
+        # destination plus j minus the codes of the class's earlier
+        # sequences.
+        cnt = seq_cnt[sel]
+        head = torch.as_tensor(np.stack([seq_dest[sel] - (np.cumsum(cnt)
+                                                          - cnt), cnt]),
+                               device=device)
+        pos = torch.arange(class_n, device=device) + torch.repeat_interleave(
+            head[0], head[1], output_size=class_n)
+        out[pos] = class_out.view(torch.int16)
+    out = out.view(torch.uint16)
+    return [out[out_base[i]:out_base[i] + m["n_out"]]
+            for i, m in enumerate(tensors)]
+
+
+def execute_tuned(stream: EncodedStream, dec_sym, dec_len, max_len: int,
+                  n_out: int, start_bits, counts,
+                  t_high: int = T_HIGH_DEFAULT, tiles_fn=None) -> torch.Tensor:
+    """Tuned per-class decode from precomputed phase 1-3 outputs.
+
+    Raw-LUT entry point for callers that hold decode tables instead of a
+    ``Codebook``: ``tiles_fn`` defaults to the plain tile decoder and may be
+    any ``decode_write_tiles``-shaped callable (e.g. the kernel-backed
+    ``ops.decode_write_tiles``).
+    """
+    if tiles_fn is None:
+        tiles_fn = hd.decode_write_tiles
+    counts = torch.as_tensor(counts).to(torch.int32)
+    sps = stream.subseqs_per_seq
+    seq_counts = counts.reshape(-1, sps).sum(dim=1, dtype=torch.int64)
+    ends = torch.arange(stream.n_subseq, dtype=torch.int32,
+                        device=counts.device) * SUBSEQ_BITS + SUBSEQ_BITS
+    plan = DecoderPlan(method="gap", start_bits=torch.as_tensor(start_bits),
+                       end_bits=ends, counts=counts,
+                       offsets=hd.output_offsets(counts),
+                       seq_counts=seq_counts.cpu().numpy(),
+                       subseqs_per_seq=sps, t_high=t_high)
+    return _class_dispatch(tiles_fn, stream.units, dec_sym, dec_len, max_len,
+                           stream.total_bits,
+                           [_tensor_meta(plan, n_out, t_high)], t_high)[0]
+
+
+# ---------------------------------------------------------------------------
+# Batched multi-tensor decode
+# ---------------------------------------------------------------------------
+
+
+def _merge_luts(codebooks, device) -> tuple:
+    """Stack per-tensor decode LUTs into one table at a common ``max_len``.
+
+    A tensor whose codebook peeks fewer bits than the global maximum gets
+    its LUT upsampled: window ``w`` at ``max_len_g`` bits resolves via the
+    top ``max_len_t`` bits, i.e. ``np.repeat`` by the width ratio.  Huffman
+    codes are prefix-free, so the extra peeked bits never change the decoded
+    (symbol, length) pair.  Returns (dec_sym, dec_len, max_len_g, bases).
+    """
+    max_len_g = max(int(cb.max_len) for cb in codebooks)
+    syms, lens, bases = [], [], []
+    stride = 1 << max_len_g
+    for t, cb in enumerate(codebooks):
+        reps = 1 << (max_len_g - int(cb.max_len))
+        syms.append(np.repeat(np.asarray(cb.dec_sym, np.uint16), reps))
+        lens.append(np.repeat(np.asarray(cb.dec_len, np.uint8), reps))
+        bases.append(t * stride)
+    return (torch.from_numpy(np.concatenate(syms)).to(device),
+            torch.from_numpy(np.concatenate(lens)).to(device), max_len_g,
+            bases)
+
+
+# Bit positions are int32 throughout the decode stack; keep every merged
+# stream comfortably inside that space (one chunk still decode-batches
+# hundreds of tensors -- 2^30 bits is 128 MiB of compressed payload).
+MAX_BATCH_BITS = 1 << 30
+
+
+def decode_batch(streams, codebooks, n_outs, *,
+                 plans=None, backend: "str | DecodeBackend" = "cuda",
+                 method: str = "gap",
+                 t_high: int = T_HIGH_DEFAULT) -> list:
+    """Decode many tensors with one decode-write dispatch per CR class.
+
+    Streams are concatenated at subsequence granularity (every stream is
+    already padded to whole sequences), LUTs are merged at a common
+    ``max_len`` with a per-subsequence ``lut_base``, and phase 4 gathers
+    same-class sequences from ALL tensors into one tile-decode dispatch.
+    Phases 1-3 remain per-tensor.  On "cuda" a merged LUT too large for
+    shared memory is read from device memory by the tile kernel
+    (``huffman_decode.decode_tiles_lut_in_smem``), so the batch is never
+    split by LUT size.
+
+    Batches whose merged bitstream would overflow the int32 bit-position
+    space are split into sub-batches of at most ``MAX_BATCH_BITS`` merged
+    bits (the dispatch count then scales with the number of sub-batches);
+    a single stream over the budget decodes alone.
+
+    Returns a list of uint16 symbol arrays, bit-exact with per-tensor
+    ``decode()``.  The fused path is per-tensor by construction (its
+    reconstruction carry follows one tensor's output order), so
+    ``sz.compressor.decompress_batch(fused=True)`` routes eligible tensors
+    through per-tensor fused decodes and only the rest through here.
+    """
+    streams, codebooks, n_outs = list(streams), list(codebooks), list(n_outs)
+    if not streams:
+        return []
+    be = get_backend(backend)
+    if plans is None:
+        plans = [build_plan(s, cb, method=method, backend=be, t_high=t_high)
+                 for s, cb in zip(streams, codebooks)]
+    plans = list(plans)
+
+    item_bits = [int(s.units.shape[0]) * UNIT_BITS for s in streams]
+    if len(streams) > 1 and sum(item_bits) > MAX_BATCH_BITS:
+        outs, lo, acc = [], 0, 0
+        for i, b in enumerate(item_bits):
+            if acc and acc + b > MAX_BATCH_BITS:
+                outs += decode_batch(streams[lo:i], codebooks[lo:i],
+                                     n_outs[lo:i], plans=plans[lo:i],
+                                     backend=be, t_high=t_high)
+                lo, acc = i, 0
+            acc += b
+        outs += decode_batch(streams[lo:], codebooks[lo:], n_outs[lo:],
+                             plans=plans[lo:], backend=be, t_high=t_high)
+        return outs
+
+    device = streams[0].units.device
+    dec_sym, dec_len, max_len_g, lut_bases = _merge_luts(codebooks, device)
+    # uint32 has no cat on every build: concatenate the int32 views.
+    units = torch.cat([s.units.view(torch.int32) for s in streams]).view(
+        torch.uint32)
+    bit_offsets = np.concatenate([[0], np.cumsum(item_bits)[:-1]])
+    metas = [_tensor_meta(plan, n_out, t_high, bit_offset=int(bit_offsets[t]),
+                          lut_base=lut_bases[t], clamp_bits=stream.total_bits)
+             for t, (stream, n_out, plan) in enumerate(zip(streams, n_outs,
+                                                           plans))]
+    return _class_dispatch(be.decode_tiles, units, dec_sym, dec_len,
+                           max_len_g, int(units.shape[0]) * UNIT_BITS, metas,
+                           t_high)

@@ -1,9 +1,10 @@
 """End-to-end SZ-style compressor: Lorenzo -> quantize -> Huffman.
 
 Port of ``src/repro/core/sz/compressor.py`` (``compress`` on the "ref"
-encode path, the two-pass ``decompress`` and its fused form).  Codebook construction is
-host numpy; quantization, histogram, bit-pack, decode and dequantization
-run as torch ops and CUDA kernels on the input's device.
+encode path, the two-pass ``decompress`` and its fused form under every
+strategy, and the class-batched ``decompress_batch``).  Codebook
+construction is host numpy; quantization, histogram, bit-pack, decode and
+dequantization run as torch ops and CUDA kernels on the input's device.
 
 :func:`compressed_from_arrays` and :func:`compressed_to_arrays` carry a
 ``Compressed`` across as plain numpy arrays and scalars, the form in which a
@@ -23,7 +24,8 @@ from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import lorenzo
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels import huffman_decode as K
-from repro_torch.kernels.ops import fused_squeeze, fused_tile_rows
+from repro_torch.kernels.ops import (PADDED_EPILOGUE_BLOCK, fused_squeeze,
+                                    fused_tile_rows)
 
 DEFAULT_EB = 1e-3
 
@@ -186,6 +188,11 @@ def fused_max_cols(max_len: int) -> int:
 #: Widest fastest axis of the N-D fused kernel at the default max_len (12):
 #: 54,960 columns (the TPU's VMEM bound was 2**15).
 FUSED_MAX_COLS = fused_max_cols(cb.DEFAULT_MAX_LEN)
+#: Widest fastest axis of the padded strategy's fused epilogue
+#: (``dequant_reconstruct_nd``): a one-row tile of int32 residuals and its
+#: scan scratch in one block's shared memory, with no LUT beside them, so
+#: it does not depend on max_len: (232,448 - 320) / 4 = 58,032 columns.
+FUSED_PADDED_MAX_COLS = (K.SMEM_LIMIT - fd.dequant_reconstruct_smem(0)) // 4
 #: Largest 3-D plane (rows * cols) the fused kernel carries.  The plane
 #: carry is one (rows, cols) buffer of tagged 8-byte words in global memory,
 #: no longer in on-chip memory; 2**20 values keep it at 8 MiB, resident in
@@ -205,12 +212,16 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
     ``ops.fused_squeeze``) over float32, bfloat16 and float16 outputs
     (``FUSED_DTYPES``).  Falling back to the two-pass path (recorded in
     ``stats["fused_fallbacks"]``): >3-D tensors, other dtypes, rows wider
-    than ``fused_max_cols(max_len)``, 3-D planes larger than
-    ``FUSED_MAX_PLANE``, strategies other than "tile"/"padded", backends
-    without fused ops -- and, new in the port, a tile of ``tile_syms``
-    codes (or of the N-D kernel's whole rows) whose block would not fit
-    Hopper's shared memory.  The bounds apply on every backend, as the
-    reference's VMEM bounds do, so both backends fall back alike.
+    than the row bound, 3-D planes larger than ``FUSED_MAX_PLANE``,
+    strategies other than "tile"/"padded", backends without fused ops --
+    and, new in the port, a tile whose block would not fit Hopper's shared
+    memory.  The bounds follow the block of the kernel that runs: for
+    "tile" the fused decode's tile of ``tile_syms`` codes (or whole rows)
+    beside the LUT, so the row bound is ``fused_max_cols(max_len)``; for
+    "padded" the epilogue's tile of ``PADDED_EPILOGUE_BLOCK`` codes (or
+    whole rows) with no LUT, so the row bound is ``FUSED_PADDED_MAX_COLS``.
+    The bounds apply on every backend, as the reference's VMEM bounds do,
+    so both backends fall back alike.
     """
     be = hp.get_backend(backend)
     if method == "naive_ref":
@@ -226,7 +237,9 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
     if len(sq) > 3:
         return (f"{len(sq)}-D Lorenzo reconstruction (fused epilogue "
                 f"covers up to 3-D)")
-    max_cols = fused_max_cols(c.codebook.max_len)
+    padded = strategy == "padded"
+    max_cols = (FUSED_PADDED_MAX_COLS if padded
+                else fused_max_cols(c.codebook.max_len))
     if len(sq) >= 2 and sq[-1] > max_cols:
         return (f"fastest axis {sq[-1]} exceeds the per-tile row bound "
                 f"{max_cols}")
@@ -234,9 +247,10 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
         return (f"plane {sq[-2]}x{sq[-1]} exceeds the VMEM plane-carry "
                 f"bound {FUSED_MAX_PLANE}")
     nd = fused_squeeze(c.shape)
-    block = tile_syms if nd is None else fused_tile_rows(nd, tile_syms) * \
-        nd[-1]
-    smem = fd.decode_tiles_fused_smem(block, 1 << c.codebook.max_len)
+    tile = PADDED_EPILOGUE_BLOCK if padded else tile_syms
+    block = tile if nd is None else fused_tile_rows(nd, tile) * nd[-1]
+    smem = (fd.dequant_reconstruct_smem(block) if padded else
+            fd.decode_tiles_fused_smem(block, 1 << c.codebook.max_len))
     if smem > K.SMEM_LIMIT:
         return (f"a fused tile of {block} codes needs {smem} B of shared "
                 f"memory per block; Hopper allows {K.SMEM_LIMIT}")
@@ -259,23 +273,25 @@ def _guard_symbol_count(c: Compressed, plan, backend) -> None:
 def decompress(c: Compressed, method: str = "gap",
                tile_syms: int = hp.DEFAULT_TILE_SYMS, *,
                backend: "str | hp.DecodeBackend" = "cuda",
-               strategy: str = "tile", plan=None,
-               fused: bool = False) -> torch.Tensor:
+               strategy: str = "tile", t_high: int = hp.T_HIGH_DEFAULT,
+               plan=None, fused: bool = False) -> torch.Tensor:
     """Decompress on the device ``c`` lives on; ``method`` is "gap".
 
-    Decoding goes through ``pipeline.decode`` on ``backend``; ``plan`` may
-    carry a prebuilt ``DecoderPlan``.  ``fused=True`` runs phase 4,
-    dequantization and the inverse Lorenzo in one dispatch (one CUDA kernel
-    on "cuda"), never writing the uint16 quant-code array; the output is
-    bit-exact with the two-pass path.  A tensor the fused path cannot serve
-    (:func:`fused_unsupported_reason`) decodes two-pass and increments
+    Decoding goes through ``pipeline.decode`` on ``backend`` with
+    ``strategy`` ("tile", "tuned" or "padded"); ``plan`` may carry a
+    prebuilt ``DecoderPlan``.  ``fused=True`` runs phase 4, dequantization
+    and the inverse Lorenzo without a two-pass dequantize: one CUDA kernel
+    on "cuda" for "tile", and the padded decode followed by one epilogue
+    kernel for "padded"; the output is bit-exact with the two-pass path.  A
+    tensor the fused path cannot serve (:func:`fused_unsupported_reason`,
+    which includes every "tuned" decode) decodes two-pass and increments
     ``backend.stats["fused_fallbacks"]``.
     """
     book = c.codebook
     hp.check_method(method)
-    hp.check_ported("strategy", strategy)
     if plan is None:
-        plan = hp.build_plan(c.stream, book, method=method, backend=backend)
+        plan = hp.build_plan(c.stream, book, method=method, backend=backend,
+                             t_high=t_high)
     _guard_symbol_count(c, plan, backend)
 
     if fused:
@@ -285,13 +301,71 @@ def decompress(c: Compressed, method: str = "gap",
             out = hp.decode(c.stream, book, c.n_symbols, plan=plan,
                             method=method, backend=backend,
                             strategy=strategy, tile_syms=tile_syms,
-                            transform=_fused_transform(c))
+                            t_high=t_high, transform=_fused_transform(c))
             return out.reshape(c.shape)
         hp.get_backend(backend).bump("fused_fallbacks")
 
     codes = hp.decode(c.stream, book, c.n_symbols, plan=plan, method=method,
-                      backend=backend, strategy=strategy, tile_syms=tile_syms)
+                      backend=backend, strategy=strategy, tile_syms=tile_syms,
+                      t_high=t_high)
     return _dequantize(c, codes)
+
+
+def decompress_batch(cs: "list[Compressed]", method: str = "gap",
+                     tile_syms: int = hp.DEFAULT_TILE_SYMS, *,
+                     backend: "str | hp.DecodeBackend" = "cuda",
+                     strategy: str = "tile",
+                     t_high: int = hp.T_HIGH_DEFAULT,
+                     plans: "list | None" = None,
+                     fused: bool = False) -> list:
+    """Decompress many tensors with class-batched decode dispatch.
+
+    Huffman decode-write runs once per CR class across ALL tensors
+    (``pipeline.decode_batch``) instead of once per class per tensor; the
+    output is bit-exact with per-tensor :func:`decompress`.  ``plans`` may
+    carry prebuilt (e.g. cached) ``DecoderPlan`` objects, one per tensor,
+    which skips phases 1-3.
+
+    ``fused=True``: tensors the fused path can serve under ``strategy``
+    (:func:`fused_unsupported_reason`, judged exactly once per tensor)
+    decode one by one through the fused path; the rest go through the
+    class-merged two-pass path, and each of them counts
+    ``stats["fused_fallbacks"]`` exactly once.  Output order and bits are
+    the same either way.
+    """
+    cs = list(cs)
+    if not cs:
+        return []
+    hp.check_method(method)
+    be = hp.get_backend(backend)
+    if plans is None:
+        plans = [hp.build_plan(c.stream, c.codebook, method=method,
+                               backend=be, t_high=t_high) for c in cs]
+    for c, p in zip(cs, plans):
+        _guard_symbol_count(c, p, be)
+    outs: list = [None] * len(cs)
+    rest = list(range(len(cs)))
+    if fused:
+        rest = []
+        for i, c in enumerate(cs):
+            if fused_unsupported_reason(c, be, method, strategy,
+                                        tile_syms) is None:
+                out = hp.decode(c.stream, c.codebook, c.n_symbols,
+                                plan=plans[i], method=method, backend=be,
+                                strategy=strategy, tile_syms=tile_syms,
+                                t_high=t_high, transform=_fused_transform(c))
+                outs[i] = out.reshape(c.shape)
+            else:
+                be.bump("fused_fallbacks")
+                rest.append(i)
+    if rest:
+        codes = hp.decode_batch(
+            [cs[i].stream for i in rest], [cs[i].codebook for i in rest],
+            [cs[i].n_symbols for i in rest], plans=[plans[i] for i in rest],
+            method=method, backend=be, t_high=t_high)
+        for i, q in zip(rest, codes):
+            outs[i] = _dequantize(cs[i], q)
+    return outs
 
 
 # ---------------------------------------------------------------------------

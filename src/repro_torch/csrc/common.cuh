@@ -69,13 +69,29 @@ __device__ __forceinline__ int peek_row(const uint32_t row[kRowUnits],
   return static_cast<int>(window >> (32 - max_len));
 }
 
+// One LUT entry.  kGlobalLut: the table stays in device memory and is read
+// through the read-only data path (a merged LUT too large to stage);
+// otherwise sym/len point to the copy a block staged in shared memory.
+template <bool kGlobalLut>
+__device__ __forceinline__ void lut_entry(const uint16_t* sym,
+                                          const uint8_t* len, int win,
+                                          int* s, int* l) {
+  if constexpr (kGlobalLut) {
+    *s = __ldg(sym + win);
+    *l = __ldg(len + win);
+  } else {
+    *s = sym[win];
+    *l = len[win];
+  }
+}
+
 // common.decode_window for one lane: decode [start, end), calling
 // emit(k, sym) for the k-th codeword; emit returns false to stop early
 // (the lane's remaining symbols are known to be unwanted).  The LUT index
 // is clamped into the table and a zero-length entry advances one bit, so a
 // corrupt table can neither read outside it nor loop forever.  Returns the
 // count; *landing gets the final position.
-template <typename Emit>
+template <bool kGlobalLut = false, typename Emit>
 __device__ __forceinline__ int decode_lane(const uint32_t row[kRowUnits],
                                            int start, int end,
                                            const uint16_t* sym,
@@ -87,9 +103,11 @@ __device__ __forceinline__ int decode_lane(const uint32_t row[kRowUnits],
   while (pos < end) {
     const int win =
         min(max(peek_row(row, pos, max_len) + lut_base, 0), lut_size - 1);
-    if (!emit(count, static_cast<int>(sym[win]))) break;
+    int s, l;
+    lut_entry<kGlobalLut>(sym, len, win, &s, &l);
+    if (!emit(count, s)) break;
     ++count;
-    pos += max(static_cast<int>(len[win]), 1);
+    pos += max(l, 1);
   }
   *landing = pos;
   return count;
@@ -116,8 +134,9 @@ __device__ __forceinline__ void stage_lut(const uint16_t* __restrict__ dec_sym,
 // symbol would land past the tile end.  Both exits drop only writes the
 // reference drops.  The lane budget is ss_max; above blockDim lanes a thread
 // loops.  The caller stages the LUT, initialises the tile and synchronises
-// before and after.
-template <typename Store>
+// before and after.  With kGlobalLut, s_sym/s_len are the table in device
+// memory (see lut_entry) and nothing is staged.
+template <bool kGlobalLut = false, typename Store>
 __device__ __forceinline__ void stage_tile_codes(
     const uint32_t* __restrict__ units, long long n_units,
     const int* __restrict__ start_abs, const int* __restrict__ end_abs,
@@ -140,13 +159,13 @@ __device__ __forceinline__ void stage_tile_codes(
     load_row(units, n_units, row_id, row);
     const int lb = lut_base != nullptr ? lut_base[s] : 0;
     int land;
-    decode_lane(row, start, end, s_sym, s_len, lut_size, lb, max_len, &land,
-                [&](int k, int sym) {
-                  const int local = off + min(k, kMaxSyms - 1);
-                  if (local >= tile_syms) return false;
-                  if (local >= 0) store(local, sym);
-                  return true;
-                });
+    decode_lane<kGlobalLut>(row, start, end, s_sym, s_len, lut_size, lb,
+                            max_len, &land, [&](int k, int sym) {
+                              const int local = off + min(k, kMaxSyms - 1);
+                              if (local >= tile_syms) return false;
+                              if (local >= 0) store(local, sym);
+                              return true;
+                            });
   }
 }
 

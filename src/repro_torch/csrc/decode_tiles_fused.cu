@@ -12,11 +12,8 @@
 //      outliers (fused.cuh: stage_residuals);
 //   3. scans d in place (the tile's inclusive cumsum) and takes the tile
 //      total, its aggregate;
-//   4. finds the sum of every earlier tile by decoupled look-back (Merrill &
-//      Garland 2016, the design of CUB's DeviceScan): it publishes its
-//      aggregate in status[t], then walks t-1, t-2, ... adding aggregates
-//      until it meets a tile that has published its inclusive prefix, and
-//      publishes its own inclusive prefix;
+//   4. finds the sum of every earlier tile by decoupled look-back
+//      (fused.cuh: lookback_prefix);
 //   5. writes out[i] = cast(float(int32(prefix + d[i])) * two_eb).
 // On the TPU the carry was one int32 in VMEM scratch across an ordered
 // grid; here it is one 64-bit status word per tile ((flag << 32) | value,
@@ -35,9 +32,6 @@
 #include "fused.cuh"
 
 namespace repro_torch {
-
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
 
 template <typename T>
 __global__ void __launch_bounds__(1024) decode_tiles_fused_kernel(
@@ -62,31 +56,13 @@ __global__ void __launch_bounds__(1024) decode_tiles_fused_kernel(
                   n_subseq, total_bits, lut_size, max_len, t, tile_syms,
                   ss_max, radius, opos, oval, obounds, s_sym, s_len, d);
   scan_rows(d, tile_syms, tile_syms, scratch);
-
-  if (threadIdx.x == 0) {
-    const uint32_t aggregate = d[tile_syms - 1];
-    uint32_t prefix = 0;
-    if (t == 0) {
-      st_release(status, kPrefix | aggregate);
-    } else {
-      st_release(status + t, kAggregate | aggregate);
-      long long polls = 0;
-      for (int j = t - 1;; --j) {
-        unsigned long long w;
-        while (((w = ld_acquire(status + j)) >> 32) == 0) count_poll(&polls);
-        prefix += static_cast<uint32_t>(w);
-        if ((w & ~0xffffffffull) == kPrefix) break;
-      }
-      st_release(status + t, kPrefix | (prefix + aggregate));
-    }
-    scratch[kCarryWord] = prefix;
-  }
-  __syncthreads();
+  const uint32_t prefix =
+      lookback_prefix(t, d[tile_syms - 1], status, scratch);
 
   const long long base = static_cast<long long>(t) * tile_syms;
   const int n_here =
       static_cast<int>(min(static_cast<long long>(tile_syms), n_out - base));
-  write_out(d, scratch[kCarryWord], n_here, two_eb, out + base);
+  write_out(d, prefix, n_here, two_eb, out + base);
 }
 
 template <typename T>

@@ -16,32 +16,9 @@
 // On the TPU both carries sat in VMEM scratch across an ordered grid.  Here
 // a block takes a unit of `group` consecutive tiles (one tile for 3-D),
 // decodes them one by one into shared memory, and hands the carries on
-// through global memory as tagged words, (tag << 32) | value, one per
-// column or element, whose tag names the unit that wrote it.  A reader
-// polls the words it needs until they carry the tag it waits for; the
-// value comes in the same 64-bit load, so a hand-over costs one store and
-// one load through L2, with no flag, fence or barrier.
-//   * Row carry: a chained scan.  Unit (p, k), of index u = p * K + k (K
-//     units a plane), waits for the (cols,) carry unit (p, k-1) wrote (tag
-//     u), adds its rows and writes the carry of its last row (tag u + 1).
-//     One vector is enough per chain, because only the next unit reads it.
-//     The chains of the planes share a ring of slots = min(planes, K)
-//     vectors, vector p % slots, so the first unit of plane p waits (for
-//     the tag, not the value) until the last unit of plane p - slots has
-//     written its vector, which it does after reading it.
-//   * Plane carry (3-D): one (rows, cols) plane of tagged words, 8 MiB at
-//     most, which stays in the 50 MB L2.  Tile (p, k) waits for the words
-//     tile (p-1, k) wrote (tag p), adds them and writes q (tag p + 1),
-//     except on the last plane.
-// Tickets go to units by anti-diagonal, d = p + k (diagonal_unit), not
-// plane by plane: unit (p, k) waits only for units of diagonal d - 1 (with
-// slots = K, plane p - K's last unit is on diagonal d - 1 too), so every
-// wait is for a unit of lower ticket, and the blocks in flight hold whole
-// diagonals, all of whose units can proceed at once.  The ring and the
-// plane are zeroed (tag 0: nothing written) by the wrapper for every
-// launch.  A final partial tile of a 2-D field holds fake rows after the
-// last row; they pollute only a carry no unit reads, and are never written
-// to the output.
+// through global memory as tagged words (fused.cuh: nd_carries, which
+// describes the row-carry chains, the ring, the plane carry and the
+// diagonal ticket order).
 //
 // What bounds it on the H100: the byte floor is the payload, 12 B per
 // subsequence, the output and 8 B per outlier.  The real limit is the
@@ -57,40 +34,6 @@
 #include "fused.cuh"
 
 namespace repro_torch {
-
-// Largest d with d (d + 1) / 2 <= t.
-__device__ __forceinline__ long long tri_root(long long t) {
-  long long d = static_cast<long long>((sqrt(8.0 * t + 1.0) - 1.0) / 2.0);
-  while ((d + 1) * (d + 2) / 2 <= t) ++d;
-  while (d * (d + 1) / 2 > t) --d;
-  return d;
-}
-
-// The unit (p, k) of a planes x K grid that gets ticket t when tickets go
-// by anti-diagonal d = p + k, and by p within a diagonal.  With a = min(P,
-// K), b = max(P, K), diagonals 0 .. a-2 grow by one tile, a-1 .. b-1 hold a
-// tiles, and the last a-1 shrink by one.
-__device__ __forceinline__ void diagonal_unit(int t, int planes, int K,
-                                              int* p, int* k) {
-  const long long a = min(planes, K), b = max(planes, K);
-  const long long t1 = a * (a - 1) / 2, t2 = (b - a + 1) * a;
-  long long d, off;
-  if (t < t1) {
-    d = tri_root(t);
-    off = t - d * (d + 1) / 2;
-  } else if (t < t1 + t2) {
-    const long long u = t - t1;
-    d = (a - 1) + u / a;
-    off = u % a;
-  } else {
-    const long long r = static_cast<long long>(planes) * K - 1 - t;
-    const long long e = tri_root(r);
-    d = planes + K - 2 - e;
-    off = e - (r - e * (e + 1) / 2);
-  }
-  *p = static_cast<int>(max(0LL, d - (K - 1)) + off);
-  *k = static_cast<int>(d) - *p;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(1024) decode_tiles_fused_nd_kernel(
@@ -115,8 +58,7 @@ __global__ void __launch_bounds__(1024) decode_tiles_fused_nd_kernel(
   int p, k;
   diagonal_unit(take_ticket(ticket, scratch), planes, units_per_plane, &p,
                 &k);
-  const int u = p * units_per_plane + k;
-  const int first = u * group;
+  const int first = (p * units_per_plane + k) * group;
   const int n_here_tiles = min(group, n_tiles - first);
   const int n = n_here_tiles * block;
   stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
@@ -127,55 +69,8 @@ __global__ void __launch_bounds__(1024) decode_tiles_fused_nd_kernel(
                     s_sym, s_len, d + static_cast<size_t>(i) * block);
   }
   scan_rows(d, n, cols, scratch);              // e, in place
-
-  const int nt = blockDim.x;
-  const int rows = n / cols;
-  // Row carry from unit (p, k-1); a plane's first unit starts from 0 but
-  // waits until plane p - slots has left the ring vector.  Tag 0: no wait.
-  const unsigned want =
-      k > 0 ? static_cast<unsigned>(u)
-            : (p >= slots
-                   ? static_cast<unsigned>(u - (slots - 1) * units_per_plane)
-                   : 0u);
-  unsigned long long* rc =
-      row_carry + static_cast<size_t>(p % slots) * cols;
-  gate_on_tag(rc, want);
-  for (int c0 = threadIdx.x; c0 < cols; c0 += kBatch * nt) {
-    uint32_t carry[kBatch];
-    wait_tags(rc, c0, nt, cols, want, carry);
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int c = c0 + b * nt;
-      if (c >= cols) break;
-      uint32_t run = k > 0 ? carry[b] : 0u;
-      for (int r = 0; r < rows; ++r) {
-        run += d[r * cols + c];
-        d[r * cols + c] = run;
-      }
-      st_relaxed(rc + c, tagged(static_cast<unsigned>(u + 1), run));
-    }
-  }
-  __syncthreads();
-
-  if (planes > 1) {
-    // Plane carry (group = 1): q of the same rows in plane p - 1, from tile
-    // (p-1, k).
-    unsigned long long* pc = plane_carry + static_cast<size_t>(k) * block;
-    const bool keep = p + 1 < planes;
-    for (int i0 = threadIdx.x; i0 < block; i0 += kBatch * nt) {
-      uint32_t prev[kBatch];
-      wait_tags(pc, i0, nt, block, static_cast<unsigned>(p), prev);
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * nt;
-        if (i >= block) break;
-        const uint32_t q = d[i] + (p > 0 ? prev[b] : 0u);
-        if (keep) st_relaxed(pc + i, tagged(static_cast<unsigned>(p + 1), q));
-        d[i] = q;
-      }
-    }
-    __syncthreads();
-  }
+  nd_carries(d, n, cols, block, p, k, units_per_plane, planes, slots,
+             row_carry, plane_carry);        // q, in place
 
   const long long base = static_cast<long long>(first) * block;
   const int n_write =
@@ -193,12 +88,7 @@ int launch(const void* units, long long n_units, const void* start_abs,
            long long n_out, int n_tiles, const void* opos, const void* oval,
            const void* obounds, int radius, float two_eb, void* ticket,
            void* row_carry, void* plane_carry, void* out, void* stream) {
-  // Enough threads for the lanes, and for every column's carry in one
-  // batch of tagged loads (fused.cuh: kBatch a thread).
-  const int col_threads = ((cols + kBatch - 1) / kBatch + 31) / 32 * 32;
-  const int lanes = fused_threads(ss_max);
-  const int threads =
-      col_threads > lanes ? (col_threads > 1024 ? 1024 : col_threads) : lanes;
+  const int threads = nd_threads(cols, fused_threads(ss_max));
   const size_t smem = fused_smem(
       static_cast<long long>(group) * rows_per_tile * cols, lut_size);
   auto kernel = decode_tiles_fused_nd_kernel<T>;

@@ -36,7 +36,9 @@ SIGNATURES = {
                      [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
     "decode_tiles": ("repro_decode_tiles",
                      [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
-                      _I, _I, _L, _I, _P, _P]),
+                      _I, _I, _L, _I, _I, _P, _P]),
+    "decode_padded": ("repro_decode_padded",
+                      [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
     "decode_tiles_fused": ("repro_decode_tiles_fused",
                            [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                             _I, _I, _I, _L, _I, _P, _P, _P, _I, _F, _P, _P,
@@ -45,6 +47,12 @@ SIGNATURES = {
                               [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I,
                                _P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P]),
+    "dequant_reconstruct": ("repro_dequant_reconstruct",
+                            [_P, _I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P,
+                             _P]),
+    "dequant_reconstruct_nd": ("repro_dequant_reconstruct_nd",
+                               [_P, _I, _I, _I, _I, _I, _I, _L, _I, _P, _P,
+                                _P, _I, _F, _P, _P, _P, _I, _P, _P]),
 }
 
 _lock = threading.Lock()

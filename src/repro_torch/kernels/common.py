@@ -100,14 +100,31 @@ def _run_lanes(rows, start, end, dec_sym, dec_len, max_len: int,
 
 
 def decode_window(rows, start, end, dec_sym, dec_len, max_len: int,
-                  lut_base=None):
+                  lut_base=None, collect: bool = False):
     """Masked decode of per-lane windows [start, end) (local bit coords).
 
     Returns int32 (landing_pos, counts): the row-local position of the first
-    codeword at-or-after ``end`` and the number of codewords decoded.
+    codeword at-or-after ``end`` and the number of codewords decoded; with
+    ``collect=True`` also uint16 (L, MAX_SYMS) padded symbols, the k-th
+    symbol of a lane at slot ``min(k, MAX_SYMS - 1)`` and zeros past it.
     """
+    emit = padded = None
+    if collect:
+        lanes = start.shape[0]
+        padded = torch.zeros((lanes, MAX_SYMS), dtype=torch.int32,
+                             device=start.device)
+        lane = torch.arange(lanes, device=start.device)
+
+        def emit(active, count, sym):
+            idx = count.clamp(max=MAX_SYMS - 1)
+            padded[lane, idx] = torch.where(active, sym.to(torch.int32),
+                                            padded[lane, idx])
+
     pos, count = _run_lanes(rows, start, end, dec_sym, dec_len, max_len,
-                            lut_base)
+                            lut_base, emit)
+    if collect:
+        return (pos.to(torch.int32), count.to(torch.int32),
+                padded.to(torch.uint16))
     return pos.to(torch.int32), count.to(torch.int32)
 
 

@@ -1,7 +1,7 @@
 """Fused decode -> dequantize -> inverse Lorenzo: CUDA wrappers and plain
 versions.
 
-Port of ``src/repro/kernels/fused_decode.py``'s tile kernels:
+Port of ``src/repro/kernels/fused_decode.py``:
 
   * :func:`decode_tiles_fused` -- phase 4 for flat fields: the tile decode
     of ``decode_tiles``, ``d = code - radius`` with the outlier side list
@@ -12,17 +12,23 @@ Port of ``src/repro/kernels/fused_decode.py``'s tile kernels:
     whole-row tiles, a chained ``(cols,)`` row carry and a ``(rows, cols)``
     plane carry handed on through global memory as tagged words
     (``csrc/decode_tiles_fused_nd.cu``).
+  * :func:`dequant_reconstruct` / :func:`dequant_reconstruct_nd` -- the
+    same epilogues alone, over a uint16 code array: the fused form of the
+    padded decoder (``csrc/dequant_reconstruct.cu``,
+    ``csrc/dequant_reconstruct_nd.cu``; carries as above, shared through
+    ``csrc/fused.cuh``).
 
-Neither kernel writes a quant-code array: the wrapper allocates only the
-output and the carry scratch, zeroed on the current stream for every
+The decode kernels write no quant-code array: every wrapper allocates only
+the output and the carry scratch, zeroed on the current stream for every
 launch.  The wrappers follow ``huffman_decode``'s rules: input checks, the
 kernel for CUDA tensors, the plain version (``*_plain``) for CPU tensors,
 any other device raises, and each launch is counted (``kernels/launches``).
 
-The plain versions are ``decode_tiles_plain`` followed by the monolithic
-dequantize of ``core/sz/lorenzo.py:dequantize`` (int32 cumsum along every
-axis of the squeezed shape, one f32 multiply, one cast).  They use no
-carry at all, so they are an oracle for the kernels' carry design.
+The plain versions are the monolithic dequantize of
+``core/sz/lorenzo.py:dequantize`` (int32 cumsum along every axis of the
+squeezed shape, one f32 multiply, one cast), after ``decode_tiles_plain``
+for the decode kernels.  They use no carry at all, so they are an oracle
+for the kernels' carry design.
 
 Outlier ranges: the kernels read only the slice ``[obounds[t],
 obounds[t + 1])`` of the side list for tile ``t``.  ``ops`` finds the
@@ -63,11 +69,17 @@ def decode_tiles_fused_nd_smem(block: int, lut: int) -> int:
     return decode_tiles_fused_smem(block, lut)
 
 
+def dequant_reconstruct_smem(block: int) -> int:
+    """Shared memory of one epilogue block (either geometry) of ``block``
+    codes: the int32 residual tile and the scan scratch; no LUT."""
+    return decode_tiles_fused_smem(block, 0)
+
+
 def tile_group(shape, block: int, n_tiles: int, lut: int) -> int:
-    """Tiles one block of the N-D kernel takes: for 2-D as many whole tiles
-    as shared memory holds, at most ``MAX_GROUP``, so the one row-carry
-    chain has ``group`` times fewer steps; 1 for 3-D, whose chains run
-    side by side."""
+    """Tiles one block of an N-D kernel takes: for 2-D as many whole tiles
+    as shared memory holds beside a ``lut``-entry LUT (0 for the epilogue),
+    at most ``MAX_GROUP``, so the one row-carry chain has ``group`` times
+    fewer steps; 1 for 3-D, whose chains run side by side."""
     if len(shape) == 3:
         return 1
     fit = (K.SMEM_LIMIT - decode_tiles_fused_nd_smem(0, lut)) // (4 * block)
@@ -231,6 +243,31 @@ def _nd_geometry(shape, rows_per_tile: int):
     return shape, rows_per_tile * cols, math.prod(shape)
 
 
+class _NdLaunch:
+    """Grid and carry scratch of one N-D kernel launch: ``group`` tiles a
+    unit (:func:`tile_group`), ``units_per_plane`` units a plane, the ring
+    of ``slots`` row-carry vectors (:func:`ring_slots`), and one zeroed
+    int64 buffer holding the ticket (8 B), the ring (slots x cols tagged
+    words) and, for 3-D, the plane carry (rows x cols tagged words)."""
+
+    def __init__(self, shape, rows_per_tile: int, n_tiles: int, lut: int,
+                 device):
+        rows, self.cols = shape[-2], shape[-1]
+        self.planes = shape[0] if len(shape) == 3 else 1
+        block = rows_per_tile * self.cols
+        self.group = tile_group(shape, block, n_tiles, lut)
+        self.units_per_plane = (rows // rows_per_tile if self.planes > 1
+                                else (n_tiles + self.group - 1) // self.group)
+        self.slots = ring_slots(shape, rows_per_tile)
+        n_plane = rows * self.cols if self.planes > 1 else 0
+        self.scratch = torch.zeros(1 + self.slots * self.cols + n_plane,
+                                   dtype=torch.int64, device=device)
+        self.ticket = self.scratch.data_ptr()
+        self.row_carry = self.ticket + 8
+        self.plane_carry = (self.row_carry + 8 * self.slots * self.cols
+                            if self.planes > 1 else None)
+
+
 def decode_tiles_fused_nd_plain(units, start_abs, end_abs, offsets, s0,
                                 total_bits: int, dec_sym, dec_len,
                                 max_len: int, rows_per_tile: int, shape,
@@ -275,34 +312,137 @@ def decode_tiles_fused_nd(units, start_abs, end_abs, offsets, s0,
     lut = dec_sym.numel()
     K._check_smem("decode_tiles_fused_nd",
                   decode_tiles_fused_nd_smem(block, lut))
-    rows, cols = shape[-2], shape[-1]
-    planes = shape[0] if len(shape) == 3 else 1
-    group = tile_group(shape, block, n_tiles, lut)
-    units_per_plane = (rows // rows_per_tile if planes > 1
-                       else (n_tiles + group - 1) // group)
-    slots = ring_slots(shape, rows_per_tile)
     out = torch.empty(n_out, dtype=out_dtype, device=units.device)
-    # The ticket (8 B), the row-carry ring (slots x cols tagged words) and,
-    # for 3-D, the plane carry (rows x cols tagged words).
-    n_plane = rows * cols if planes > 1 else 0
-    scratch = torch.zeros(1 + slots * cols + n_plane, dtype=torch.int64,
-                          device=units.device)
-    base = scratch.data_ptr()
-    row_carry = base + 8
+    g = _NdLaunch(shape, rows_per_tile, n_tiles, lut, units.device)
     launch = _build.load("decode_tiles_fused_nd")
     rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
                 end_abs.data_ptr(), offsets.data_ptr(), s0.data_ptr(),
                 None if lut_base is None else lut_base.data_ptr(),
                 start_abs.shape[0], int(total_bits), dec_sym.data_ptr(),
-                dec_len.data_ptr(), lut, max_len, rows_per_tile, cols, planes,
-                units_per_plane, group, slots, ss_max, n_out, n_tiles,
-                opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(), radius,
-                two_eb, base, row_carry,
-                row_carry + 8 * slots * cols if planes > 1 else None,
+                dec_len.data_ptr(), lut, max_len, rows_per_tile, g.cols,
+                g.planes, g.units_per_plane, g.group, g.slots, ss_max, n_out,
+                n_tiles, opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(),
+                radius, two_eb, g.ticket, g.row_carry, g.plane_carry,
                 OUT_KINDS[out_dtype], out.data_ptr(),
                 K._stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"decode_tiles_fused_nd kernel launch failed: "
                            f"CUDA error {rc}")
     launches.launched(decode_tiles_fused_nd)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The epilogues alone, over a code array (the padded decoder's fused form)
+# ---------------------------------------------------------------------------
+
+
+def _check_codes(codes, block: int):
+    K._expect("codes", codes, torch.uint16)
+    if codes.ndim != 1:
+        raise ValueError(f"codes must be 1-D, got shape {tuple(codes.shape)}")
+    if block < 1 or codes.numel() % block:
+        raise ValueError(f"codes ({codes.numel()}) must be padded to a whole "
+                         f"number of {block}-code tiles")
+    if codes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel and no plain path for device "
+                         f"{codes.device}")
+
+
+def dequant_reconstruct_plain(codes, opos, oval, obounds, two_eb: float,
+                              radius: int, block: int = 4096,
+                              out_dtype=torch.float32):
+    """Plain version of :func:`dequant_reconstruct` (any device)."""
+    del obounds, block
+    return _reconstruct_plain(codes, opos, oval, two_eb, radius,
+                              (codes.numel(),), out_dtype)
+
+
+@launches.counted
+def dequant_reconstruct(codes, opos, oval, obounds, two_eb: float,
+                        radius: int, block: int = 4096,
+                        out_dtype=torch.float32):
+    """The 1-D epilogue over a code array: ``out_dtype[n]`` reconstructed
+    values, ``2eb * cumsum(code - radius)`` with the outliers scattered in.
+
+    ``codes`` is uint16[n], padded to a whole number of ``block``-code tiles
+    (pad codes decode past the real output and only pollute the final
+    tile's tail); ``opos`` / ``oval`` the ``-1``-padded outlier side list,
+    ``obounds`` int32[n / block + 1] each tile's slice of it, ``two_eb``
+    the float32 scale as a Python float (``ops._two_eb_f32``).
+    """
+    _check_codes(codes, block)
+    n_tiles = codes.numel() // block
+    _check_fused(opos, oval, obounds, n_tiles, two_eb, radius, out_dtype,
+                 codes.device)
+    if codes.device.type == "cpu":
+        return dequant_reconstruct_plain(codes, opos, oval, obounds, two_eb,
+                                         radius, block, out_dtype)
+    K._check_smem("dequant_reconstruct", dequant_reconstruct_smem(block))
+    out = torch.empty(codes.numel(), dtype=out_dtype, device=codes.device)
+    if n_tiles == 0:
+        return out
+    # ticket (uint32, padded to 8 B), then one uint64 status word per tile
+    scratch = torch.zeros(2 + 2 * n_tiles, dtype=torch.int32,
+                          device=codes.device)
+    launch = _build.load("dequant_reconstruct")
+    rc = launch(codes.data_ptr(), block, n_tiles, opos.data_ptr(),
+                oval.data_ptr(), obounds.data_ptr(), radius, two_eb,
+                scratch.data_ptr(), scratch.data_ptr() + 8,
+                OUT_KINDS[out_dtype], out.data_ptr(),
+                K._stream_ptr(codes.device))
+    if rc != 0:
+        raise RuntimeError(f"dequant_reconstruct kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches.launched(dequant_reconstruct)
+    return out
+
+
+def dequant_reconstruct_nd_plain(codes, opos, oval, obounds, two_eb: float,
+                                 radius: int, shape, rows_per_tile: int,
+                                 out_dtype=torch.float32):
+    """Plain version of :func:`dequant_reconstruct_nd` (any device)."""
+    del obounds
+    shape, _, n_out = _nd_geometry(shape, rows_per_tile)
+    return _reconstruct_plain(codes[:n_out], opos, oval, two_eb, radius,
+                              shape, out_dtype)
+
+
+@launches.counted
+def dequant_reconstruct_nd(codes, opos, oval, obounds, two_eb: float,
+                           radius: int, shape, rows_per_tile: int,
+                           out_dtype=torch.float32):
+    """:func:`dequant_reconstruct` with the 2-D/3-D inverse Lorenzo.
+
+    ``shape`` is the squeezed shape; a tile is ``rows_per_tile`` whole rows
+    (``ops.fused_tile_rows``), and ``codes`` is padded to a whole number of
+    tiles (pad rows sit after the last row).  Returns ``out_dtype[prod(
+    shape)]``, flat in C order.
+    """
+    shape, block, n_out = _nd_geometry(shape, rows_per_tile)
+    _check_codes(codes, block)
+    n_tiles = codes.numel() // block
+    if n_tiles != -(-n_out // block):
+        raise ValueError(f"codes hold {n_tiles} tiles of {block}; shape "
+                         f"{shape} needs {-(-n_out // block)}")
+    _check_fused(opos, oval, obounds, n_tiles, two_eb, radius, out_dtype,
+                 codes.device)
+    if codes.device.type == "cpu":
+        return dequant_reconstruct_nd_plain(codes, opos, oval, obounds,
+                                            two_eb, radius, shape,
+                                            rows_per_tile, out_dtype)
+    K._check_smem("dequant_reconstruct_nd", dequant_reconstruct_smem(block))
+    out = torch.empty(n_out, dtype=out_dtype, device=codes.device)
+    g = _NdLaunch(shape, rows_per_tile, n_tiles, 0, codes.device)
+    launch = _build.load("dequant_reconstruct_nd")
+    rc = launch(codes.data_ptr(), rows_per_tile, g.cols, g.planes,
+                g.units_per_plane, g.group, g.slots, n_out, n_tiles,
+                opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(), radius,
+                two_eb, g.ticket, g.row_carry, g.plane_carry,
+                OUT_KINDS[out_dtype], out.data_ptr(),
+                K._stream_ptr(codes.device))
+    if rc != 0:
+        raise RuntimeError(f"dequant_reconstruct_nd kernel launch failed: "
+                           f"CUDA error {rc}")
+    launches.launched(dequant_reconstruct_nd)
     return out

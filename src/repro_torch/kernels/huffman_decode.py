@@ -5,7 +5,12 @@ Port of ``src/repro/kernels/huffman_decode.py``:
   * :func:`count_subseq` -- phase 1 ("get output idx."): codewords and
     landing position per subsequence window (``csrc/count_subseq.cu``).
   * :func:`decode_tiles` -- phase 4 (paper Alg. 1): tile-staged decode and
-    dense write of the quant codes (``csrc/decode_tiles.cu``).
+    dense write of the quant codes (``csrc/decode_tiles.cu``), with the LUT
+    staged in shared memory or, when it does not fit there (a merged
+    multi-tensor LUT), read from device memory.
+  * :func:`decode_padded` -- phase 4 of the padded baseline: each
+    subsequence decodes into its own row of a ``(n_subseq, 128)`` array,
+    the original decoders' scattered writes (``csrc/decode_padded.cu``).
 
 Each wrapper checks its inputs, then launches its CUDA kernel for CUDA
 tensors and runs its plain version (``*_plain``, beside it) for CPU
@@ -64,10 +69,23 @@ def _check_stream(units, dec_sym, dec_len, max_len, total_bits, extra):
 
 
 def decode_tiles_smem(tile_syms: int, lut: int) -> int:
-    """Shared memory of one ``decode_tiles`` block: the uint16 staging tile
-    plus the LUT (uint16 symbol and uint8 length per entry).  It bounds
-    ``count_subseq`` too, whose block holds the LUT alone."""
+    """Shared memory of one ``decode_tiles`` block that stages its LUT: the
+    uint16 staging tile plus the LUT (uint16 symbol and uint8 length per
+    entry).  It bounds ``count_subseq`` too, whose block holds the LUT
+    alone."""
     return 2 * tile_syms + 3 * lut
+
+
+def decode_tiles_lut_in_smem(tile_syms: int, lut: int) -> bool:
+    """Whether ``decode_tiles`` stages its ``lut``-entry LUT in shared
+    memory (it fits beside the tile) or launches the variant that reads it
+    from device memory.  Chosen by size, before the launch."""
+    return decode_tiles_smem(tile_syms, lut) <= SMEM_LIMIT
+
+
+def decode_padded_smem(lut: int) -> int:
+    """Shared memory of one ``decode_padded`` block: the LUT alone."""
+    return 3 * lut
 
 
 def _check_smem(name, nbytes):
@@ -132,7 +150,6 @@ def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
     return counts, landing
 
 
-
 # ---------------------------------------------------------------------------
 # Phase 4: tile-staged decode + write
 # ---------------------------------------------------------------------------
@@ -183,7 +200,8 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
     s0:         int32[n_tiles]    first subsequence overlapping each tile
     lut_base:   optional int32[n_subseq] per-subsequence offset into a
                 merged decode LUT (``None`` for one codebook)
-    Returns uint16[n_out].
+    Returns uint16[n_out].  A LUT too large to sit in shared memory beside
+    the tile (:func:`decode_tiles_lut_in_smem`) is read from device memory.
     """
     _check_stream(units, dec_sym, dec_len, max_len, total_bits,
                   {"start_abs": start_abs, "end_abs": end_abs,
@@ -206,7 +224,9 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
                                   total_bits, dec_sym, dec_len, max_len,
                                   tile_syms, ss_max, n_out, lut_base)
     lut = dec_sym.numel()
-    _check_smem("decode_tiles", decode_tiles_smem(tile_syms, lut))
+    lut_in_smem = decode_tiles_lut_in_smem(tile_syms, lut)
+    _check_smem("decode_tiles", decode_tiles_smem(tile_syms,
+                                                  lut if lut_in_smem else 0))
     out = torch.empty(n_out, dtype=torch.uint16, device=units.device)
     if n_tiles == 0:
         return out
@@ -215,7 +235,8 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
                 end_abs.data_ptr(), offsets.data_ptr(), s0.data_ptr(),
                 None if lut_base is None else lut_base.data_ptr(), n_subseq,
                 int(total_bits), dec_sym.data_ptr(), dec_len.data_ptr(), lut,
-                max_len, tile_syms, ss_max, n_out, n_tiles, out.data_ptr(),
+                max_len, tile_syms, ss_max, n_out, n_tiles,
+                0 if lut_in_smem else 1, out.data_ptr(),
                 _stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"decode_tiles kernel launch failed: CUDA error "
@@ -223,3 +244,57 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
     launches.launched(decode_tiles)
     return out
 
+
+# ---------------------------------------------------------------------------
+# Phase 4, padded baseline: one padded row per subsequence
+# ---------------------------------------------------------------------------
+
+
+def decode_padded_plain(units, start_abs, end_abs, total_bits: int, dec_sym,
+                        dec_len, max_len: int):
+    """Plain version of :func:`decode_padded` (any device)."""
+    ids, start, end = C.subseq_windows(start_abs, end_abs, total_bits)
+    rows = C.gather_subseq_rows(units, ids)
+    _, counts, padded = C.decode_window(rows, start, end, dec_sym, dec_len,
+                                        max_len, collect=True)
+    return padded, counts
+
+
+@launches.counted
+def decode_padded(units, start_abs, end_abs, total_bits: int, dec_sym,
+                  dec_len, max_len: int):
+    """Padded per-subsequence decode of windows ``[start_abs[i],
+    end_abs[i])``.
+
+    units: uint32[n_units]; start_abs/end_abs: int32[n]; dec_sym:
+    uint16[lut]; dec_len: uint8[lut].  Returns ``(padded, counts)``:
+    uint16[n, 128], the k-th code of subsequence i at ``padded[i, min(k,
+    127)]`` and zeros past its count, and int32[n] counts.
+    """
+    _check_stream(units, dec_sym, dec_len, max_len, total_bits,
+                  {"start_abs": start_abs, "end_abs": end_abs})
+    _expect("start_abs", start_abs, torch.int32)
+    if start_abs.ndim != 1:
+        raise ValueError("start_abs must be 1-D")
+    _expect("end_abs", end_abs, torch.int32, start_abs.shape)
+    if units.device.type == "cpu":
+        return decode_padded_plain(units, start_abs, end_abs, total_bits,
+                                   dec_sym, dec_len, max_len)
+    lut = dec_sym.numel()
+    _check_smem("decode_padded", decode_padded_smem(lut))
+    n = start_abs.shape[0]
+    padded = torch.empty((n, C.MAX_SYMS), dtype=torch.uint16,
+                         device=units.device)
+    counts = torch.empty(n, dtype=torch.int32, device=units.device)
+    if n == 0:
+        return padded, counts
+    launch = _build.load("decode_padded")
+    rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
+                end_abs.data_ptr(), n, int(total_bits), dec_sym.data_ptr(),
+                dec_len.data_ptr(), lut, max_len, padded.data_ptr(),
+                counts.data_ptr(), _stream_ptr(units.device))
+    if rc != 0:
+        raise RuntimeError(f"decode_padded kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches.launched(decode_padded)
+    return padded, counts

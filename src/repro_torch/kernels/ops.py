@@ -1,10 +1,11 @@
 """Kernel-backed decode phases: the "cuda" backend's entry points.
 
 Port of the decode half of ``src/repro/kernels/ops.py`` (``subseq_counts``,
-``_tile_inputs``, ``decode_write_tiles`` and the tile branch of
-``decode_write_tiles_fused`` with its helpers ``_two_eb_f32``,
-``fused_squeeze`` and ``fused_tile_rows``), signature-compatible with the
-reference decoders in ``core/huffman/decode.py``.  The window rules of the
+``_tile_inputs``, ``decode_write_tiles``, ``decode_write_tiles_fused`` with
+its helpers ``_two_eb_f32``, ``fused_squeeze`` and ``fused_tile_rows``, and
+the padded baseline ``decode_padded_compact`` / ``decode_padded_fused``),
+signature-compatible with the reference decoders in
+``core/huffman/decode.py``.  The window rules of the
 reference's ``_subseq_windows`` run inside the kernels here
 (``common.subseq_windows`` in the plain versions), so the per-lane metadata
 never round-trips through device memory.
@@ -162,3 +163,89 @@ def decode_write_tiles_fused(units, dec_sym, dec_len, start_bits, end_bits,
         max_len, n_out, tile_syms, ss_max, opos, oval, eb, radius, lut_base,
         shape, out_dtype)
     return kernel(*args)
+
+
+# ---------------------------------------------------------------------------
+# Padded baseline: padded rows + compaction, and its fused epilogue
+# ---------------------------------------------------------------------------
+
+#: Codes a tile of the padded path's epilogue holds (1-D), and the tile
+#: size whose whole rows make an N-D epilogue tile: the reference's fixed
+#: block.
+PADDED_EPILOGUE_BLOCK = 4096
+
+
+def decode_padded_compact(units, dec_sym, dec_len, start_abs, end_abs,
+                          total_bits: int, max_len: int, n_out: int):
+    """Kernel-backed baseline phase 4: the padded ``(n_subseq, 128)`` rows
+    of ``huffman_decode.decode_padded``, then the compaction the reference
+    does outside its kernel (output offsets, ``searchsorted`` owner of each
+    output position, gather).  Returns ``(uint16[n_out], counts)``."""
+    padded, counts = _dec.decode_padded(
+        units, start_abs.to(torch.int32).contiguous(),
+        end_abs.to(torch.int32).contiguous(), total_bits, dec_sym, dec_len,
+        max_len)
+    n = counts.shape[0]
+    if n == 0 or n_out == 0:
+        return torch.zeros(n_out, dtype=torch.uint16,
+                           device=units.device), counts
+    offsets = torch.zeros(n + 1, dtype=torch.int32, device=units.device)
+    torch.cumsum(counts, 0, dtype=torch.int32, out=offsets[1:])
+    out_pos = torch.arange(n_out, dtype=torch.int32, device=units.device)
+    owner = (torch.searchsorted(offsets, out_pos, right=True) - 1).clamp(
+        0, n - 1)
+    within = (out_pos - offsets[owner]).clamp(0, padded.shape[1] - 1)
+    # uint16 has no gather on every build: gather the int16 view.
+    flat = padded.view(torch.int16).reshape(-1)
+    return flat[owner * padded.shape[1] + within].view(torch.uint16), counts
+
+
+def padded_epilogue_inputs(codes, n_out: int, opos, oval, eb, radius: int,
+                           shape=None, out_dtype=torch.float32):
+    """The epilogue kernel :func:`decode_padded_fused` launches on the
+    compacted ``codes`` (uint16[n_out]), its plain version, and the
+    arguments it gives them: ``(kernel, plain, args)``.
+
+    As in the reference, the codes are padded with zeros to whole tiles:
+    ``PADDED_EPILOGUE_BLOCK`` codes (1-D, whose kernel returns the padded
+    length) or ``fused_tile_rows(shape, PADDED_EPILOGUE_BLOCK)`` rows
+    (2-D/3-D), and each tile gets its slice of the outlier side list.
+    """
+    sq = fused_squeeze(shape)
+    opos = opos.to(device=codes.device, dtype=torch.int32).contiguous()
+    oval = oval.to(device=codes.device, dtype=torch.int32).contiguous()
+    two_eb = _two_eb_f32(eb)
+    if sq is None:
+        block = PADDED_EPILOGUE_BLOCK
+    else:
+        if int(np.prod(sq)) != n_out:
+            raise ValueError(f"n_out {n_out} differs from the size of shape "
+                             f"{tuple(shape)}")
+        rows_per_tile = fused_tile_rows(sq, PADDED_EPILOGUE_BLOCK)
+        block = rows_per_tile * sq[-1]
+    pad = (-n_out) % block
+    if pad:
+        codes = torch.cat([codes, torch.zeros(pad, dtype=codes.dtype,
+                                              device=codes.device)])
+    obounds = _outlier_bounds(opos, (n_out + pad) // block, block)
+    if sq is None:
+        return _fus.dequant_reconstruct, _fus.dequant_reconstruct_plain, (
+            codes, opos, oval, obounds, two_eb, radius, block, out_dtype)
+    return _fus.dequant_reconstruct_nd, _fus.dequant_reconstruct_nd_plain, (
+        codes, opos, oval, obounds, two_eb, radius, sq, rows_per_tile,
+        out_dtype)
+
+
+def decode_padded_fused(units, dec_sym, dec_len, start_abs, end_abs,
+                        total_bits: int, max_len: int, n_out: int, opos,
+                        oval, eb, radius: int, shape=None,
+                        out_dtype=torch.float32):
+    """Fused baseline phase 4: :func:`decode_padded_compact`, then the
+    epilogue kernel over the codes (``dequant_reconstruct`` for a flat
+    field, ``dequant_reconstruct_nd`` for 2-D/3-D after the unit axes are
+    squeezed).  Returns ``out_dtype[n_out]`` (flat, C order)."""
+    codes, _ = decode_padded_compact(units, dec_sym, dec_len, start_abs,
+                                     end_abs, total_bits, max_len, n_out)
+    kernel, _, args = padded_epilogue_inputs(codes, n_out, opos, oval, eb,
+                                             radius, shape, out_dtype)
+    return kernel(*args)[:n_out]

@@ -174,7 +174,8 @@ def test_fused_falls_back_two_pass(backend):
     base = hp.get_backend(backend)
     two_pass_only = hp.DecodeBackend(name=f"{backend}-two-pass",
                                      count_fn=base.count_fn,
-                                     tiles_fn=base.tiles_fn)
+                                     tiles_fn=base.tiles_fn,
+                                     padded_fn=base.padded_fn)
     assert base.supports_fused and not two_pass_only.supports_fused
     reason = compressor.fused_unsupported_reason(ct, two_pass_only, "gap",
                                                  "tile")
@@ -297,8 +298,6 @@ def test_default_codec_needs_the_card():
 
 @pytest.mark.parametrize("field,value,item", [
     ("method", "selfsync", "item 3"),
-    ("strategy", "tuned", "item 2"),
-    ("strategy", "padded", "item 2"),
     ("encode_backend", "jnp", "item 4"),
     ("encode_backend", "pallas", "item 4"),
 ])

@@ -309,3 +309,222 @@ def test_fused_default_codec(cuda):
     assert counts["decode_tiles_fused_nd"] == 1
     assert counts["decode_tiles"] == 0 and counts["count_subseq"] == 0
     assert torch.equal(y, Codec().decompress(c))
+
+
+# ---------------------------------------------------------------------------
+# The padded decoder and its fused epilogues, the merged-LUT tile variant,
+# and the padded / tuned / batch paths of the codec
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,noise", [
+    ((20000,), 1e-4), ((30, 40, 50), 2e-3), ((300, 400), 3e-2), ((7, 9), 0)])
+def test_decode_padded_matches_plain(cuda, shape, noise):
+    codec, x, c = _payload(cuda, shape, 6, noise)
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, cuda)
+    args = (c.stream.units, plan.start_bits, plan.end_bits,
+            c.stream.total_bits, luts.dec_sym, luts.dec_len, luts.max_len)
+    before = K.decode_padded.launches
+    kr, kc = K.decode_padded(*args)
+    assert K.decode_padded.launches == before + 1
+    pr, pc = K.decode_padded_plain(*args)
+    assert torch.equal(_signed(kr), _signed(pr)) and torch.equal(kc, pc)
+    codes, _ = ops.decode_padded_compact(c.stream.units, luts.dec_sym,
+                                         luts.dec_len, plan.start_bits,
+                                         plan.end_bits, c.stream.total_bits,
+                                         luts.max_len, c.n_symbols)
+    want = lorenzo.quantize_host(x, c.eb, c.radius)[0].reshape(-1)
+    assert torch.equal(_signed(codes), _signed(want))
+
+
+def test_decode_padded_edges_match_plain(cuda):
+    """1-bit codes (the slot-127 clamp past 128 codewords in an overlong
+    window) and corrupt windows, as in the plain version."""
+    book, _, stream = _stream(cuda, np.array([10**6, 3, 2, 1]), 30000, 12, 1)
+    rng = np.random.default_rng(5)
+    nbits = stream.units.shape[0] * 32
+    start = rng.integers(-300, nbits + 300, size=3000)
+    end = start + rng.integers(-60, 190, size=3000)
+    args = (stream.units, torch.from_numpy(start.astype(np.int32)).to(cuda),
+            torch.from_numpy(end.astype(np.int32)).to(cuda),
+            stream.total_bits, torch.from_numpy(book.dec_sym).to(cuda),
+            torch.from_numpy(book.dec_len).to(cuda), 12)
+    kr, kc = K.decode_padded(*args)
+    pr, pc = K.decode_padded_plain(*args)
+    assert int(kc.max()) > 128
+    assert torch.equal(_signed(kr), _signed(pr)) and torch.equal(kc, pc)
+
+
+def _epilogue_call(codec, c, tile):
+    """The epilogue kernel, its plain version and their arguments for the
+    codes of ``c``, at tiles of ``tile`` codes (whole rows for N-D)."""
+    from repro_torch.kernels import fused_decode as fd
+
+    codes = codec.decode(c.stream, c.codebook, c.n_symbols)
+    sq = ops.fused_squeeze(c.shape)
+    if tile == ops.PADDED_EPILOGUE_BLOCK:
+        return ops.padded_epilogue_inputs(codes, c.n_symbols, c.outlier_pos,
+                                          c.outlier_val, c.eb, c.radius,
+                                          c.shape, c.dtype)
+    rows = None if sq is None else ops.fused_tile_rows(sq, tile)
+    block = tile if sq is None else rows * sq[-1]
+    pad = (-c.n_symbols) % block
+    codes = torch.cat([codes, torch.zeros(pad, dtype=codes.dtype,
+                                          device=codes.device)])
+    ob = ops._outlier_bounds(c.outlier_pos, codes.numel() // block, block)
+    two_eb = ops._two_eb_f32(c.eb)
+    if sq is None:
+        return fd.dequant_reconstruct, fd.dequant_reconstruct_plain, (
+            codes, c.outlier_pos, c.outlier_val, ob, two_eb, c.radius, block,
+            c.dtype)
+    return fd.dequant_reconstruct_nd, fd.dequant_reconstruct_nd_plain, (
+        codes, c.outlier_pos, c.outlier_val, ob, two_eb, c.radius, sq, rows,
+        c.dtype)
+
+
+EPILOGUE_CASES = {
+    # 15,625 tiles of 64 codes: a long decoupled look-back
+    "1d-64-code-tiles": ((1_000_000,), 64, 1e-3, 512,
+                         "dequant_reconstruct"),
+    # the padded path's 4,096-code tiles
+    "1d-4096": ((300_001,), 4096, 1e-3, 512, "dequant_reconstruct"),
+    # one row per tile: a 20,000-tile row-carry chain (2,500 units of 8)
+    "2d-row-per-tile": ((20000, 64), 64, 1e-3, 512,
+                        "dequant_reconstruct_nd"),
+    # 200 planes of 4 tiles: a ring of 4 row-carry vectors
+    "3d-200-planes": ((200, 32, 48), 512, 1e-3, 512,
+                      "dequant_reconstruct_nd"),
+    # 4 planes of 50 tiles
+    "3d-4-planes": ((4, 600, 40), 512, 1e-3, 512, "dequant_reconstruct_nd"),
+    # most codes are outliers, at the padded path's tiles
+    "outlier-dense": ((300, 500), 4096, 5e-2, 4, "dequant_reconstruct_nd"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", list(EPILOGUE_CASES))
+def test_epilogues_match_plain(cuda, case, dtype):
+    shape, tile, noise, radius, name = EPILOGUE_CASES[case]
+    codec, c = _fused_payload(cuda, shape, 13, noise, dtype, radius)
+    kernel, plain, args = _epilogue_call(codec, c, tile)
+    assert kernel.__name__ == name
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1
+    want = plain(*args)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    if case == "outlier-dense":
+        assert int((c.outlier_pos >= 0).sum()) > c.n_symbols // 4
+    # the codec's fused padded path gives the tile two-pass bytes
+    fused = Codec(codec.config.replace(strategy="padded", fused=True))
+    fused.reset_stats()
+    y = fused.decompress(c)
+    assert fused.stats["fused_dispatches"] == 1
+    assert fused.stats["fused_fallbacks"] == 0
+    assert torch.equal(_bits(y), _bits(codec.decompress(c)))
+
+
+@pytest.mark.parametrize("case", ["1d-64-code-tiles", "2d-row-per-tile",
+                                  "3d-200-planes"])
+def test_epilogue_repeated_launches_identical(cuda, case):
+    shape, tile, noise, radius, _ = EPILOGUE_CASES[case]
+    codec, c = _fused_payload(cuda, shape, 14, noise, torch.float32, radius)
+    kernel, plain, args = _epilogue_call(codec, c, tile)
+    outs = [kernel(*args) for _ in range(20)]
+    want = plain(*args)
+    for out in outs:
+        assert torch.equal(_bits(out), _bits(want))
+
+
+def test_epilogue_row_at_the_shared_memory_bound(cuda):
+    """The widest row the padded fused path takes (a one-row tile of
+    58,032 codes, no LUT in the block); one column more falls back."""
+    import dataclasses
+
+    from repro_torch.core.sz import compressor
+
+    cols = compressor.FUSED_PADDED_MAX_COLS
+    codec, c = _fused_payload(cuda, (3, cols), 4, 1e-3, torch.float32)
+    kernel, plain, args = _epilogue_call(codec, c, ops.PADDED_EPILOGUE_BLOCK)
+    assert kernel.__name__ == "dequant_reconstruct_nd" and args[7] == 1
+    assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+    assert compressor.fused_unsupported_reason(c, "cuda", "gap",
+                                               "padded") is None
+    wide = dataclasses.replace(c, shape=(3, cols + 1))
+    assert "per-tile row bound" in compressor.fused_unsupported_reason(
+        wide, "cuda", "gap", "padded")
+
+
+def test_merged_lut_in_device_memory(cuda):
+    """A merged LUT past 227 KB (20 codebooks at max_len 12, 245,760 B
+    beside an 8,192-code tile) takes the tile kernel's device-memory
+    variant; it equals the plain version and the one-codebook decode."""
+    codec, x, c = _payload(cuda, (50000,), 7, 1e-3)
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, cuda)
+    size = 1 << luts.max_len
+    slot = 13
+    gen = torch.Generator().manual_seed(0)
+    ds = torch.randint(0, 1024, (20 * size,), generator=gen).to(
+        torch.int32).to(torch.uint16).to(cuda)
+    dl = torch.randint(1, 13, (20 * size,), generator=gen).to(
+        torch.uint8).to(cuda)
+    ds[slot * size:(slot + 1) * size] = luts.dec_sym
+    dl[slot * size:(slot + 1) * size] = luts.dec_len
+    tile = 8192
+    assert not K.decode_tiles_lut_in_smem(tile, ds.numel())
+    base = torch.full((c.stream.n_subseq,), slot * size, dtype=torch.int32,
+                      device=cuda)
+    s0 = ops._tile_inputs(plan.offsets, c.stream.n_subseq, c.n_symbols, tile)
+    args = (c.stream.units, plan.start_bits, plan.end_bits, plan.offsets, s0,
+            c.stream.total_bits, ds, dl, luts.max_len, tile,
+            hp.ss_max_for_tile(tile, luts.max_len), c.n_symbols, base)
+    got = K.decode_tiles(*args)
+    assert torch.equal(_signed(got), _signed(K.decode_tiles_plain(*args)))
+    ref = codec.decode(c.stream, c.codebook, c.n_symbols)
+    assert torch.equal(_signed(got), _signed(ref))
+
+
+def test_codec_strategies_and_batch(cuda):
+    """padded, padded fused, tuned and decompress_batch on the card give
+    the tile two-pass bytes through their kernels; a batch of 40 tensors
+    merges a LUT past shared memory and dispatches at most once a class."""
+    fields = [smooth_field(s, seed=20 + i) for i, s in enumerate(
+        [(40, 64, 64), (300, 500), (200000,)])]
+    rng = np.random.default_rng(8)
+    fields += [smooth_field((2, 8, 16, 128), seed=30 + i) + np.float32(1e-3)
+               * rng.standard_normal((2, 8, 16, 128)).astype(np.float32)
+               for i in range(37)]
+    base = Codec()
+    cs = [base.compress(torch.from_numpy(f).to(cuda)) for f in fields]
+    want = [base.decompress(c) for c in cs]
+    for kw, kernels in (
+            (dict(strategy="padded"), ("decode_padded",)),
+            (dict(strategy="padded", fused=True),
+             ("decode_padded", "dequant_reconstruct",
+              "dequant_reconstruct_nd")),
+            (dict(strategy="tuned"), ("decode_tiles",))):
+        codec = Codec(CodecConfig(**kw))
+        for c in cs[:3]:
+            codec.plan_for(c)
+        launches.reset()
+        for c, w in zip(cs[:3], want):
+            assert torch.equal(codec.decompress(c), w), kw
+        counts = launches.counts()
+        assert all(counts[k] >= 1 for k in kernels), (kw, counts)
+        assert counts["count_subseq"] == 0
+    codec = Codec()
+    for c in cs:
+        codec.plan_for(c)
+    codec.reset_stats()
+    launches.reset()
+    outs = codec.decompress_batch(cs)
+    assert codec.stats["decode_write_dispatches"] <= codec.config.t_high + 1
+    assert launches.counts()["decode_tiles"] == \
+        codec.stats["decode_write_dispatches"]
+    assert not K.decode_tiles_lut_in_smem(hp.OVERFLOW_TILE,
+                                          len(cs) * (1 << 12))
+    for y, w in zip(outs, want):
+        assert torch.equal(y, w)
