@@ -36,7 +36,13 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     heads x 16 tokens x head_dim 128), one ``decode_tiles`` dispatch per
     class across all 259 tensors, through one LUT merged from their 259
     codebooks (3.2 MB, read from device memory: it does not fit shared
-    memory).
+    memory);
+  * encode, ``Codec(CodecConfig(encode_backend="cuda")).compress`` of the
+    three fields and the 256 KV pages: the device write path, with the
+    ``lorenzo_quantize`` (float32 quantize and N-D Lorenzo residual),
+    ``histogram`` and ``pack_tiles`` (bit-pack) kernels once a tensor;
+  * reconstruct, ``ops.lorenzo_reconstruct`` of hacc1d's residuals: the
+    ``reconstruct1d`` kernel (the quantizer's 1-D inverse).
 
 The script
 
@@ -51,12 +57,18 @@ The script
     ``fused_fallbacks == 0`` on the fused paths; each kernel equals its
     plain PyTorch version on the card at the path's inputs, bit for bit;
     every batch output equals its tensor's own ``decompress``, with at most
-    ``t_high + 1`` decode-write dispatches for the whole batch;
+    ``t_high + 1`` decode-write dispatches for the whole batch; every
+    "cuda"-encoded payload decodes to the codes of its quantize kernel and
+    reconstructs within ``eb_effective``, with no encode fallback; a
+    lattice field (values exactly k * 2eb) encodes byte for byte as the
+    "ref" encode does; the reconstruct round trip stays within eb plus one
+    float32 spacing;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
-    throughputs in GB/s of quant codes (2 B per code); the card's name and
-    power limit; and a ``kernels`` JSON line.
+    throughputs in GB/s of quant codes (2 B per code); ``compress`` with the
+    "ref" and "cuda" encode backends; the card's name and power limit; and
+    a ``kernels`` JSON line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -85,7 +97,11 @@ REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
             "decode_tiles_fused_nd": "src/repro/kernels/fused_decode.py:222",
             "dequant_reconstruct": "src/repro/kernels/fused_decode.py:295",
             "dequant_reconstruct_nd":
-                "src/repro/kernels/fused_decode.py:343"}
+                "src/repro/kernels/fused_decode.py:343",
+            "lorenzo_quantize": "src/repro/kernels/lorenzo.py:43",
+            "reconstruct1d": "src/repro/kernels/lorenzo.py:89",
+            "histogram": "src/repro/kernels/histogram.py:36",
+            "pack_tiles": "src/repro/kernels/huffman_encode.py:74"}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 #: The kernels each path must launch; every other kernel must not launch.
 TWO_PASS_KERNELS = ("count_subseq", "decode_tiles")
@@ -96,11 +112,17 @@ PADDED_FUSED_KERNELS = ("count_subseq", "decode_padded",
                         "dequant_reconstruct", "dequant_reconstruct_nd")
 TUNED_KERNELS = ("count_subseq", "decode_tiles")
 BATCH_KERNELS = ("count_subseq", "decode_tiles")
+ENCODE_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles")
+RECONSTRUCT_KERNELS = ("reconstruct1d",)
 HACC_VALUES = 280_953_867
 #: KV-cache pages of the batch phase, each shaped like one Qwen3-0.6B page:
 #: (K/V, KV heads, tokens, head_dim).
 N_PAGES = 256
 PAGE_SHAPE = (2, 8, 16, 128)
+#: The encode phase's lattice field: values exactly k * 2eb (eb = 2**-10),
+#: 2**22 of them, which the float32 and float64 quantizers map alike.
+LATTICE_SHAPE = (64, 256, 256)
+LATTICE_EB = 2.0 ** -10
 
 
 def make_fields(seed: int):
@@ -355,6 +377,224 @@ def run_batch(seed: int, results, xs) -> dict:
         row["decompress_batch_cached_plan_ms"] * 1e-3) / 1e9
     print(f"batch {json.dumps(row)}")
     return row
+
+
+def make_lattice(seed: int):
+    """The lattice field: a smooth field on the 2eb lattice with 64 spikes
+    past the radius (outliers), float32 made with numpy from ``seed``."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import smooth_field
+
+    k = np.rint(smooth_field(LATTICE_SHAPE, seed=seed + 4000) * 2000)
+    rng = np.random.default_rng(seed + 4000)
+    k.reshape(-1)[rng.choice(k.size, size=64, replace=False)] += 5000
+    return k.astype(np.float32) * np.float32(2 * LATTICE_EB)
+
+
+def same_payload(a, b) -> bool:
+    """Two ``Compressed`` with the same stream, outliers and codebook."""
+    import numpy as np
+
+    sa, sb = a.stream, b.stream
+    return (all(same(getattr(sa, f), getattr(sb, f))
+                for f in ("units", "gaps", "counts", "seq_counts"))
+            and (sa.total_bits, sa.n_symbols) == (sb.total_bits, sb.n_symbols)
+            and same(a.outlier_pos, b.outlier_pos)
+            and same(a.outlier_val, b.outlier_val)
+            and np.array_equal(a.codebook.enc_code, b.codebook.enc_code)
+            and np.array_equal(a.codebook.enc_len, b.codebook.enc_len))
+
+
+def run_encode(seed: int, xs) -> dict:
+    """The encode phase: ``Codec(encode_backend="cuda").compress`` of the
+    three fields and ``N_PAGES`` KV pages, its launch and counter checks,
+    each payload decoded back to its quantizer's codes, the lattice field
+    against the "ref" encode, each write-path kernel against its plain
+    version, and the times.  Then the reconstruct phase: 1-D
+    ``ops.lorenzo_reconstruct`` of hacc1d's residuals on the
+    ``reconstruct1d`` kernel.  Prints one ``encode`` row per field and
+    returns ``{"fields": rows, "launches": ..., "reconstruct_launches":
+    ...}``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.core.sz import compressor, lorenzo
+    from repro_torch.kernels import histogram as H
+    from repro_torch.kernels import huffman_encode as E
+    from repro_torch.kernels import lorenzo as L
+    from repro_torch.kernels import ops
+
+    pages = [torch.from_numpy(p).cuda() for p in make_pages(seed)]
+    tensors = list(xs.items()) + [(f"page{i}", p)
+                                  for i, p in enumerate(pages)]
+    torch.cuda.synchronize()
+    codec = Codec(CodecConfig(encode_backend="cuda"))
+
+    def drive():
+        codec.reset_stats()
+        t0 = time.perf_counter()
+        out = [codec.compress(x) for _, x in tensors]
+        torch.cuda.synchronize()
+        return out, dict(codec.stats), time.perf_counter() - t0
+
+    (cs, stats, t_all), counts = run_path("encode", ENCODE_KERNELS, drive)
+    n = len(tensors)
+    for kname in ENCODE_KERNELS:
+        require(counts[kname] == n, f"encode: {kname} launched "
+                f"{counts[kname]} times for {n} tensors")
+    require(stats["encode_fallbacks"] == 0
+            and stats["encode_dispatches"] == n,
+            f"encode: stats {stats} for {n} float32 tensors")
+
+    # Every payload decodes (tile two-pass) to its quantizer's codes and
+    # reconstructs within eb_effective.
+    base = Codec()
+    quant = {}
+    for (name, x), c in zip(tensors, cs):
+        require(c.device.type == "cuda", f"encode: {name} left the card")
+        codes, outlier, resid = ops.lorenzo_quantize(x, c.eb, c.radius)
+        got = base.decode(c.stream, c.codebook, c.n_symbols)
+        require(same(got, codes.reshape(-1)),
+                f"encode: {name} decodes to other codes than its quantizer's")
+        err = max_abs_err(base.decompress(c), x)
+        require(err <= c.eb_effective,
+                f"encode: {name} max|x - x'| = {err} > eb_effective "
+                f"{c.eb_effective}")
+        if name in xs:
+            quant[name] = (codes, outlier, resid, err)
+    torch.cuda.synchronize()
+
+    # The lattice field: byte for byte the "ref" encode.
+    xl = torch.from_numpy(make_lattice(seed)).cuda()
+    cl_dev = Codec(CodecConfig(eb=LATTICE_EB, mode="abs",
+                               encode_backend="cuda")).compress(xl)
+    cl_ref = Codec(CodecConfig(eb=LATTICE_EB, mode="abs")).compress(xl)
+    n_lat_out = int((cl_dev.outlier_pos >= 0).sum())
+    require(n_lat_out > 0, "encode: the lattice field has no outlier")
+    require(same_payload(cl_dev, cl_ref),
+            "encode: the lattice field's payload differs from the ref "
+            "encode")
+    print(f"encode lattice: float32{list(LATTICE_SHAPE)}, eb 2**-10 abs, "
+          f"{n_lat_out} outliers, payload byte-identical to the ref encode")
+
+    # Each kernel against its plain version, at the inputs of the path.
+    rows = {}
+    for (name, x), c in zip(tensors, cs):
+        if name not in xs:
+            continue
+        codes, outlier, resid, err = quant[name]
+        two_eb = ops._two_eb_f32(c.eb)
+        qargs = (x, two_eb, c.radius)
+        qp = L.lorenzo_quantize_plain(*qargs)
+        require(all(same(a, b) for a, b in zip((codes, outlier, resid), qp)),
+                f"encode: {name} lorenzo_quantize differs from its plain "
+                f"version")
+        ref_codes = lorenzo.quantize_host(x, c.eb, c.radius)[0]
+        n_vs_ref = int((ref_codes.to(torch.int32)
+                        != codes.to(torch.int32)).sum())
+        nbins = 2 * c.radius
+        flat = codes.reshape(-1)
+        hk = H.histogram(flat, nbins)
+        hpl = H.histogram_plain(flat, nbins)
+        require(same(hk, hpl), f"encode: {name} histogram differs from its "
+                f"plain version")
+        enc_code = torch.from_numpy(c.codebook.enc_code).cuda()
+        enc_len = torch.from_numpy(c.codebook.enc_len).cuda()
+        starts = ops.code_starts(flat, enc_len)
+        n_units = c.stream.units.numel()
+        pargs = (flat, starts, enc_code, enc_len, n_units)
+        pk = E.pack_tiles(*pargs)
+        ppl = E.pack_tiles_plain(*pargs)
+        require(same(pk, ppl) and same(pk, c.stream.units),
+                f"encode: {name} pack_tiles differs from its plain version "
+                f"or from the payload")
+        torch.cuda.synchronize()
+        m = x.numel()
+        ref_codec = Codec(CodecConfig())
+        row = {
+            "field": name, "shape": list(x.shape), "ratio": c.ratio,
+            "bits_per_code": c.stream.total_bits / m,
+            "n_outliers": int((c.outlier_pos >= 0).sum()),
+            "codes_differing_from_ref_quantizer": n_vs_ref,
+            "max_abs_err": err, "eb_effective": c.eb_effective,
+            "compress_ref_ms": cuda_ms(lambda: ref_codec.compress(x), 2),
+            "compress_cuda_ms": cuda_ms(lambda: codec.compress(x), 5),
+            "lorenzo_quantize": {
+                "ms": cuda_ms(lambda: L.lorenzo_quantize(*qargs), 20),
+                "plain_ms": cuda_ms(lambda: L.lorenzo_quantize_plain(*qargs),
+                                    3),
+                "bound_ms": 11 * m / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max(max_abs_diff(a, b) for a, b in zip(
+                    (codes, outlier, resid), qp))},
+            "histogram": {
+                "ms": cuda_ms(lambda: H.histogram(flat, nbins), 20),
+                "plain_ms": cuda_ms(lambda: H.histogram_plain(flat, nbins),
+                                    5),
+                # one PyTorch call on the same bytes (codes < 2**15)
+                "library_ms": cuda_ms(lambda: torch.bincount(
+                    flat.view(torch.int16), minlength=nbins), 20),
+                "bound_ms": (2 * m + 4 * nbins) / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max_abs_diff(hk, hpl)},
+            "pack_tiles": {
+                "ms": cuda_ms(lambda: E.pack_tiles(*pargs), 20),
+                "plain_ms": cuda_ms(lambda: E.pack_tiles_plain(*pargs), 1),
+                "bound_ms": (6 * m + 4 * n_units + 5 * enc_code.numel())
+                / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max_abs_diff(pk, ppl)},
+        }
+        # Where compress_cuda_ms goes: its stages one at a time, on this
+        # field's inputs (CUDA events around host and device work alike).
+        def gather_outliers(mask=outlier.reshape(-1), r=resid.reshape(-1)):
+            csum = torch.cumsum(mask, 0, dtype=torch.int32)
+            return compressor._gather_outliers(
+                csum, r, compressor._outlier_m_pad(int(csum[-1])))
+
+        row["compress_cuda_stages_ms"] = {
+            "range_and_max_abs": cuda_ms(lambda: (
+                float(x.max() - x.min()), float(x.abs().max())), 5),
+            "quantize": row["lorenzo_quantize"]["ms"],
+            "outlier_gather": cuda_ms(gather_outliers, 5),
+            "histogram": row["histogram"]["ms"],
+            "encoder_plan": cuda_ms(lambda: hp.build_encoder_plan(
+                hk, max_len=c.codebook.max_len,
+                subseqs_per_seq=c.stream.subseqs_per_seq, backend="cuda",
+                device=x.device), 5),
+            "encode_bitpack": cuda_ms(lambda: ops.encode_bitpack(
+                flat, enc_code, enc_len, c.stream.total_bits,
+                c.stream.subseqs_per_seq), 5),
+        }
+        rows[name] = row
+
+    # -- reconstruct phase: counts zeroed just before, read just after ------
+    x = xs["hacc1d"]
+    c = cs[list(xs).index("hacc1d")]
+    resid = quant["hacc1d"][2]
+    y, rcounts = run_path("reconstruct", RECONSTRUCT_KERNELS,
+                          lambda: ops.lorenzo_reconstruct(resid, c.eb))
+    require(rcounts["reconstruct1d"] == 1, f"reconstruct: {rcounts}")
+    two_eb = ops._two_eb_f32(c.eb)
+    rk = L.reconstruct1d(resid, two_eb)
+    rp = L.reconstruct1d_plain(resid, two_eb)
+    require(same(rk, rp) and same(rk, y),
+            "reconstruct1d differs from its plain version")
+    rerr = max_abs_err(y, x)
+    bound = c.eb + float(np.spacing(np.float32(c.max_abs + c.eb)))
+    require(rerr <= bound, f"reconstruct: max|x - x'| = {rerr} > {bound}")
+    rows["hacc1d"]["reconstruct1d"] = {
+        "ms": cuda_ms(lambda: L.reconstruct1d(resid, two_eb), 20),
+        "plain_ms": cuda_ms(lambda: L.reconstruct1d_plain(resid, two_eb), 5),
+        "bound_ms": 8 * resid.numel() / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": max_abs_err(rk, rp), "roundtrip_max_abs_err": rerr}
+    for row in rows.values():
+        print(f"encode {json.dumps(row)}")
+    summary = {"tensors": n, "launches": counts, "stats": stats,
+               "compress_all_s": t_all, "reconstruct_launches": rcounts}
+    print(f"encode path {json.dumps(summary)}")
+    return {"fields": rows, "launches": counts,
+            "reconstruct_launches": rcounts}
 
 
 def main() -> int:
@@ -628,15 +868,19 @@ def main() -> int:
         print(f"field {json.dumps(row)}")
 
     batch = run_batch(args.seed, results, xs)
+    encode = run_encode(args.seed, xs)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi)
     # Each kernel's numbers on the field of the smoke run that drives it:
-    # isabel3d for the two-pass kernels and the N-D fused kernel, hacc1d for
-    # the 1-D fused kernel.  Launch counts are those of each path's run.
+    # isabel3d for the two-pass, N-D and write-path kernels, hacc1d for the
+    # 1-D kernels.  Launch counts are those of each path's run.
     by_field = {r["field"]: r for r in rows}
+    for name, row in encode["fields"].items():
+        by_field[name] = {**by_field[name], **{
+            k: v for k, v in row.items() if isinstance(v, dict)}}
     kernels = []
     for kname, field, counts in (
             ("count_subseq", "isabel3d", two_pass_launches),
@@ -645,17 +889,24 @@ def main() -> int:
             ("decode_tiles_fused", "hacc1d", fused_launches),
             ("decode_tiles_fused_nd", "isabel3d", fused_launches),
             ("dequant_reconstruct", "hacc1d", padded_fused_launches),
-            ("dequant_reconstruct_nd", "isabel3d", padded_fused_launches)):
+            ("dequant_reconstruct_nd", "isabel3d", padded_fused_launches),
+            ("lorenzo_quantize", "isabel3d", encode["launches"]),
+            ("reconstruct1d", "hacc1d", encode["reconstruct_launches"]),
+            ("histogram", "isabel3d", encode["launches"]),
+            ("pack_tiles", "isabel3d", encode["launches"])):
         k = by_field[field][kname]
         entry = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],
             "replaces": REPLACES[kname], "launches": counts[kname],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": "bytes", "library_ms": None}
+            "bound_by": "bytes", "library_ms": k.get("library_ms")}
         if "torch_ops_ms" in k:
             entry["torch_ops_ms"] = k["torch_ops_ms"]
         kernels.append(entry)
+    quantize_1d = by_field["hacc1d"]["lorenzo_quantize"]
+    kernels[7]["hacc1d"] = {key: quantize_1d[key] for key in (
+        "ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels[1]["batch_launches"] = batch["launches"]["decode_tiles"]
     kernels[1]["batch_merged_lut"] = batch["merged_lut_kernel"]
     print(json.dumps({"kernels": kernels}))

@@ -48,7 +48,13 @@ class CodecConfig:
       max_len          codeword length cap (decode-LUT size is 2**max_len)
       subseqs_per_seq  encoder framing (128-bit subsequences per sequence)
       encode_backend   "ref": float64 prequantization, exact histogram and
-                       the bit-pack as torch ops on the codec's device
+                       the bit-pack as torch ops on the codec's device (the
+                       default, as in the reference); "cuda": the device
+                       write path, float32 quantize, histogram and bit-pack
+                       as CUDA kernels (their plain versions on the CPU),
+                       only the histogram crossing to the host; a
+                       non-float32 tensor is compressed by "ref" and counts
+                       ``stats["encode_fallbacks"]``
 
     Decoder side:
       method           "gap" (gap-array sync)
@@ -77,8 +83,10 @@ class CodecConfig:
       device           where compress and decompress run; ``None`` means
                        "cuda" for the "cuda" backend and "cpu" for "ref"
 
-    The reference's ``method="selfsync"`` and device encode backends raise
-    ``NotImplementedError`` naming the ROADMAP.md item that ports them.
+    The reference's ``method="selfsync"`` raises ``NotImplementedError``
+    naming the ROADMAP.md item that ports it.  Its encode backends "jnp",
+    "pallas" and "pallas-compiled" are no names of the port: "cuda" stands
+    for them.
     The reference's sequential oracle ``method="naive_ref"`` is no decode
     path of the port.
     """
@@ -111,7 +119,6 @@ class CodecConfig:
         if self.backend not in hp.available_backends():
             raise ValueError(f"unknown backend {self.backend!r}; available: "
                              f"{hp.available_backends()}")
-        hp.check_ported("encode_backend", self.encode_backend)
         if self.encode_backend not in hp.available_encode_backends():
             raise ValueError(
                 f"unknown encode_backend {self.encode_backend!r}; "
@@ -191,7 +198,8 @@ class Codec:
 
     @property
     def stats(self) -> dict:
-        """Merged backend dispatch counters + plan-cache hit counters.
+        """Merged decode and encode backend counters (dispatches, plan
+        builds, fused and encode fallbacks) + plan-cache hit counters.
 
         Backend handles are process-wide singletons per name, so their
         counters are shared by every codec on the same backend.

@@ -131,6 +131,44 @@ def _pack_units(starts, lens, codes, unit_lo: int, unit_hi: int,
     return contrib.sum(dim=1)
 
 
+def pack_units(starts, lens, codes, n_units: int,
+               min_len: int) -> torch.Tensor:
+    """The ``n_units`` packed units of a stream, as int64.
+
+    ``starts`` / ``lens`` / ``codes`` are each symbol's first bit, code
+    length and right-aligned codeword (int64); ``min_len``, the shortest
+    codeword, bounds the lanes a unit gathers.  Walks the units in chunks
+    of ``PACK_CHUNK_UNITS``, so memory stays bounded at any stream size.
+    """
+    lanes = UNIT_BITS // max(min_len, 1) + 2
+    units = torch.empty(n_units, dtype=torch.int64, device=starts.device)
+    for lo in range(0, n_units, PACK_CHUNK_UNITS):
+        hi = min(lo + PACK_CHUNK_UNITS, n_units)
+        units[lo:hi] = _pack_units(starts, lens, codes, lo, hi, lanes)
+    return units
+
+
+def _gather_stream(sym, enc_code, enc_len, total_bits: "int | None",
+                   n_units_padded: int, subseqs_per_seq: int,
+                   min_len: int) -> EncodedStream:
+    """Stream of the non-empty int64 symbol array ``sym``: placement, the
+    per-unit pack and the metadata (``total_bits=None``: read back from
+    the placement)."""
+    lens = enc_len.to(torch.int64)[sym]
+    codes = enc_code.to(torch.int64)[sym]
+    starts = torch.cumsum(lens, 0) - lens
+    if total_bits is None:
+        total_bits = int(starts[-1] + lens[-1])
+    units = pack_units(starts, lens, codes, n_units_padded, min_len)
+    gaps, counts, seq_counts = stream_metadata(starts, total_bits,
+                                               n_units_padded,
+                                               subseqs_per_seq)
+    return EncodedStream(
+        units=units.to(torch.uint32), gaps=gaps, counts=counts,
+        seq_counts=seq_counts, total_bits=int(total_bits),
+        n_symbols=int(sym.shape[0]), subseqs_per_seq=subseqs_per_seq)
+
+
 def _encode_padded(symbols: torch.Tensor, enc_code: torch.Tensor,
                    enc_len: torch.Tensor, n_units_padded: int,
                    subseqs_per_seq: int) -> EncodedStream:
@@ -138,30 +176,36 @@ def _encode_padded(symbols: torch.Tensor, enc_code: torch.Tensor,
 
     Byte-identical with the reference's ``_encode_padded`` (whose
     ``pack_bits`` runs one ``searchsorted`` per output *bit*); this walks
-    output *units* in chunks of ``PACK_CHUNK_UNITS`` instead, so memory
-    stays bounded at any stream size.
+    output *units* (:func:`pack_units`) instead.  Sizes come from the
+    symbols: the bit total and the shortest codeword in the table.
     """
-    sym = symbols.reshape(-1).to(torch.int64)
-    lens = enc_len.to(torch.int64)[sym]
-    codes = enc_code.to(torch.int64)[sym]
-    starts = torch.cumsum(lens, 0) - lens
-    total_bits = int(starts[-1] + lens[-1])
     used = enc_len[enc_len > 0]
     min_len = int(used.min()) if used.numel() else 1
-    lanes = UNIT_BITS // max(min_len, 1) + 2
+    return _gather_stream(symbols.reshape(-1).to(torch.int64), enc_code,
+                          enc_len, None, n_units_padded, subseqs_per_seq,
+                          min_len)
 
-    units = torch.empty(n_units_padded, dtype=torch.int64,
-                        device=sym.device)
-    for lo in range(0, n_units_padded, PACK_CHUNK_UNITS):
-        hi = min(lo + PACK_CHUNK_UNITS, n_units_padded)
-        units[lo:hi] = _pack_units(starts, lens, codes, lo, hi, lanes)
-    gaps, counts, seq_counts = stream_metadata(starts, total_bits,
-                                               n_units_padded,
-                                               subseqs_per_seq)
-    return EncodedStream(
-        units=units.to(torch.uint32), gaps=gaps, counts=counts,
-        seq_counts=seq_counts, total_bits=total_bits,
-        n_symbols=int(sym.shape[0]), subseqs_per_seq=subseqs_per_seq)
+
+def encode_gather(symbols: torch.Tensor, enc_code, enc_len,
+                  total_bits: int,
+                  subseqs_per_seq: int = DEFAULT_SUBSEQS_PER_SEQ,
+                  min_len: int = 1) -> EncodedStream:
+    """Device-path encode: the per-unit gather pack under a known bit total.
+
+    Port of the reference's ``encode_gather``.  ``total_bits`` and
+    ``min_len`` come from the ``EncoderPlan`` (the histogram and the
+    codebook), so the symbol array is never read back to size the stream.
+    The plain version of the ``pack_tiles`` kernel's stream
+    (``kernels/ops.py:encode_bitpack``).
+    """
+    device = symbols.device
+    if symbols.numel() == 0:
+        return empty_stream(subseqs_per_seq, device=device)
+    return _gather_stream(symbols.reshape(-1).to(torch.int64),
+                          torch.as_tensor(enc_code).to(device),
+                          torch.as_tensor(enc_len).to(device), total_bits,
+                          units_for_bits(total_bits, subseqs_per_seq),
+                          subseqs_per_seq, min_len)
 
 
 def empty_stream(subseqs_per_seq: int = DEFAULT_SUBSEQS_PER_SEQ, *,

@@ -22,12 +22,15 @@ Backends live in a registry: "ref" is the plain torch reference
 (``core.huffman.decode``); "cuda" runs the hand-written CUDA kernels
 (``repro_torch.kernels.ops``) for CUDA tensors and their plain versions for
 CPU tensors.  Every backend counts plan builds and decode-write dispatches
-in ``backend.stats``.  The encode side keeps the reference's registry with
-its "ref" backend.
+in ``backend.stats``.  The encode side has a registry of its own: "ref" is
+the reference's host path (float64 prequantization, exact histogram, the
+bit-pack as torch ops); "cuda" is the device write path (float32 quantize,
+histogram and bit-pack as CUDA kernels, their plain versions for CPU
+tensors), the port's counterpart of the reference's "jnp", "pallas" and
+"pallas-compiled" encode backends, which are no names of the port.
 
-Options whose code is not ported yet (``method="selfsync"``, device encode
-backends) raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports them.
+Options whose code is not ported yet (``method="selfsync"``) raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
 from __future__ import annotations
@@ -74,8 +77,6 @@ VALID_PLAN_METHODS = ("gap", "selfsync")
 #: ROADMAP.md item that ports each.
 UNPORTED = {
     ("method", "selfsync"): "queue A item 3 (self-sync method)",
-    ("encode_backend", "jnp"): "queue A item 4 (device write side)",
-    ("encode_backend", "pallas"): "queue A item 4 (device write side)",
 }
 
 
@@ -392,21 +393,33 @@ register_backend("cuda", _make_cuda_backend)
 
 @dataclasses.dataclass
 class EncodeBackend:
-    """One implementation of the encode phases.
+    """One implementation of the encode phases (quantize/histogram/bit-pack).
+
+    ``device=True`` backends keep the full-size arrays on the input's
+    device: quantize in float32, the histogram reduced there, and the only
+    host transfer before the bit-pack is the ``2*radius``-entry histogram
+    (codebook construction is host numpy).  "ref" is the host path (float64
+    prequantization, exact histogram), the storage-grade oracle.
 
     ``quantize_fn``  (x, abs_eb, radius) -> (codes u16, outlier bool,
-                     residual int64), shaped like ``x``
-    ``hist_fn``      (codes, nbins) -> int64[nbins]
-    ``pack_fn``      (symbols, enc_code, enc_len, total_bits, sps)
+                     residual int), shaped like ``x``
+    ``hist_fn``      (codes, nbins) -> int[nbins]
+    ``pack_fn``      (symbols, enc_code, enc_len, total_bits, sps, min_len)
                      -> ``EncodedStream``
+
+    Every bit-pack is counted in ``stats["encode_dispatches"]``; compress
+    requests a device backend cannot serve (non-float32 inputs) fall back to
+    the host path, counted in ``stats["encode_fallbacks"]``.
     """
 
     name: str
+    device: bool
     quantize_fn: Callable
     hist_fn: Callable
     pack_fn: Callable
     stats: dict = dataclasses.field(
         default_factory=lambda: {"encode_dispatches": 0,
+                                 "encode_fallbacks": 0,
                                  "encoder_plan_builds": 0})
     _stats_lock: threading.Lock = dataclasses.field(
         default_factory=threading.Lock, repr=False, compare=False)
@@ -420,9 +433,10 @@ class EncodeBackend:
             for k in self.stats:
                 self.stats[k] = 0
 
-    def pack(self, symbols, enc_code, enc_len, total_bits, sps):
+    def pack(self, symbols, enc_code, enc_len, total_bits, sps, min_len):
         self.bump("encode_dispatches")
-        return self.pack_fn(symbols, enc_code, enc_len, total_bits, sps)
+        return self.pack_fn(symbols, enc_code, enc_len, total_bits, sps,
+                            min_len)
 
 
 _ENCODE_FACTORIES: dict[str, Callable[[], EncodeBackend]] = {}
@@ -441,7 +455,6 @@ def available_encode_backends() -> list[str]:
 def get_encode_backend(backend: "str | EncodeBackend") -> EncodeBackend:
     if isinstance(backend, EncodeBackend):
         return backend
-    check_ported("encode_backend", backend)
     if backend not in _ENCODE_FACTORIES:
         raise ValueError(f"unknown encode backend {backend!r}; available: "
                          f"{available_encode_backends()}")
@@ -460,7 +473,8 @@ def _ref_hist(codes, nbins):
     return torch.bincount(codes.reshape(-1).to(torch.int64), minlength=nbins)
 
 
-def _ref_pack(symbols, enc_code, enc_len, total_bits, sps):
+def _ref_pack(symbols, enc_code, enc_len, total_bits, sps, min_len):
+    del min_len  # sizes only the device pack's lane budget
     if symbols.numel() == 0:
         return he.empty_stream(sps, device=symbols.device)
     return he._encode_padded(symbols, enc_code, enc_len,
@@ -470,11 +484,24 @@ def _ref_pack(symbols, enc_code, enc_len, total_bits, sps):
 def _make_ref_encode_backend() -> EncodeBackend:
     """The reference's storage path: float64 prequantization, exact
     histogram and the bit-pack, as torch ops on the input's device."""
-    return EncodeBackend(name="ref", quantize_fn=_ref_quantize,
+    return EncodeBackend(name="ref", device=False, quantize_fn=_ref_quantize,
                          hist_fn=_ref_hist, pack_fn=_ref_pack)
 
 
+def _make_cuda_encode_backend() -> EncodeBackend:
+    """Device write path: the ``lorenzo_quantize``, ``histogram`` and
+    ``pack_tiles`` kernels for CUDA tensors, their plain versions (the
+    reference's "jnp" math) for CPU tensors
+    (``repro_torch.kernels.ops``)."""
+    from repro_torch.kernels import ops
+
+    return EncodeBackend(name="cuda", device=True,
+                         quantize_fn=ops.lorenzo_quantize,
+                         hist_fn=ops.histogram, pack_fn=ops.encode_bitpack)
+
+
 register_encode_backend("ref", _make_ref_encode_backend)
+register_encode_backend("cuda", _make_cuda_encode_backend)
 
 
 @dataclasses.dataclass
@@ -489,12 +516,18 @@ class EncoderPlan:
     total_bits: int
     subseqs_per_seq: int
 
+    @property
+    def min_len(self) -> int:
+        return self.codebook.min_len
+
 
 def build_encoder_plan(freq, max_len: int, subseqs_per_seq: int,
                        backend: "str | EncodeBackend" = "ref", *,
                        device) -> EncoderPlan:
     """Histogram -> canonical length-limited codebook -> placement sizes.
-    Counted in ``backend.stats["encoder_plan_builds"]``."""
+    ``freq`` may live on the device; its ``2*radius`` counts are the only
+    host transfer of a device-backend encode.  Counted in
+    ``backend.stats["encoder_plan_builds"]``."""
     be = get_encode_backend(backend)
     be.bump("encoder_plan_builds")
     freq_np = np.asarray(torch.as_tensor(freq).cpu(), dtype=np.int64)
@@ -509,11 +542,12 @@ def build_encoder_plan(freq, max_len: int, subseqs_per_seq: int,
 
 def encode_with_plan(symbols, plan: EncoderPlan,
                      backend: "str | EncodeBackend" = "ref") -> EncodedStream:
-    """Bit-pack ``symbols`` through ``backend`` under a prebuilt plan."""
+    """Bit-pack ``symbols`` through ``backend`` under a prebuilt plan; the
+    stream layout is identical across backends."""
     be = get_encode_backend(backend)
     return be.pack(symbols, plan.enc_code.to(symbols.device),
                    plan.enc_len.to(symbols.device), plan.total_bits,
-                   plan.subseqs_per_seq)
+                   plan.subseqs_per_seq, plan.min_len)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """End-to-end SZ-style compressor: Lorenzo -> quantize -> Huffman.
 
 Port of ``src/repro/core/sz/compressor.py`` (``compress`` on the "ref"
-encode path, the two-pass ``decompress`` and its fused form under every
-strategy, and the class-batched ``decompress_batch``).  Codebook
-construction is host numpy; quantization, histogram, bit-pack, decode and
-dequantization run as torch ops and CUDA kernels on the input's device.
+host path and the "cuda" device write path, the two-pass ``decompress`` and
+its fused form under every strategy, and the class-batched
+``decompress_batch``).  Codebook construction is host numpy; quantization,
+histogram, bit-pack, decode and dequantization run as torch ops and CUDA
+kernels on the input's device.
 
 :func:`compressed_from_arrays` and :func:`compressed_to_arrays` carry a
 ``Compressed`` across as plain numpy arrays and scalars, the form in which a
@@ -111,6 +112,37 @@ def _outlier_m_pad(n_out: int) -> int:
     return max(8, int(2 ** np.ceil(np.log2(max(n_out, 1) + 1))))
 
 
+def _gather_outliers(csum, resid_flat, m_pad: int):
+    """Compact the outlier side list from an inclusive mask prefix sum.
+
+    The k-th outlier's position is ``searchsorted(csum, k + 1)``: ``m_pad``
+    binary searches and one gather, no scatter.  Ascending positions, -1 /
+    0 padded, the layout of the host path's ``nonzero``.
+    """
+    m = csum[-1]
+    k = torch.arange(1, m_pad + 1, dtype=torch.int32, device=csum.device)
+    pos = torch.searchsorted(csum, k, side="left").to(torch.int32)
+    pos = torch.where(k <= m, pos, -1)
+    val = torch.where(pos >= 0, resid_flat[pos.clamp(min=0)].to(torch.int32),
+                      0)
+    return pos, val
+
+
+def encode_unsupported_reason(x, backend) -> "str | None":
+    """Why the device encode path cannot serve this tensor (None = it can).
+
+    The device quantizer is float32 (``lorenzo.quantize``); other dtypes
+    fall back to the host path, counted in ``stats["encode_fallbacks"]``.
+    """
+    be = hp.get_encode_backend(backend)
+    if not be.device:
+        return f"backend {be.name!r} is the host path"
+    if x.dtype != torch.float32:
+        return (f"dtype {dtype_name(x.dtype)} is not float32 (the device "
+                f"quantizer is f32)")
+    return None
+
+
 def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
              radius: int = lorenzo.DEFAULT_RADIUS,
              max_len: int = cb.DEFAULT_MAX_LEN,
@@ -123,6 +155,15 @@ def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
     "relative error bound 1e-3"); mode="abs": bound is ``eb`` directly.
     ``x`` (a tensor or numpy array) is moved to ``device`` (the card unless
     the caller asks for the CPU) and compressed there.
+
+    ``encode_backend`` selects the write path: "ref" is the host path
+    (float64 prequantization); "cuda" runs quantize -> outlier gather ->
+    histogram -> bit-pack on the device (kernels on the card, their plain
+    versions on the CPU), with only the ``2*radius``-entry histogram
+    crossing to the host for the codebook.  It quantizes in float32, so for
+    eb far above ulp scale the codes, and so the bytes, match the host
+    path's; a tensor it cannot serve (``encode_unsupported_reason``) falls
+    back to "ref", counted in ``stats["encode_fallbacks"]``.
     """
     ebe = hp.get_encode_backend(encode_backend)
     x = torch.as_tensor(x).to(device)
@@ -137,16 +178,32 @@ def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
         raise ValueError(f"unknown mode {mode!r}")
     max_abs = float(x.abs().max())
 
-    codes, outlier, resid = ebe.quantize_fn(x, abs_eb, radius)
-    codes_flat = codes.reshape(-1)
+    if ebe.device and encode_unsupported_reason(x, ebe) is not None:
+        ebe.bump("encode_fallbacks")
+        ebe = hp.get_encode_backend("ref")
 
-    # Outlier side list (exact residuals), padded to power-of-two length.
-    pos = torch.nonzero(outlier.reshape(-1)).reshape(-1)
-    m_pad = _outlier_m_pad(pos.shape[0])
-    pos_pad = torch.full((m_pad,), -1, dtype=torch.int32, device=x.device)
-    val_pad = torch.zeros(m_pad, dtype=torch.int32, device=x.device)
-    pos_pad[: pos.shape[0]] = pos.to(torch.int32)
-    val_pad[: pos.shape[0]] = resid.reshape(-1)[pos].to(torch.int32)
+    if ebe.device:
+        # The int32-lattice guard of the host prequantizer.
+        if np.round(max_abs / (2.0 * abs_eb)) >= 2**31 - 1:
+            raise ValueError(
+                "error bound too small for int32 lattice; increase eb")
+        codes, outlier, resid = ebe.quantize_fn(x, abs_eb, radius)
+        codes_flat = codes.reshape(-1)
+        csum = torch.cumsum(outlier.reshape(-1), 0, dtype=torch.int32)
+        # One scalar sync sizes the side list; the gather stays on device.
+        m_pad = _outlier_m_pad(int(csum[-1]))
+        pos_pad, val_pad = _gather_outliers(csum, resid.reshape(-1), m_pad)
+    else:
+        codes, outlier, resid = ebe.quantize_fn(x, abs_eb, radius)
+        codes_flat = codes.reshape(-1)
+        # Outlier side list (exact residuals), padded to power-of-two length.
+        pos = torch.nonzero(outlier.reshape(-1)).reshape(-1)
+        m_pad = _outlier_m_pad(pos.shape[0])
+        pos_pad = torch.full((m_pad,), -1, dtype=torch.int32,
+                             device=x.device)
+        val_pad = torch.zeros(m_pad, dtype=torch.int32, device=x.device)
+        pos_pad[: pos.shape[0]] = pos.to(torch.int32)
+        val_pad[: pos.shape[0]] = resid.reshape(-1)[pos].to(torch.int32)
     freq = ebe.hist_fn(codes_flat, 2 * radius)
 
     # Histogram -> codebook (host package-merge) -> bit-pack.

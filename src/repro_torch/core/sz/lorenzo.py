@@ -1,9 +1,12 @@
 """Lorenzo prediction + error-bounded quantization (cuSZ's dual-quant).
 
-Port of ``src/repro/core/sz/lorenzo.py`` (the storage path: ``quantize_host``
-and ``dequantize``).
+Port of ``src/repro/core/sz/lorenzo.py``: the storage path
+(``quantize_host``), the float32 device quantizer (``quantize``) and
+``dequantize``.
 
-  compress:    q  = round(x / (2*eb))               (float64, half to even)
+  compress:    q  = round(x / (2*eb))               (half to even: float64
+                                                     in quantize_host,
+                                                     float32 in quantize)
                d  = q - L(q)                         (Lorenzo residual, exact)
                code = clip(d + R, 0, 2R-1)           (uint16 bins, radius R)
                outliers: positions with |d| >= R keep d in a side list
@@ -31,6 +34,26 @@ def _lorenzo_residual(q: torch.Tensor) -> torch.Tensor:
             d = torch.diff(d, dim=axis,
                            prepend=torch.zeros_like(d.narrow(axis, 0, 1)))
     return d
+
+
+def quantize(x: torch.Tensor, eb: float, radius: int = DEFAULT_RADIUS):
+    """Float32 quantizer of the device write path: the plain version of the
+    ``lorenzo_quantize`` kernel (``kernels/lorenzo.py``).
+
+    Returns ``(codes uint16, outlier_mask bool, residual int32)``, shaped
+    like ``x``.  As in the reference, ``eb`` is cast to ``x.dtype`` and
+    doubled (exact), ``x / (2*eb)`` is a true division rounded half to
+    even, and the residual is int32, wrapping as XLA's int32 does.  Where
+    ``|x| / (2*eb)`` nears 2**23 the float32 division can misplace lattice
+    cells; the storage path (:func:`quantize_host`) divides in float64.
+    """
+    two_eb = torch.tensor(eb, dtype=x.dtype, device=x.device) * 2
+    q = torch.round(x / two_eb).to(torch.int32)
+    d = _lorenzo_residual(q)
+    code = d + radius
+    outlier = (code < 0) | (code >= 2 * radius)
+    codes = torch.where(outlier, 0, code.clamp(0, 2 * radius - 1))
+    return codes.to(torch.uint16), outlier, d
 
 
 def quantize_host(x: torch.Tensor, eb: float, radius: int = DEFAULT_RADIUS):

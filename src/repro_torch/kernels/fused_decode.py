@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -127,9 +126,7 @@ def _check_fused(opos, oval, obounds, n_tiles, two_eb, radius, out_dtype,
     if out_dtype not in OUT_KINDS:
         raise TypeError(f"out_dtype must be one of {list(OUT_KINDS)}, got "
                         f"{out_dtype}")
-    if not isinstance(two_eb, float) or float(np.float32(two_eb)) != two_eb:
-        raise ValueError(f"two_eb must be a float32 value as a Python float "
-                         f"(ops._two_eb_f32), got {two_eb!r}")
+    K._check_two_eb(two_eb)
     if not 1 <= radius <= 1 << 15:
         raise ValueError(f"radius must be in [1, 32768], got {radius}")
 

@@ -23,6 +23,7 @@ inputs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -43,6 +44,14 @@ def _expect(name, t, dtype, shape=None):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_two_eb(two_eb):
+    """The Lorenzo kernels take the scale ``2 * eb`` as a float32 value
+    given as a Python float (``ops._two_eb_f32``)."""
+    if not isinstance(two_eb, float) or float(np.float32(two_eb)) != two_eb:
+        raise ValueError(f"two_eb must be a float32 value as a Python float "
+                         f"(ops._two_eb_f32), got {two_eb!r}")
 
 
 def _check_stream(units, dec_sym, dec_len, max_len, total_bits, extra):

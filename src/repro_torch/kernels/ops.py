@@ -1,6 +1,6 @@
-"""Kernel-backed decode phases: the "cuda" backend's entry points.
+"""Kernel-backed phases: the "cuda" backends' entry points.
 
-Port of the decode half of ``src/repro/kernels/ops.py`` (``subseq_counts``,
+Port of ``src/repro/kernels/ops.py``.  The decode half (``subseq_counts``,
 ``_tile_inputs``, ``decode_write_tiles``, ``decode_write_tiles_fused`` with
 its helpers ``_two_eb_f32``, ``fused_squeeze`` and ``fused_tile_rows``, and
 the padded baseline ``decode_padded_compact`` / ``decode_padded_fused``),
@@ -8,7 +8,9 @@ signature-compatible with the reference decoders in
 ``core/huffman/decode.py``.  The window rules of the
 reference's ``_subseq_windows`` run inside the kernels here
 (``common.subseq_windows`` in the plain versions), so the per-lane metadata
-never round-trips through device memory.
+never round-trips through device memory.  The encode half
+(``encode_bitpack``, ``histogram``, ``lorenzo_quantize``,
+``lorenzo_reconstruct``) serves the write path's "cuda" backend.
 """
 
 from __future__ import annotations
@@ -16,9 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.huffman import encode as he
 from repro_torch.core.huffman.pipeline import ss_max_for_tile
 from repro_torch.kernels import fused_decode as _fus
+from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import huffman_decode as _dec
+from repro_torch.kernels import huffman_encode as _enc
+from repro_torch.kernels import lorenzo as _lor
 
 
 def subseq_counts(units, dec_sym, dec_len, start_abs, end_abs,
@@ -249,3 +255,82 @@ def decode_padded_fused(units, dec_sym, dec_len, start_abs, end_abs,
     kernel, _, args = padded_epilogue_inputs(codes, n_out, opos, oval, eb,
                                              radius, shape, out_dtype)
     return kernel(*args)[:n_out]
+
+
+# ---------------------------------------------------------------------------
+# Encode bit-pack (write-path phase 4)
+# ---------------------------------------------------------------------------
+
+#: Output units one ``pack_tiles`` block owns (the reference's 8-unit TPU
+#: tile does not carry over; see ``huffman_encode.DEFAULT_TILE_UNITS``).
+DEFAULT_ENCODE_TILE_UNITS = _enc.DEFAULT_TILE_UNITS
+
+
+def code_starts(symbols, enc_len):
+    """int32 exclusive scan of the symbols' code lengths: each codeword's
+    first bit, the ``starts`` input of ``pack_tiles``."""
+    lens = enc_len.to(torch.int32)[symbols.to(torch.int32)]
+    return torch.cumsum(lens, 0, dtype=torch.int32) - lens
+
+
+def encode_bitpack(symbols, enc_code, enc_len, total_bits: int,
+                   subseqs_per_seq: int, min_len: int = 1,
+                   tile_units: int = DEFAULT_ENCODE_TILE_UNITS
+                   ) -> he.EncodedStream:
+    """Kernel-backed Huffman encode: the int32 exclusive scan of the code
+    lengths (torch glue), the ``pack_tiles`` kernel and the stream metadata.
+
+    ``total_bits`` is the exact payload size (the ``EncoderPlan`` derives it
+    from the histogram, so the symbol array never round-trips to host).
+    ``min_len`` only sizes the reference's lane budget, which the kernel
+    does not need.  Layout bit-identical to ``core.huffman.encode.encode``.
+    """
+    del min_len
+    device = symbols.device
+    if symbols.numel() == 0:
+        return he.empty_stream(subseqs_per_seq, device=device)
+    n_units_padded = he.units_for_bits(total_bits, subseqs_per_seq)
+    sym = symbols.reshape(-1)
+    enc_code = torch.as_tensor(enc_code).to(device)
+    enc_len = torch.as_tensor(enc_len).to(device)
+    starts = code_starts(sym, enc_len)
+    units = _enc.pack_tiles(sym.to(torch.uint16).contiguous(), starts,
+                            enc_code.contiguous(), enc_len.contiguous(),
+                            n_units_padded, tile_units)
+    gaps, counts, seq_counts = he.stream_metadata(
+        starts, total_bits, n_units_padded, subseqs_per_seq)
+    return he.EncodedStream(
+        units=units, gaps=gaps, counts=counts, seq_counts=seq_counts,
+        total_bits=int(total_bits), n_symbols=int(sym.shape[0]),
+        subseqs_per_seq=subseqs_per_seq)
+
+
+# ---------------------------------------------------------------------------
+# Histogram + Lorenzo wrappers
+# ---------------------------------------------------------------------------
+
+histogram = _hist.histogram
+
+
+def lorenzo_quantize(x, eb, radius: int = 512):
+    """Dual-quant Lorenzo quantize of a float32 tensor on the kernel: one
+    launch for any shape of at most ``lorenzo.MAX_AXES`` non-unit axes
+    (the reference's Pallas backend ran its kernel for 1-D inputs only).
+    Returns ``(codes uint16, outlier bool, residual int32)`` shaped like
+    ``x``, bit-identical to ``core/sz/lorenzo.py:quantize``."""
+    return _lor.lorenzo_quantize(x.contiguous(), _two_eb_f32(eb), radius)
+
+
+def lorenzo_reconstruct(d, eb, shape=None):
+    """Inverse Lorenzo; 1-D (``shape`` None or 1-D) on the
+    ``reconstruct1d`` kernel, N-D as a per-axis int32 cumsum in torch ops,
+    as in the reference.  Returns float32, flat for 1-D, else ``shape``."""
+    two_eb = _two_eb_f32(eb)
+    if shape is None or len(shape) == 1:
+        return _lor.reconstruct1d(d.reshape(-1).to(torch.int32).contiguous(),
+                                  two_eb)
+    q = d.reshape(shape)
+    for axis in range(len(shape)):
+        q = torch.cumsum(q, dim=axis, dtype=torch.int32)
+    scale = torch.tensor(two_eb, dtype=torch.float32, device=d.device)
+    return q.to(torch.float32) * scale

@@ -302,14 +302,20 @@ def test_default_codec_needs_the_card():
     ("encode_backend", "pallas", "item 4"),
 ])
 def test_unported_options_raise(field, value, item):
+    if field == "encode_backend":
+        # Ported (queue A item 4): the port's device encode backend is
+        # "cuda"; the reference's "jnp" and "pallas" are unknown names.
+        with pytest.raises(ValueError, match=r"\['cuda', 'ref'\]"):
+            CodecConfig(**{field: value})
+        with pytest.raises(ValueError, match=r"\['cuda', 'ref'\]"):
+            compressor.compress(torch.zeros(8), encode_backend=value,
+                                device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
         CodecConfig(**{field: value})
     _, _, _, ct = _case(1, "f32", "abs", 1e-3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if field == "encode_backend":
-            compressor.compress(torch.zeros(8), encode_backend=value)
-        else:
-            compressor.decompress(ct, **{field: value})
+        compressor.decompress(ct, **{field: value})
 
 
 @pytest.mark.parametrize("kw", [dict(eb=0), dict(mode="x"), dict(method="x"),

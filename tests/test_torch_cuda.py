@@ -8,6 +8,8 @@ PyTorch for CUDA and nothing of the JAX stack:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,10 +18,13 @@ from repro_torch.core.codec import Codec, CodecConfig
 from repro_torch.core.huffman import codebook, encode
 from repro_torch.core.huffman import decode as hd
 from repro_torch.core.huffman import pipeline as hp
-from repro_torch.core.sz import lorenzo
+from repro_torch.core.sz import compressor, lorenzo
 from repro_torch.data.pipeline import smooth_field
+from repro_torch.kernels import histogram as H
 from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels import huffman_encode as E
 from repro_torch.kernels import launches
+from repro_torch.kernels import lorenzo as L
 from repro_torch.kernels import ops
 
 pytestmark = pytest.mark.cuda
@@ -528,3 +533,227 @@ def test_codec_strategies_and_batch(cuda):
                                           len(cs) * (1 << 12))
     for y, w in zip(outs, want):
         assert torch.equal(y, w)
+
+
+# ---------------------------------------------------------------------------
+# The write path: lorenzo_quantize, reconstruct1d, histogram, pack_tiles
+# ---------------------------------------------------------------------------
+
+
+def _walk(shape, seed, scale=0.1):
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.standard_normal(shape), axis=-1).astype(np.float32)
+    return x * np.float32(scale)
+
+
+@pytest.mark.parametrize("radius", [512, 4])
+@pytest.mark.parametrize("shape", [
+    (20001,), (37, 53), (9, 31, 47), (2, 8, 16, 128), (3, 1, 5, 1, 7),
+    (2, 3, 2, 3, 2, 3, 2, 3), (1,)], ids=str)
+def test_quantize_matches_plain(cuda, shape, radius):
+    """Sizes that are no multiple of a block, unit axes, 1 to 8 axes, and
+    outliers at radius 4."""
+    x = torch.from_numpy(_walk(shape, seed=len(shape))).to(cuda)
+    two_eb = ops._two_eb_f32(1e-3)
+    before = L.lorenzo_quantize.launches
+    got = L.lorenzo_quantize(x, two_eb, radius)
+    assert L.lorenzo_quantize.launches == before + 1
+    want = L.lorenzo_quantize_plain(x, two_eb, radius)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert g.shape == w.shape and torch.equal(_signed(g), _signed(w))
+    if radius == 4 and x.numel() > 1:
+        assert bool(got[1].any())
+
+
+def test_quantize_tie_field(cuda):
+    """The seed-0 field where the reference's Pallas quantizer flips a
+    lattice tie (ROADMAP.md queue C): the kernel divides exactly."""
+    rng = np.random.default_rng(0)
+    x = np.cumsum(rng.standard_normal(20480)).astype(np.float32) * 0.1
+    xt = torch.from_numpy(x).to(cuda)
+    got = ops.lorenzo_quantize(xt, 1e-3, 512)
+    want = lorenzo.quantize(torch.from_numpy(x), 1e-3, 512)
+    for g, w in zip(got, want):
+        assert torch.equal(_signed(g.cpu()), _signed(w))
+
+
+def test_quantize_axis_cap_on_card(cuda):
+    x = torch.zeros((2,) * 9, device=cuda)
+    before = L.lorenzo_quantize.launches
+    with pytest.raises(ValueError, match="at most 8 non-unit axes"):
+        ops.lorenzo_quantize(x, 1e-3, 512)
+    assert L.lorenzo_quantize.launches == before
+
+
+@pytest.mark.parametrize("n,block", [(1, 4096), (4095, 4096), (4097, 4096),
+                                     (1000003, 4096), (100000, 64)])
+def test_reconstruct1d_matches_plain(cuda, n, block):
+    rng = np.random.default_rng(n)
+    d = torch.from_numpy(rng.integers(-600, 600, size=n).astype(
+        np.int32)).to(cuda)
+    two_eb = ops._two_eb_f32(1e-3)
+    got = L.reconstruct1d(d, two_eb, block)
+    assert torch.equal(_signed(got.view(torch.int32)),
+                       L.reconstruct1d_plain(d, two_eb).view(torch.int32))
+
+
+def test_quantize_reconstruct_roundtrip_on_card(cuda):
+    x = torch.from_numpy(_walk((3000017,), seed=4)).to(cuda)
+    eb = 1e-3
+    _, _, resid = ops.lorenzo_quantize(x, eb, 512)
+    y = ops.lorenzo_reconstruct(resid, eb)
+    bound = eb + float(np.spacing(np.float32(float(x.abs().max()) + eb)))
+    assert float((y.double() - x.double()).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+@pytest.mark.parametrize("nbins", [16, 1024, 80000])
+@pytest.mark.parametrize("n", [1, 1000, 1000003])
+def test_histogram_matches_plain(cuda, n, nbins, dtype):
+    """nbins 80000 (radius 40000) is past shared memory: the variant with
+    global atomics only."""
+    rng = np.random.default_rng(n + nbins)
+    lo = 0 if dtype == torch.uint16 else -5
+    x = torch.from_numpy(rng.integers(lo, min(nbins + 5, 65535), size=n))
+    x = x.to(dtype).to(cuda)
+    assert H.histogram_in_smem(nbins) == (nbins != 80000)
+    before = H.histogram.launches
+    got = H.histogram(x, nbins)
+    assert H.histogram.launches == before + 1
+    want = H.histogram_plain(x, nbins)
+    assert torch.equal(got, want) and int(got.sum()) == n
+
+
+def test_histogram_skewed(cuda):
+    """Most codes in one bin, as on the smoke fields."""
+    x = torch.full((5000000,), 512, dtype=torch.uint16, device=cuda)
+    x[::7] = 511
+    assert torch.equal(H.histogram(x, 1024), H.histogram_plain(x, 1024))
+
+
+@pytest.mark.parametrize("tile_units", [1, 7, 1024])
+@pytest.mark.parametrize("name,max_len", [("one-bit", 12), ("flat", 16),
+                                          ("deep", 16), ("short", 4)])
+def test_pack_tiles_matches_plain(cuda, name, max_len, tile_units):
+    """min_len 1 (one-bit, deep), min_len > 1 (flat: 10 bits; short: 4),
+    codewords of 16 bits (deep, a geometric distribution cut at max_len
+    16), and tiles of 1, 7 and 1024 units."""
+    freq = {"one-bit": np.array([10**6, 3, 2, 1]),
+            "flat": np.full(1024, 5),
+            "deep": (2.0 ** -np.arange(40) * 2**30).astype(np.int64) + 1,
+            "short": np.arange(1, 17)}[name]
+    book, syms, stream = _stream(cuda, freq, 200003, max_len, 3)
+    assert (book.min_len == 1) == (name in ("one-bit", "deep"))
+    if name == "deep":
+        assert int(book.enc_len[syms].max()) == 16
+    sym = torch.from_numpy(syms.astype(np.uint16)).to(cuda)
+    enc_code = torch.from_numpy(book.enc_code).to(cuda)
+    enc_len = torch.from_numpy(book.enc_len).to(cuda)
+    lens = enc_len.to(torch.int32)[sym.to(torch.int32)]
+    starts = torch.cumsum(lens, 0, dtype=torch.int32) - lens
+    n_units = stream.units.numel()
+    before = E.pack_tiles.launches
+    got = E.pack_tiles(sym, starts, enc_code, enc_len, n_units, tile_units)
+    assert E.pack_tiles.launches == before + 1
+    want = E.pack_tiles_plain(sym, starts, enc_code, enc_len, n_units)
+    assert torch.equal(_signed(got), _signed(want))
+    assert torch.equal(_signed(got), _signed(stream.units))
+
+
+def test_pack_empty_and_one_symbol(cuda):
+    freq = np.zeros(16, np.int64)
+    freq[3] = 1
+    plan = hp.build_encoder_plan(freq, max_len=8, subseqs_per_seq=32,
+                                 backend="cuda", device=cuda)
+    before = E.pack_tiles.launches
+    empty = hp.encode_with_plan(torch.zeros(0, dtype=torch.uint16,
+                                            device=cuda),
+                                dataclasses.replace(plan, total_bits=0),
+                                backend="cuda")
+    assert empty.n_symbols == 0 and empty.total_bits == 0
+    assert E.pack_tiles.launches == before
+    one = torch.full((1,), 3, dtype=torch.uint16, device=cuda)
+    got = hp.encode_with_plan(one, plan, backend="cuda")
+    want = hp.encode_with_plan(one.cpu(), plan, backend="ref")
+    assert E.pack_tiles.launches == before + 1
+    for f in ("units", "gaps", "counts", "seq_counts"):
+        assert torch.equal(_signed(getattr(got, f).cpu()),
+                           _signed(getattr(want, f))), f
+
+
+def _same_payload(a, b):
+    for f in ("units", "gaps", "counts", "seq_counts"):
+        assert torch.equal(_signed(getattr(a.stream, f).cpu()),
+                           _signed(getattr(b.stream, f).cpu())), f
+    assert a.stream.total_bits == b.stream.total_bits
+    assert torch.equal(a.outlier_pos.cpu(), b.outlier_pos.cpu())
+    assert torch.equal(a.outlier_val.cpu(), b.outlier_val.cpu())
+    assert np.array_equal(a.codebook.enc_code, b.codebook.enc_code)
+    assert np.array_equal(a.codebook.enc_len, b.codebook.enc_len)
+
+
+def test_cuda_encode_codec(cuda, monkeypatch):
+    """Codec(encode_backend="cuda") on CUDA tensors: one launch of each
+    write-path kernel a tensor, no plain version, no fallback, the payload
+    of the same compress on the CPU, decoding to the kernel's codes."""
+    for name, mod in (("lorenzo_quantize_plain", L),
+                      ("histogram_plain", H), ("pack_tiles_plain", E)):
+        def boom(*a, _name=name, **k):
+            raise AssertionError(f"{_name} ran on the card path")
+        monkeypatch.setattr(mod, name, boom)
+    rng = np.random.default_rng(5)
+    fields = [_walk((200003,), seed=1), smooth_field((300, 500), seed=2),
+              smooth_field((40, 64, 64), seed=3),
+              smooth_field((2, 8, 16, 128), seed=4)]
+    # noise past the radius: every field has outliers
+    fields = [f + np.float32(0.05) * rng.standard_normal(f.shape).astype(
+        np.float32) for f in fields]
+    codec = Codec(CodecConfig(encode_backend="cuda", radius=4))
+    codec.reset_stats()
+    launches.reset()
+    xs = [torch.from_numpy(np.ascontiguousarray(f)).to(cuda) for f in fields]
+    cs = [codec.compress(x) for x in xs]
+    counts = launches.counts()
+    for name, n in counts.items():
+        want = len(xs) if name in ("lorenzo_quantize", "histogram",
+                                   "pack_tiles") else 0
+        assert n == want, (name, counts)
+    stats = codec.stats
+    assert stats["encode_fallbacks"] == 0
+    assert stats["encode_dispatches"] == len(xs)
+    monkeypatch.undo()
+    cpu = Codec(CodecConfig(encode_backend="cuda", radius=4, device="cpu"))
+    for x, c in zip(xs, cs):
+        assert c.device.type == "cuda"
+        assert int((c.outlier_pos >= 0).sum()) > 0
+        _same_payload(c, cpu.compress(x.cpu()))
+        codes = ops.lorenzo_quantize(x, c.eb, c.radius)[0].reshape(-1)
+        got = codec.decode(c.stream, c.codebook, c.n_symbols)
+        assert torch.equal(_signed(got), _signed(codes))
+        y = codec.decompress(c)
+        assert float((y.double() - x.double()).abs().max()) <= c.eb_effective
+
+
+def test_cuda_encode_lattice_matches_ref(cuda):
+    eb = 0.0078125
+    rng = np.random.default_rng(6)
+    k = np.rint(smooth_field((30, 40, 50), seed=6) * 300).astype(np.int32)
+    k.reshape(-1)[rng.choice(k.size, 9, replace=False)] += 5000
+    x = torch.from_numpy(k.astype(np.float32) * np.float32(2 * eb)).to(cuda)
+    dev = Codec(CodecConfig(eb=eb, mode="abs", encode_backend="cuda"))
+    ref = Codec(CodecConfig(eb=eb, mode="abs"))
+    _same_payload(dev.compress(x), ref.compress(x))
+
+
+def test_cuda_encode_float16_falls_back(cuda):
+    codec = Codec(CodecConfig(encode_backend="cuda"))
+    codec.reset_stats()
+    launches.reset()
+    x = torch.from_numpy(smooth_field((64, 64), seed=7)).to(cuda).half()
+    c = codec.compress(x)
+    assert codec.stats["encode_fallbacks"] == 1
+    assert codec.stats["encode_dispatches"] == 0
+    assert all(n == 0 for n in launches.counts().values())
+    assert "float16" in compressor.encode_unsupported_reason(x, "cuda")
+    _same_payload(c, Codec(CodecConfig()).compress(x))
