@@ -42,7 +42,15 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     ``lorenzo_quantize`` (float32 quantize and N-D Lorenzo residual),
     ``histogram`` and ``pack_tiles`` (bit-pack) kernels once a tensor;
   * reconstruct, ``ops.lorenzo_reconstruct`` of hacc1d's residuals: the
-    ``reconstruct1d`` kernel (the quantizer's 1-D inverse).
+    ``reconstruct1d`` kernel (the quantizer's 1-D inverse);
+  * opt self-sync, ``Codec(CodecConfig(method="selfsync"))``: ``decompress``
+    and ``Codec.decode(early_exit=True)`` of the three fields, the sync
+    points found by self-synchronization (the ``selfsync_intra`` kernel,
+    one launch a pass, the sequence heads chained between passes) and the
+    tile decode-write (``decode_tiles``), with no ``count_subseq``;
+  * ori self-sync, ``method="selfsync", strategy="padded"`` with
+    ``Codec.decode(early_exit=False)``: every pass runs ``sps`` rounds, then
+    the padded decode (``decode_padded``).
 
 The script
 
@@ -62,13 +70,18 @@ The script
     reconstructs within ``eb_effective``, with no encode fallback; a
     lattice field (values exactly k * 2eb) encodes byte for byte as the
     "ref" encode does; the reconstruct round trip stays within eb plus one
-    float32 spacing;
+    float32 spacing; the self-sync plans' counts equal the gap plan's and
+    their starts the gap starts below total_bits, for both ``early_exit``
+    values, and the self-sync codes and floats equal the two-pass output
+    bit for bit;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
     throughputs in GB/s of quant codes (2 B per code); ``compress`` with the
-    "ref" and "cuda" encode backends; the card's name and power limit; and
-    a ``kernels`` JSON line.
+    "ref" and "cuda" encode backends; the gap and self-sync plan times, the
+    passes and rounds of the self-sync and the decode throughput of ori and
+    opt self-sync; the card's name and power limit; and a ``kernels`` JSON
+    line.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -101,7 +114,8 @@ REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
             "lorenzo_quantize": "src/repro/kernels/lorenzo.py:43",
             "reconstruct1d": "src/repro/kernels/lorenzo.py:89",
             "histogram": "src/repro/kernels/histogram.py:36",
-            "pack_tiles": "src/repro/kernels/huffman_encode.py:74"}
+            "pack_tiles": "src/repro/kernels/huffman_encode.py:74",
+            "selfsync_intra": "src/repro/kernels/huffman_selfsync.py:80"}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 #: The kernels each path must launch; every other kernel must not launch.
 TWO_PASS_KERNELS = ("count_subseq", "decode_tiles")
@@ -114,6 +128,8 @@ TUNED_KERNELS = ("count_subseq", "decode_tiles")
 BATCH_KERNELS = ("count_subseq", "decode_tiles")
 ENCODE_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles")
 RECONSTRUCT_KERNELS = ("reconstruct1d",)
+SELFSYNC_KERNELS = ("selfsync_intra", "decode_tiles")
+ORI_SELFSYNC_KERNELS = ("selfsync_intra", "decode_padded")
 HACC_VALUES = 280_953_867
 #: KV-cache pages of the batch phase, each shaped like one Qwen3-0.6B page:
 #: (K/V, KV heads, tokens, head_dim).
@@ -377,6 +393,136 @@ def run_batch(seed: int, results, xs) -> dict:
         row["decompress_batch_cached_plan_ms"] * 1e-3) / 1e9
     print(f"batch {json.dumps(row)}")
     return row
+
+
+def run_selfsync(results) -> dict:
+    """The self-sync phase: opt self-sync (``method="selfsync"``,
+    ``decompress`` and ``Codec.decode(early_exit=True)``) and ori self-sync
+    (``strategy="padded"``, ``Codec.decode(early_exit=False)``) on the three
+    fields, each with its launch check; the self-sync plans against the gap
+    plan; ``selfsync_intra`` against its plain version on isabel3d, at the
+    first pass's heads and the chained ones, for both ``early_exit`` values;
+    and the times.  Prints one ``selfsync`` row per field and returns
+    ``{"fields": rows, "launches": ..., "ori_launches": ...}``."""
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import huffman_selfsync as S
+    from repro_torch.kernels import launches, ops
+
+    opt = Codec(CodecConfig(method="selfsync"))
+    ori = Codec(CodecConfig(method="selfsync", strategy="padded"))
+
+    def drive_opt():
+        return {name: (opt.decompress(c),
+                       opt.decode(c.stream, c.codebook, c.n_symbols,
+                                  early_exit=True))
+                for name, (_, c, _, _, _) in results.items()}
+
+    def drive_ori():
+        return {name: ori.decode(c.stream, c.codebook, c.n_symbols,
+                                 early_exit=False)
+                for name, (_, c, _, _, _) in results.items()}
+
+    opt_out, counts = run_path("opt self-sync", SELFSYNC_KERNELS, drive_opt)
+    ori_out, ori_counts = run_path("ori self-sync", ORI_SELFSYNC_KERNELS,
+                                   drive_ori)
+
+    rows = {}
+    for name, (codec, c, y, _, _) in results.items():
+        stream, book, n = c.stream, c.codebook, c.n_symbols
+        gap_codes = codec.decode(stream, book, n)
+        oy, ocodes = opt_out[name]
+        require(same(oy, y), f"{name}: opt self-sync decompress differs "
+                f"from the two-pass output")
+        require(same(ocodes, gap_codes) and same(ori_out[name], gap_codes),
+                f"{name}: self-sync codes differ from the two-pass codes")
+        gap_plan = codec.plan_for(c)
+        below = gap_plan.start_bits < stream.total_bits
+        for ee in (True, False):
+            plan = hp.build_plan(stream, book, method="selfsync",
+                                 backend="cuda", early_exit=ee)
+            require(same(plan.counts, gap_plan.counts)
+                    and same(plan.start_bits[below],
+                             gap_plan.start_bits[below]),
+                    f"{name}: self-sync plan (early_exit={ee}) differs from "
+                    f"the gap plan")
+        luts = hp._as_luts(book, c.device)
+        sps = stream.subseqs_per_seq
+        sync_args = (stream.units, luts.dec_sym, luts.dec_len,
+                     stream.total_bits, stream.n_subseq, sps, luts.max_len)
+        row = {"field": name, "n_subseq": stream.n_subseq,
+               "n_seq": stream.n_seq}
+        starts = {}
+        for ee, key in ((True, "early_exit"), (False, "no_early_exit")):
+            before = S.selfsync_intra.launches
+            starts[ee], _, rounds = ops.selfsync_sync(*sync_args,
+                                                      early_exit=ee)
+            passes = S.selfsync_intra.launches - before
+            per_pass = rounds.double() / passes
+            row[key] = {
+                "passes": passes,
+                "rounds_mean_per_seq_per_pass": float(per_pass.mean()),
+                "rounds_max_per_seq_per_pass": float(per_pass.max()),
+                "total_rounds_mean_per_seq": float(rounds.double().mean()),
+                "total_rounds_max_per_seq": int(rounds.max()),
+                "sync_ms": cuda_ms(
+                    lambda ee=ee: ops.selfsync_sync(*sync_args,
+                                                    early_exit=ee), 5),
+                "plan_ms": cuda_ms(lambda ee=ee: hp.build_plan(
+                    stream, book, method="selfsync", backend="cuda",
+                    early_exit=ee), 5)}
+        row["gap_plan_ms"] = cuda_ms(
+            lambda: codec.build_plan(stream, book), 5)
+        # The kernel against its plain version at the path's inputs: the
+        # first pass's heads (zero) and the chained heads (the last pass's).
+        if name == "isabel3d":
+            n_seq = stream.n_seq
+            heads = (starts[True].reshape(n_seq, sps)[:, :1]
+                     - torch.arange(n_seq, dtype=torch.int32,
+                                    device=c.device)[:, None] * (128 * sps))
+            errs = []
+            for h in (torch.zeros_like(heads), heads.contiguous()):
+                for ee in (True, False):
+                    kargs = (stream.units, h, stream.total_bits,
+                             luts.dec_sym, luts.dec_len, luts.max_len, sps,
+                             ee)
+                    got = S.selfsync_intra(*kargs)
+                    want = S.selfsync_intra_plain(*kargs)
+                    require(all(same(a, b) for a, b in zip(got, want)),
+                            f"{name}: selfsync_intra (early_exit={ee}) "
+                            f"differs from its plain version")
+                    errs += [max_abs_diff(a, b) for a, b in zip(got, want)]
+            kargs = (stream.units, torch.zeros_like(heads), stream.total_bits,
+                     luts.dec_sym, luts.dec_len, luts.max_len, sps, True)
+            chained = (stream.units, heads.contiguous(), stream.total_bits,
+                       luts.dec_sym, luts.dec_len, luts.max_len, sps)
+            row["selfsync_intra"] = {
+                "ms": cuda_ms(lambda: S.selfsync_intra(*kargs), 20),
+                "plain_ms": cuda_ms(lambda: S.selfsync_intra_plain(*kargs),
+                                    1),
+                "chained_heads_ms": cuda_ms(
+                    lambda: S.selfsync_intra(*chained, True), 20),
+                "no_early_exit_ms": cuda_ms(
+                    lambda: S.selfsync_intra(*chained, False), 20),
+                "bound_ms": (stream.total_bits / 8 + 8 * n_seq
+                             + 12 * stream.n_subseq) / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max(errs)}
+        # Phases 1-4 of each decoder, over the quant-code bytes.
+        for key, fn in (
+                ("gap_decode_ms", lambda: codec.decode(stream, book, n)),
+                ("opt_decode_ms", lambda: opt.decode(stream, book, n,
+                                                     early_exit=True)),
+                ("ori_decode_ms", lambda: ori.decode(stream, book, n,
+                                                     early_exit=False))):
+            row[key] = cuda_ms(fn, 3)
+            row[key.replace("_ms", "_gbps")] = c.quant_code_bytes / (
+                row[key] * 1e-3) / 1e9
+        rows[name] = row
+        print(f"selfsync {json.dumps(row)}")
+    torch.cuda.synchronize()
+    return {"fields": rows, "launches": counts, "ori_launches": ori_counts}
 
 
 def make_lattice(seed: int):
@@ -867,6 +1013,7 @@ def main() -> int:
         rows.append(row)
         print(f"field {json.dumps(row)}")
 
+    selfsync = run_selfsync(results)
     batch = run_batch(args.seed, results, xs)
     encode = run_encode(args.seed, xs)
 
@@ -881,6 +1028,8 @@ def main() -> int:
     for name, row in encode["fields"].items():
         by_field[name] = {**by_field[name], **{
             k: v for k, v in row.items() if isinstance(v, dict)}}
+    by_field["isabel3d"]["selfsync_intra"] = (
+        selfsync["fields"]["isabel3d"]["selfsync_intra"])
     kernels = []
     for kname, field, counts in (
             ("count_subseq", "isabel3d", two_pass_launches),
@@ -893,7 +1042,8 @@ def main() -> int:
             ("lorenzo_quantize", "isabel3d", encode["launches"]),
             ("reconstruct1d", "hacc1d", encode["reconstruct_launches"]),
             ("histogram", "isabel3d", encode["launches"]),
-            ("pack_tiles", "isabel3d", encode["launches"])):
+            ("pack_tiles", "isabel3d", encode["launches"]),
+            ("selfsync_intra", "isabel3d", selfsync["launches"])):
         k = by_field[field][kname]
         entry = {
             "name": kname, "route": "cuda", "source": SOURCES[kname],

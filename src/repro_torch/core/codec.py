@@ -29,6 +29,7 @@ from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import compressor, lorenzo
 from repro_torch.core.sz.compressor import Compressed
 from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels.huffman_selfsync import selfsync_smem
 
 VALID_MODES = ("rel", "abs")
 VALID_STRATEGIES = hp.VALID_STRATEGIES
@@ -57,7 +58,10 @@ class CodecConfig:
                        ``stats["encode_fallbacks"]``
 
     Decoder side:
-      method           "gap" (gap-array sync)
+      method           "gap" (sync points from the stored gap array) |
+                       "selfsync" (found by self-synchronization: on
+                       "cuda" the ``selfsync_intra`` kernel and the
+                       chaining of sequence heads)
       backend          "cuda" (the CUDA kernels) | "ref" (plain torch)
       strategy         "tile" (fixed tiles, paper Alg. 1) | "tuned"
                        (per-CR-class tiles, paper Alg. 2) | "padded" (the
@@ -83,10 +87,8 @@ class CodecConfig:
       device           where compress and decompress run; ``None`` means
                        "cuda" for the "cuda" backend and "cpu" for "ref"
 
-    The reference's ``method="selfsync"`` raises ``NotImplementedError``
-    naming the ROADMAP.md item that ports it.  Its encode backends "jnp",
-    "pallas" and "pallas-compiled" are no names of the port: "cuda" stands
-    for them.
+    The reference's encode backends "jnp", "pallas" and "pallas-compiled"
+    are no names of the port: "cuda" stands for them.
     The reference's sequential oracle ``method="naive_ref"`` is no decode
     path of the port.
     """
@@ -145,6 +147,14 @@ class CodecConfig:
         if self.subseqs_per_seq < 1:
             raise ValueError("subseqs_per_seq must be >= 1, got "
                              f"{self.subseqs_per_seq}")
+        smem = selfsync_smem(self.subseqs_per_seq, 1 << self.max_len)
+        if (self.backend == "cuda" and self.method == "selfsync"
+                and smem > K.SMEM_LIMIT):
+            raise ValueError(
+                f"backend 'cuda' cannot self-sync subseqs_per_seq="
+                f"{self.subseqs_per_seq} at max_len={self.max_len}: a "
+                f"selfsync_intra block needs {smem} B of shared memory, "
+                f"Hopper allows {K.SMEM_LIMIT}")
         if not isinstance(self.fused, bool):
             raise ValueError(f"fused must be a bool, got {self.fused!r}")
         if self.plan_cache_size < 0:
@@ -279,10 +289,13 @@ class Codec:
                                            t_high=c.t_high, plans=plans,
                                            fused=c.fused)
 
-    def decode(self, stream, codebook, n_out: int, *, plan=None):
+    def decode(self, stream, codebook, n_out: int, *, plan=None,
+               early_exit: bool = True):
         """Decode a raw encoded stream to uint16 quant codes (no
-        dequantization), on the stream's device."""
+        dequantization), on the stream's device.  ``early_exit`` is the
+        self-sync ``__all_sync`` round exit of a plan built here."""
         c = self.config
         return hp.decode(stream, codebook, n_out, plan=plan, method=c.method,
                          backend=self.backend, strategy=c.strategy,
-                         tile_syms=c.tile_syms, t_high=c.t_high)
+                         tile_syms=c.tile_syms, t_high=c.t_high,
+                         early_exit=early_exit)

@@ -1,14 +1,23 @@
 """Reference Huffman decoders (plain torch): the "ref" backend's phases.
 
-Port of the gap-array half of ``src/repro/core/huffman/decode.py``:
+Port of ``src/repro/core/huffman/decode.py``, the decoders' phases:
 
-  1. count decode ("get output idx.")    -> :func:`subseq_scan`
-  2. prefix sum                          -> :func:`output_offsets`
-  3. tile-staged decode + write          -> :func:`decode_write_tiles`
-     (or the padded baseline layout      -> :func:`decode_write`)
+  self-sync (Weissenberger & Schmidt, optimized per paper §IV-A):
+    1. intra-sequence synchronization    -> :func:`selfsync_intra`
+    2. inter-sequence synchronization    -> :func:`selfsync_inter`
+    3. output-index prefix sum           -> :func:`output_offsets`
+    4. decode + write                    -> as below
 
-These work in absolute stream coordinates (:func:`bits.peek`) and are the
-oracles of the CUDA kernels in ``repro_torch.kernels``.
+  gap-array (Yamamoto et al.):
+    1. count decode ("get output idx.")  -> :func:`subseq_scan` from
+                                            :func:`gap_starts`
+    2. prefix sum                        -> :func:`output_offsets`
+    3. tile-staged decode + write        -> :func:`decode_write_tiles`
+       (or the padded baseline layout    -> :func:`decode_write`)
+
+:func:`decode_gap_array` and :func:`decode_selfsync` chain the phases of
+each.  These work in absolute stream coordinates (:func:`bits.peek`) and are
+the oracles of the CUDA kernels in ``repro_torch.kernels``.
 :func:`decode_sequential` is the ground-truth oracle for small streams on
 the CPU; no decode path of the port calls it.
 """
@@ -98,6 +107,72 @@ def subseq_scan(units, dec_sym, dec_len, start_bits, end_bits,
     return pos, count
 
 
+# ---------------------------------------------------------------------------
+# Self-synchronization phases
+# ---------------------------------------------------------------------------
+# Host loops: each round ends in one host sync on "did any start change".
+
+
+def _boundaries(n_subseq: int, device) -> torch.Tensor:
+    return torch.arange(n_subseq, dtype=torch.int32,
+                        device=device) * SUBSEQ_BITS
+
+
+def selfsync_intra(units, dec_sym, dec_len, total_bits: int, n_subseq: int,
+                   max_len: int, subseqs_per_seq: int,
+                   early_exit: bool = True):
+    """Phase 1: per-sequence sync-point discovery.
+
+    Every subsequence starts with a candidate offset 0 at its boundary; each
+    round decodes all windows and hands the landing position to the next
+    subsequence *within the same sequence* (a synchronous round: every
+    window decodes from the previous round's starts).  ``early_exit=True``
+    stops at the fixed point (the paper's `__all_sync` optimization) or
+    after ``subseqs_per_seq`` rounds; ``early_exit=False`` always runs the
+    worst-case ``subseqs_per_seq`` rounds.  Returns ``(start_bits int32,
+    rounds)`` with ``rounds`` the rounds executed.
+    """
+    boundaries = _boundaries(n_subseq, units.device)
+    ends = boundaries + SUBSEQ_BITS
+    is_head = (torch.arange(n_subseq, device=units.device)
+               % subseqs_per_seq) == 0
+    start, rounds, changed = boundaries, 0, True
+    while (changed or not early_exit) and rounds < subseqs_per_seq:
+        landing, _ = subseq_scan(units, dec_sym, dec_len, start, ends,
+                                 total_bits, max_len)
+        # landing[i] becomes the start of subsequence i+1, except across
+        # sequence boundaries (handled by selfsync_inter).
+        new_start = torch.where(is_head, start, torch.roll(landing, 1))
+        changed = bool((new_start != start).any())
+        start, rounds = new_start, rounds + 1
+    return start, rounds
+
+
+def selfsync_inter(units, dec_sym, dec_len, start_bits, total_bits: int,
+                   max_len: int, subseqs_per_seq: int, max_rounds: int = 8):
+    """Phase 2: propagate sync points across sequence boundaries.
+
+    Each round decodes every window from the current starts and hands every
+    landing position on, sequence heads included (subsequence 0 starts at
+    0), until no start changes -- at most ``max_rounds * subseqs_per_seq``
+    rounds, the reference's bound (it stops there without raising, as the
+    reference does).  Returns ``(start_bits int32, rounds)``.
+    """
+    n_subseq = start_bits.shape[0]
+    ends = _boundaries(n_subseq, start_bits.device) + SUBSEQ_BITS
+    start, rounds = start_bits.to(torch.int32), 0
+    while rounds < max_rounds * subseqs_per_seq:
+        landing, _ = subseq_scan(units, dec_sym, dec_len, start, ends,
+                                 total_bits, max_len)
+        new_start = torch.roll(landing, 1)
+        new_start[:1] = 0
+        changed = bool((new_start != start).any())
+        start, rounds = new_start, rounds + 1
+        if not changed:
+            break
+    return start, rounds
+
+
 def output_offsets(counts: torch.Tensor) -> torch.Tensor:
     """Phase 3: exclusive prefix sum of per-subsequence symbol counts."""
     out = torch.zeros(counts.shape[0] + 1, dtype=torch.int32,
@@ -174,3 +249,56 @@ def decode_write_tiles(units, dec_sym, dec_len, start_bits, end_bits, offsets,
                         device=device)
     tiles[dest[valid]] = padded[valid]
     return tiles[:n_out].to(torch.uint16)
+
+
+# ---------------------------------------------------------------------------
+# Full-pipeline reference decoders
+# ---------------------------------------------------------------------------
+
+
+def gap_starts(stream) -> torch.Tensor:
+    """Absolute sync starts from the stored gap array (int32[n_subseq])."""
+    return _boundaries(stream.n_subseq, stream.units.device) + \
+        stream.gaps.to(torch.int32)
+
+
+def _count_and_write(stream, dec_sym, dec_len, start, max_len: int,
+                     n_out: int, tile_syms: int, use_tiles: bool):
+    """Phases 1-4 from known sync starts: counts, offsets, decode-write."""
+    from repro_torch.core.huffman.pipeline import ss_max_for_tile
+
+    ends = _boundaries(start.shape[0], start.device) + SUBSEQ_BITS
+    if not use_tiles:
+        out, _ = decode_write(stream.units, dec_sym, dec_len, start,
+                              stream.total_bits, max_len, n_out)
+        return out
+    _, counts = subseq_scan(stream.units, dec_sym, dec_len, start, ends,
+                            stream.total_bits, max_len)
+    return decode_write_tiles(stream.units, dec_sym, dec_len, start, ends,
+                              output_offsets(counts), stream.total_bits,
+                              max_len, n_out, tile_syms,
+                              ss_max_for_tile(tile_syms, max_len))
+
+
+def decode_gap_array(stream, dec_sym, dec_len, max_len: int, n_out: int,
+                     tile_syms: int = 4096, use_tiles: bool = True):
+    """Gap-array decoder: counts from gap starts, prefix sum, decode+write.
+    Returns uint16[n_out]."""
+    return _count_and_write(stream, dec_sym, dec_len, gap_starts(stream),
+                            max_len, n_out, tile_syms, use_tiles)
+
+
+def decode_selfsync(stream, dec_sym, dec_len, max_len: int, n_out: int,
+                    tile_syms: int = 4096, use_tiles: bool = True,
+                    early_exit: bool = True):
+    """Self-synchronization decoder (no gap array consumed): intra- then
+    inter-sequence sync, then counts, prefix sum and decode+write.
+    Returns uint16[n_out]."""
+    sps = stream.subseqs_per_seq
+    start, _ = selfsync_intra(stream.units, dec_sym, dec_len,
+                              stream.total_bits, stream.n_subseq, max_len,
+                              sps, early_exit=early_exit)
+    start, _ = selfsync_inter(stream.units, dec_sym, dec_len, start,
+                              stream.total_bits, max_len, sps)
+    return _count_and_write(stream, dec_sym, dec_len, start, max_len, n_out,
+                            tile_syms, use_tiles)

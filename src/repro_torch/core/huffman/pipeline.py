@@ -1,11 +1,14 @@
 """Plan/execute decoder pipeline: the single entry point for decoding.
 
-Port of ``src/repro/core/huffman/pipeline.py`` for the gap-array method:
+Port of ``src/repro/core/huffman/pipeline.py``:
 
-    build_plan()    phases 1-3: gap-array sync starts, per-subsequence
-                    counts, output-offset prefix sum; the per-CR-class
-                    dispatch plan (paper Alg. 2) is built from the plan's
-                    per-sequence counts on first read (``plan.classes``).
+    build_plan()    phases 1-3: sync starts from the gap array
+                    (``method="gap"``) or by self-synchronization
+                    (``method="selfsync"``, with the ``early_exit``
+                    toggle), per-subsequence counts, output-offset prefix
+                    sum; the per-CR-class dispatch plan (paper Alg. 2) is
+                    built from the plan's per-sequence counts on first
+                    read (``plan.classes``).
     decode()        phase 4 through a named *backend*; strategies:
                     "tile"   fixed-tile staged decode-write (paper Alg. 1),
                     "tuned"  per-CR-class tile decode (paper Alg. 1 + 2),
@@ -29,7 +32,7 @@ histogram and bit-pack as CUDA kernels, their plain versions for CPU
 tensors), the port's counterpart of the reference's "jnp", "pallas" and
 "pallas-compiled" encode backends, which are no names of the port.
 
-Options whose code is not ported yet (``method="selfsync"``) raise
+Options whose code is not ported yet (``UNPORTED``, empty now) raise
 ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 """
 
@@ -68,16 +71,14 @@ DEFAULT_TILE_SYMS = 4096
 
 #: Decode-write strategies accepted by ``decode`` (and ``CodecConfig``).
 VALID_STRATEGIES = ("tuned", "tile", "padded")
-#: Sync-discovery methods of the reference (only "gap" is ported).  The
-#: reference's sequential oracle method "naive_ref" is no decode path of the
-#: port: ``decode.decode_sequential`` stays a CPU test oracle.
+#: Sync-discovery methods of the reference.  The reference's sequential
+#: oracle method "naive_ref" is no decode path of the port:
+#: ``decode.decode_sequential`` stays a CPU test oracle.
 VALID_PLAN_METHODS = ("gap", "selfsync")
 
 #: Options of the reference whose code waits for a later slice, and the
-#: ROADMAP.md item that ports each.
-UNPORTED = {
-    ("method", "selfsync"): "queue A item 3 (self-sync method)",
-}
+#: ROADMAP.md item that ports each (none left).
+UNPORTED: dict = {}
 
 
 def check_ported(option: str, value) -> None:
@@ -214,6 +215,10 @@ class DecodeBackend:
 
     ``count_fn``  (units, ds, dl, start_abs, end_abs, total_bits, max_len)
                   -> counts
+    ``sync_fn``   (units, ds, dl, total_bits, n_subseq, sps, max_len,
+                  early_exit) -> (start_abs, counts): self-sync discovery
+                  (``method="selfsync"``); a backend without it serves
+                  "gap" plans only
     ``tiles_fn``  phase-4 tile decode; signature of
                   ``decode.decode_write_tiles`` (+ optional ``lut_base``)
     ``padded_fn`` phase-4 padded baseline: (units, ds, dl, start_abs,
@@ -238,6 +243,7 @@ class DecodeBackend:
     count_fn: Callable
     tiles_fn: Callable
     padded_fn: Callable
+    sync_fn: "Callable | None" = None
     fused_tiles_fn: "Callable | None" = None
     fused_padded_fn: "Callable | None" = None
     stats: dict = dataclasses.field(
@@ -319,6 +325,19 @@ def _make_ref_backend() -> DecodeBackend:
                                    total_bits, max_len)
         return counts
 
+    def sync(units, ds, dl, total_bits, n_subseq, sps, max_len,
+             early_exit=True):
+        start, _ = hd.selfsync_intra(units, ds, dl, total_bits, n_subseq,
+                                     max_len, sps, early_exit=early_exit)
+        start, _ = hd.selfsync_inter(units, ds, dl, start, total_bits,
+                                     max_len, sps)
+        ends = (torch.arange(n_subseq, dtype=torch.int32,
+                             device=start.device) * SUBSEQ_BITS
+                + SUBSEQ_BITS)
+        _, counts = hd.subseq_scan(units, ds, dl, start, ends, total_bits,
+                                   max_len)
+        return start, counts
+
     def padded(units, ds, dl, start_abs, end_abs, total_bits, max_len,
                n_out):
         del end_abs  # the padded reference derives windows from boundaries
@@ -354,7 +373,7 @@ def _make_ref_backend() -> DecodeBackend:
         return _epilogue(codes, n_out, opos, oval, eb, radius, shape,
                          out_dtype)
 
-    return DecodeBackend(name="ref", count_fn=count,
+    return DecodeBackend(name="ref", count_fn=count, sync_fn=sync,
                          tiles_fn=hd.decode_write_tiles, padded_fn=padded,
                          fused_tiles_fn=fused_tiles,
                          fused_padded_fn=fused_padded)
@@ -370,13 +389,20 @@ def _make_cuda_backend() -> DecodeBackend:
                                       total_bits, max_len)
         return counts
 
+    def sync(units, ds, dl, total_bits, n_subseq, sps, max_len,
+             early_exit=True):
+        start, counts, _ = ops.selfsync_sync(units, ds, dl, total_bits,
+                                             n_subseq, sps, max_len,
+                                             early_exit=early_exit)
+        return start, counts
+
     def padded(units, ds, dl, start_abs, end_abs, total_bits, max_len,
                n_out):
         out, _ = ops.decode_padded_compact(units, ds, dl, start_abs, end_abs,
                                            total_bits, max_len, n_out)
         return out
 
-    return DecodeBackend(name="cuda", count_fn=count,
+    return DecodeBackend(name="cuda", count_fn=count, sync_fn=sync,
                          tiles_fn=ops.decode_write_tiles, padded_fn=padded,
                          fused_tiles_fn=ops.decode_write_tiles_fused,
                          fused_padded_fn=ops.decode_padded_fused)
@@ -582,7 +608,7 @@ class DecoderPlan:
     the "tile" or "padded" strategy decodes never builds it.
     """
 
-    method: str                 # "gap"
+    method: str                 # "gap" | "selfsync"
     start_bits: torch.Tensor    # int32[n_subseq] absolute sync starts
     end_bits: torch.Tensor      # int32[n_subseq] absolute window ends
     counts: torch.Tensor        # int32[n_subseq] codeword starts per window
@@ -613,19 +639,25 @@ def check_method(method: str):
 
 def build_plan(stream: EncodedStream, codebook, method: str = "gap",
                backend: "str | DecodeBackend" = "cuda",
-               t_high: int = T_HIGH_DEFAULT) -> DecoderPlan:
+               t_high: int = T_HIGH_DEFAULT,
+               early_exit: bool = True) -> DecoderPlan:
     """Run decode phases 1-3 on ``backend``.
 
-    Phase 1 takes the per-subsequence sync points from the stored gap array
-    and counts the codewords per 128-bit window; phase 3 prefix-sums the
-    counts into output offsets.  The per-sequence counts come to the host
-    once, for the symbol-count guard of ``sz.compressor.decompress`` and
-    the CR classes of ``t_high`` (built when first read).  The plan is
-    backend-portable and every build is counted in
-    ``backend.stats["plan_builds"]``.
+    Phases 1-2 find the per-subsequence sync points -- from the stored gap
+    array (``method="gap"``) or by self-synchronization
+    (``method="selfsync"``, the backend's ``sync_fn``, with ``early_exit``
+    the paper's ``__all_sync`` round exit) -- and count the codewords per
+    128-bit window; phase 3 prefix-sums the counts into output offsets.
+    The per-sequence counts come to the host once, for the symbol-count
+    guard of ``sz.compressor.decompress`` and the CR classes of ``t_high``
+    (built when first read).  The plan is backend-portable and every build
+    is counted in ``backend.stats["plan_builds"]``.
     """
     be = get_backend(backend)
     check_method(method)
+    if method == "selfsync" and be.sync_fn is None:
+        raise ValueError(f"backend {be.name!r} registers no sync_fn: it "
+                         f"serves method 'gap' only")
     be.bump("plan_builds")
     problems = _cb.validate_codebook(codebook)
     if problems:
@@ -640,16 +672,26 @@ def build_plan(stream: EncodedStream, codebook, method: str = "gap",
                               device=device) * SUBSEQ_BITS
     ends = boundaries + SUBSEQ_BITS
 
-    # A valid gap never exceeds SUBSEQ_BITS; clamp a corrupt gap array so
-    # sync starts stay inside the window their counts were computed for,
-    # and count the containment.
-    gaps = stream.gaps.to(torch.int32)
-    if n_subseq and int(stream.gaps.max()) > SUBSEQ_BITS:
-        be.bump("decode_guard_trips")
-        gaps = gaps.clamp(max=SUBSEQ_BITS)
-    starts = boundaries + gaps
-    counts = be.count_fn(stream.units, luts.dec_sym, luts.dec_len, starts,
-                         ends, stream.total_bits, luts.max_len)
+    if method == "gap":
+        # A valid gap never exceeds SUBSEQ_BITS; clamp a corrupt gap array
+        # so sync starts stay inside the window their counts were computed
+        # for, and count the containment.
+        gaps = stream.gaps.to(torch.int32)
+        if n_subseq and int(stream.gaps.max()) > SUBSEQ_BITS:
+            be.bump("decode_guard_trips")
+            gaps = gaps.clamp(max=SUBSEQ_BITS)
+        starts = boundaries + gaps
+        counts = be.count_fn(stream.units, luts.dec_sym, luts.dec_len,
+                             starts, ends, stream.total_bits, luts.max_len)
+    else:
+        try:
+            starts, counts = be.sync_fn(stream.units, luts.dec_sym,
+                                        luts.dec_len, stream.total_bits,
+                                        n_subseq, sps, luts.max_len,
+                                        early_exit=early_exit)
+        except DecodeGuardError:
+            be.bump("decode_guard_trips")
+            raise
     offsets = hd.output_offsets(counts)
     seq_counts = counts.reshape(-1, sps).sum(dim=1, dtype=torch.int64)
     seq_counts = seq_counts.cpu().numpy()
@@ -671,11 +713,13 @@ def decode(stream: EncodedStream, codebook, n_out: int, *,
            method: str = "gap", strategy: str = "tile",
            tile_syms: int = DEFAULT_TILE_SYMS,
            t_high: int = T_HIGH_DEFAULT,
+           early_exit: bool = True,
            transform: "OutputTransform | None" = None) -> torch.Tensor:
     """Decode one stream to ``n_out`` uint16 quant codes.
 
     ``plan`` may carry a prebuilt ``DecoderPlan`` (phases 1-3); ``None``
-    builds one with ``method`` and ``t_high``.  ``strategy``: "tile" runs
+    builds one with ``method``, ``t_high`` and (for "selfsync")
+    ``early_exit``.  ``strategy``: "tile" runs
     the fixed-tile staged decode-write (paper Alg. 1) with tiles of
     ``tile_syms`` codes; "tuned" decodes the sequences of each CR class of
     the plan with that class's tile (paper Alg. 2), one dispatch per class;
@@ -703,7 +747,7 @@ def decode(stream: EncodedStream, codebook, n_out: int, *,
             f"backend.supports_fused before attaching a transform")
     if plan is None:
         plan = build_plan(stream, codebook, method=method, backend=be,
-                          t_high=t_high)
+                          t_high=t_high, early_exit=early_exit)
     luts = _as_luts(codebook, stream.units.device)
     lut_args = (stream.units, luts.dec_sym, luts.dec_len)
     if transform is not None:
@@ -934,7 +978,8 @@ MAX_BATCH_BITS = 1 << 30
 def decode_batch(streams, codebooks, n_outs, *,
                  plans=None, backend: "str | DecodeBackend" = "cuda",
                  method: str = "gap",
-                 t_high: int = T_HIGH_DEFAULT) -> list:
+                 t_high: int = T_HIGH_DEFAULT,
+                 early_exit: bool = True) -> list:
     """Decode many tensors with one decode-write dispatch per CR class.
 
     Streams are concatenated at subsequence granularity (every stream is
@@ -962,7 +1007,8 @@ def decode_batch(streams, codebooks, n_outs, *,
         return []
     be = get_backend(backend)
     if plans is None:
-        plans = [build_plan(s, cb, method=method, backend=be, t_high=t_high)
+        plans = [build_plan(s, cb, method=method, backend=be, t_high=t_high,
+                            early_exit=early_exit)
                  for s, cb in zip(streams, codebooks)]
     plans = list(plans)
 

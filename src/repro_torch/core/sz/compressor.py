@@ -25,6 +25,7 @@ from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import lorenzo
 from repro_torch.kernels import fused_decode as fd
 from repro_torch.kernels import huffman_decode as K
+from repro_torch.kernels.lorenzo import MAX_AXES
 from repro_torch.kernels.ops import (PADDED_EPILOGUE_BLOCK, fused_squeeze,
                                     fused_tile_rows)
 
@@ -131,8 +132,9 @@ def _gather_outliers(csum, resid_flat, m_pad: int):
 def encode_unsupported_reason(x, backend) -> "str | None":
     """Why the device encode path cannot serve this tensor (None = it can).
 
-    The device quantizer is float32 (``lorenzo.quantize``); other dtypes
-    fall back to the host path, counted in ``stats["encode_fallbacks"]``.
+    The device quantizer is float32 (``lorenzo.quantize``) and takes at
+    most ``kernels.lorenzo.MAX_AXES`` non-unit axes; other tensors fall
+    back to the host path, counted in ``stats["encode_fallbacks"]``.
     """
     be = hp.get_encode_backend(backend)
     if not be.device:
@@ -140,6 +142,10 @@ def encode_unsupported_reason(x, backend) -> "str | None":
     if x.dtype != torch.float32:
         return (f"dtype {dtype_name(x.dtype)} is not float32 (the device "
                 f"quantizer is f32)")
+    axes = sum(1 for s in x.shape if s != 1)
+    if axes > MAX_AXES:
+        return (f"{axes} non-unit axes (the device quantizer takes at most "
+                f"{MAX_AXES})")
     return None
 
 
@@ -167,6 +173,9 @@ def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
     """
     ebe = hp.get_encode_backend(encode_backend)
     x = torch.as_tensor(x).to(device)
+    if x.numel() == 0:
+        raise ValueError(f"cannot compress an empty tensor of shape "
+                         f"{tuple(x.shape)}")
     if mode == "rel":
         rng = float(x.max() - x.min())
         rng = rng if rng > 0 else 1.0
@@ -332,16 +341,18 @@ def decompress(c: Compressed, method: str = "gap",
                backend: "str | hp.DecodeBackend" = "cuda",
                strategy: str = "tile", t_high: int = hp.T_HIGH_DEFAULT,
                plan=None, fused: bool = False) -> torch.Tensor:
-    """Decompress on the device ``c`` lives on; ``method`` is "gap".
+    """Decompress on the device ``c`` lives on; ``method`` is "gap" or
+    "selfsync" (``pipeline.VALID_PLAN_METHODS``).
 
     Decoding goes through ``pipeline.decode`` on ``backend`` with
     ``strategy`` ("tile", "tuned" or "padded"); ``plan`` may carry a
-    prebuilt ``DecoderPlan``.  ``fused=True`` runs phase 4, dequantization
-    and the inverse Lorenzo without a two-pass dequantize: one CUDA kernel
-    on "cuda" for "tile", and the padded decode followed by one epilogue
-    kernel for "padded"; the output is bit-exact with the two-pass path.  A
-    tensor the fused path cannot serve (:func:`fused_unsupported_reason`,
-    which includes every "tuned" decode) decodes two-pass and increments
+    prebuilt ``DecoderPlan``, else one is built with ``method``.
+    ``fused=True`` runs phase 4, dequantization and the inverse Lorenzo
+    without a two-pass dequantize: one CUDA kernel on "cuda" for "tile",
+    and the padded decode followed by one epilogue kernel for "padded"; the
+    output is bit-exact with the two-pass path.  A tensor the fused path
+    cannot serve (:func:`fused_unsupported_reason`, which includes every
+    "tuned" decode) decodes two-pass and increments
     ``backend.stats["fused_fallbacks"]``.
     """
     book = c.codebook

@@ -60,6 +60,9 @@ SIGNATURES = {
     "histogram": ("repro_histogram", [_P, _L, _I, _I, _I, _P, _P]),
     "pack_tiles": ("repro_pack_tiles",
                    [_P, _P, _L, _P, _P, _I, _L, _I, _P, _P]),
+    "selfsync_intra": ("repro_selfsync_intra",
+                       [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P,
+                        _P, _P, _P]),
 }
 
 _lock = threading.Lock()

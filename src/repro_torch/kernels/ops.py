@@ -5,7 +5,9 @@ Port of ``src/repro/kernels/ops.py``.  The decode half (``subseq_counts``,
 its helpers ``_two_eb_f32``, ``fused_squeeze`` and ``fused_tile_rows``, and
 the padded baseline ``decode_padded_compact`` / ``decode_padded_fused``),
 signature-compatible with the reference decoders in
-``core/huffman/decode.py``.  The window rules of the
+``core/huffman/decode.py``, and the self-sync discovery
+``selfsync_sync`` (the ``selfsync_intra`` kernel, then the chaining of
+sequence heads).  The window rules of the
 reference's ``_subseq_windows`` run inside the kernels here
 (``common.subseq_windows`` in the plain versions), so the per-lane metadata
 never round-trips through device memory.  The encode half
@@ -19,11 +21,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.huffman import encode as he
-from repro_torch.core.huffman.pipeline import ss_max_for_tile
+from repro_torch.core.huffman.encode import SUBSEQ_BITS
+from repro_torch.core.huffman.pipeline import (DecodeGuardError,
+                                               ss_max_for_tile)
 from repro_torch.kernels import fused_decode as _fus
 from repro_torch.kernels import histogram as _hist
 from repro_torch.kernels import huffman_decode as _dec
 from repro_torch.kernels import huffman_encode as _enc
+from repro_torch.kernels import huffman_selfsync as _sync
 from repro_torch.kernels import lorenzo as _lor
 
 
@@ -56,6 +61,53 @@ def decode_write_tiles(units, dec_sym, dec_len, start_bits, end_bits, offsets,
                              end_bits.to(torch.int32).contiguous(), offsets,
                              s0, total_bits, dec_sym, dec_len, max_len,
                              tile_syms, ss_max, n_out, lut_base)
+
+
+# ---------------------------------------------------------------------------
+# Self-sync discovery: intra-sequence kernel + inter-sequence head chaining
+# ---------------------------------------------------------------------------
+
+
+def selfsync_sync(units, dec_sym, dec_len, total_bits: int, n_subseq: int,
+                  subseqs_per_seq: int, max_len: int,
+                  early_exit: bool = True):
+    """Kernel-backed sync discovery (phases 1+2).
+
+    Each pass is one ``selfsync_intra`` launch over every sequence; the
+    landing of each sequence's last lane, minus 128, is the next head of the
+    sequence after it (sequence 0's head is 0), and passes repeat until no
+    head moves, one host sync a pass.  A correct head makes its sequence
+    exact, so pass ``p`` fixes sequence ``p`` at the latest: more than
+    ``n_seq + 1`` passes means corrupt input and raises
+    ``DecodeGuardError`` (the caller counts the trip).  Returns
+    ``(start_abs int32[n_subseq], counts int32[n_subseq], total_rounds
+    int32[n_seq, 1])``, the rounds summed over the passes.
+    """
+    sps = subseqs_per_seq
+    if n_subseq % sps:
+        raise ValueError(f"n_subseq {n_subseq} is not a whole number of "
+                         f"{sps}-subsequence sequences")
+    n_seq = n_subseq // sps
+    device = units.device
+    heads = torch.zeros((n_seq, 1), dtype=torch.int32, device=device)
+    total_rounds = torch.zeros_like(heads)
+    for _ in range(n_seq + 1):
+        start, counts, landing, rounds = _sync.selfsync_intra(
+            units, heads, total_bits, dec_sym, dec_len, max_len, sps,
+            early_exit)
+        total_rounds += rounds
+        new_heads = torch.cat([torch.zeros_like(heads[:1]),
+                               landing[:-1, -1:] - 128])
+        if torch.equal(new_heads, heads):
+            break
+        heads = new_heads
+    else:
+        raise DecodeGuardError(
+            f"self-sync heads still moving after {n_seq + 1} passes over "
+            f"{n_seq} sequences: corrupt stream")
+    boundaries = torch.arange(n_subseq, dtype=torch.int32,
+                              device=device) * SUBSEQ_BITS
+    return boundaries + start.reshape(-1), counts.reshape(-1), total_rounds
 
 
 # ---------------------------------------------------------------------------

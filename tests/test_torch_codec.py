@@ -311,11 +311,17 @@ def test_unported_options_raise(field, value, item):
             compressor.compress(torch.zeros(8), encode_backend=value,
                                 device="cpu")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        CodecConfig(**{field: value})
-    _, _, _, ct = _case(1, "f32", "abs", 1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        compressor.decompress(ct, **{field: value})
+    # Ported (queue A item 3): the self-sync method runs on both backends
+    # and decodes the two-pass bytes.
+    assert not hp.UNPORTED
+    _, _, want, ct = _case(1, "f32", "abs", 1e-3)
+    for backend in ("cuda", "ref"):
+        codec = Codec(_config(1e-3, "abs", backend=backend,
+                              **{field: value}))
+        assert as_bytes(codec.decompress(ct)) == want
+        assert as_bytes(compressor.decompress(
+            ct, tile_syms=TILE_SYMS, backend=backend,
+            **{field: value})) == want
 
 
 @pytest.mark.parametrize("kw", [dict(eb=0), dict(mode="x"), dict(method="x"),

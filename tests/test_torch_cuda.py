@@ -23,6 +23,7 @@ from repro_torch.data.pipeline import smooth_field
 from repro_torch.kernels import histogram as H
 from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import huffman_encode as E
+from repro_torch.kernels import huffman_selfsync as S
 from repro_torch.kernels import launches
 from repro_torch.kernels import lorenzo as L
 from repro_torch.kernels import ops
@@ -757,3 +758,111 @@ def test_cuda_encode_float16_falls_back(cuda):
     assert all(n == 0 for n in launches.counts().values())
     assert "float16" in compressor.encode_unsupported_reason(x, "cuda")
     _same_payload(c, Codec(CodecConfig()).compress(x))
+
+
+# ---------------------------------------------------------------------------
+# Self-sync: selfsync_intra, the head chaining, method="selfsync"
+# ---------------------------------------------------------------------------
+
+
+def _sync_stream(cuda, sps, tail):
+    """A skewed stream of sps-subsequence sequences; with ``tail`` its last
+    sequence holds under 400 payload bits (mostly zero padding)."""
+    freq = np.bincount(np.random.default_rng(sps).zipf(1.4, 30000) % 700,
+                       minlength=700)
+    book = codebook.build_codebook(freq, max_len=12)
+    rng = np.random.default_rng(sps + 1)
+    for n in range(3000, 9000, 7):
+        syms = rng.choice(700, size=n, p=freq / freq.sum())
+        stream = encode.encode(torch.from_numpy(syms).to(cuda),
+                               torch.from_numpy(book.enc_code).to(cuda),
+                               torch.from_numpy(book.enc_len).to(cuda),
+                               subseqs_per_seq=sps)
+        if not tail or 0 < stream.total_bits % (128 * sps) < 400:
+            return book, stream
+    raise AssertionError("no mostly-padding tail found")
+
+
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("sps", [4, 32, 64])
+def test_selfsync_intra_matches_plain(cuda, sps, early_exit, tail):
+    book, stream = _sync_stream(cuda, sps, tail)
+    ds = torch.from_numpy(book.dec_sym).to(cuda)
+    dl = torch.from_numpy(book.dec_len).to(cuda)
+    n_seq = stream.n_seq
+    heads = torch.from_numpy(np.random.default_rng(sps).integers(
+        0, 128, size=(n_seq, 1)).astype(np.int32)).to(cuda)
+    for h in (torch.zeros_like(heads), heads):
+        args = (stream.units, h, stream.total_bits, ds, dl, 12, sps,
+                early_exit)
+        before = S.selfsync_intra.launches
+        got = S.selfsync_intra(*args)
+        assert S.selfsync_intra.launches == before + 1
+        want = S.selfsync_intra_plain(*args)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and torch.equal(g, w)
+        assert int(got[3].max()) <= sps
+        assert early_exit or bool((got[3] == sps).all())
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("sps", [4, 32])
+def test_selfsync_sync_matches_ref(cuda, sps, early_exit):
+    """The kernel-backed sync equals the plain one and the "ref" backend's
+    phases: the same counts everywhere, the same starts below total_bits
+    (the two stop past the payload at other, unread positions)."""
+    book, stream = _sync_stream(cuda, sps, True)
+    ds = torch.from_numpy(book.dec_sym).to(cuda)
+    dl = torch.from_numpy(book.dec_len).to(cuda)
+    args = (stream.units, ds, dl, stream.total_bits, stream.n_subseq, sps,
+            12)
+    start, counts, rounds = ops.selfsync_sync(*args, early_exit=early_exit)
+    cpu = [t.cpu() for t in args[:3]] + list(args[3:])
+    pstart, pcounts, prounds = ops.selfsync_sync(*cpu, early_exit=early_exit)
+    assert torch.equal(start.cpu(), pstart)
+    assert torch.equal(counts.cpu(), pcounts)
+    assert torch.equal(rounds.cpu(), prounds)
+    rstart, rcounts = hp.get_backend("ref").sync_fn(*cpu, early_exit)
+    assert torch.equal(counts.cpu(), rcounts)
+    assert torch.equal(counts, stream.counts)
+    below = rstart < stream.total_bits
+    assert torch.equal(start.cpu()[below], rstart[below])
+
+
+def test_codec_selfsync_paths(cuda):
+    """Every decode path with method="selfsync" on the card gives the gap
+    two-pass bytes, through selfsync_intra and never count_subseq."""
+    fields = [smooth_field(s, seed=40 + i) for i, s in enumerate(
+        [(40, 64, 64), (300, 500), (200000,)])]
+    base = Codec()
+    cs = [base.compress(torch.from_numpy(f).to(cuda)) for f in fields]
+    want = [base.decompress(c) for c in cs]
+    for kw, kernels in (
+            (dict(), ("decode_tiles",)),
+            (dict(fused=True), ("decode_tiles_fused",
+                                "decode_tiles_fused_nd")),
+            (dict(strategy="padded"), ("decode_padded",)),
+            (dict(strategy="padded", fused=True),
+             ("decode_padded", "dequant_reconstruct",
+              "dequant_reconstruct_nd")),
+            (dict(strategy="tuned"), ("decode_tiles",))):
+        codec = Codec(CodecConfig(method="selfsync", **kw))
+        launches.reset()
+        for c, w in zip(cs, want):
+            assert torch.equal(codec.decompress(c), w), kw
+        counts = launches.counts()
+        assert all(counts[k] >= 1 for k in kernels), (kw, counts)
+        assert counts["selfsync_intra"] >= len(cs), (kw, counts)
+        assert counts["count_subseq"] == 0, (kw, counts)
+    codec = Codec(CodecConfig(method="selfsync"))
+    outs = codec.decompress_batch(cs)
+    for y, w in zip(outs, want):
+        assert torch.equal(y, w)
+    for early_exit in (True, False):
+        for c in cs:
+            got = Codec(CodecConfig(method="selfsync", strategy="padded")
+                        ).decode(c.stream, c.codebook, c.n_symbols,
+                                 early_exit=early_exit)
+            assert torch.equal(got, base.decode(c.stream, c.codebook,
+                                                c.n_symbols))

@@ -467,3 +467,45 @@ def test_roundtrip_within_bound(ndim, mode, backend):
     assert torch.equal(codec.decode(c.stream, c.codebook,
                                     c.n_symbols).to(torch.int32),
                        codes.reshape(-1).to(torch.int32))
+
+
+def test_nine_axes_fall_back_and_count():
+    """A tensor with more non-unit axes than the quantize kernel takes
+    (``kernels/lorenzo.py:MAX_AXES``) is compressed by the host path, as the
+    reference compresses it, and counts one encode fallback."""
+    x = _walk((2,) * 9, seed=4)
+    assert "9 non-unit axes" in compressor.encode_unsupported_reason(
+        torch.from_numpy(x), "cuda")
+    assert compressor.encode_unsupported_reason(
+        torch.from_numpy(_walk((2,) * 8 + (1,), seed=4)), "cuda") is None
+    codec = Codec(CodecConfig(encode_backend="cuda", radius=RADIUS,
+                              device="cpu"))
+    codec.reset_stats()
+    launches.reset()
+    c = codec.compress(torch.from_numpy(x))
+    assert codec.stats["encode_fallbacks"] == 1
+    assert codec.stats["encode_dispatches"] == 0
+    assert launches.counts()["lorenzo_quantize"] == 0
+    want = compressor.compress(torch.from_numpy(x), radius=RADIUS,
+                               encode_backend="ref", device="cpu")
+    assert_same_stream(c.stream, want.stream)
+    assert torch.equal(c.outlier_pos, want.outlier_pos)
+    assert torch.equal(c.outlier_val, want.outlier_val)
+    cj = jcomp.compress(jnp.asarray(x), radius=RADIUS, encode_backend="jnp")
+    assert_same_stream(cj.stream, c.stream)
+    y = codec.decompress(c)
+    assert tuple(y.shape) == x.shape
+    assert float((y.double() - torch.from_numpy(x).double()).abs().max()) \
+        <= c.eb_effective
+
+
+@pytest.mark.parametrize("mode", ["rel", "abs"])
+@pytest.mark.parametrize("backend", ["ref", "cuda"])
+def test_empty_tensor_raises_value_error(backend, mode):
+    x = np.zeros((0, 4), np.float32)
+    with pytest.raises(ValueError):
+        jcomp.compress(jnp.asarray(x), mode=mode,
+                       encode_backend="jnp" if backend == "cuda" else "ref")
+    with pytest.raises(ValueError, match=r"empty tensor of shape \(0, 4\)"):
+        compressor.compress(torch.from_numpy(x), mode=mode,
+                            encode_backend=backend, device="cpu")
