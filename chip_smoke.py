@@ -50,7 +50,16 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     tile decode-write (``decode_tiles``), with no ``count_subseq``;
   * ori self-sync, ``method="selfsync", strategy="padded"`` with
     ``Codec.decode(early_exit=False)``: every pass runs ``sps`` rounds, then
-    the padded decode (``decode_padded``).
+    the padded decode (``decode_padded``);
+  * model, for qwen3-0.6b (dense) and rwkv6-3b (rwkv) at full width with
+    random weights from ``--seed`` on the card: the prefill forward
+    (``steps.make_prefill_step``, B 4, S 1024, bf16), whose attention runs
+    the ``flash_attention`` kernel (one launch a layer) and whose time-mix
+    runs ``gla_time_mix`` (one a layer); ``launch.serve.main`` at the
+    reference's defaults (batch 4, prompt 32, 32 generated), whose rwkv
+    decode steps run ``gla_time_mix`` (one a layer a step) and whose dense
+    decode runs no kernel; and step decode against the forward in float32
+    (B 2, 256 tokens).
 
 The script
 
@@ -73,15 +82,25 @@ The script
     float32 spacing; the self-sync plans' counts equal the gap plan's and
     their starts the gap starts below total_bits, for both ``early_exit``
     values, and the self-sync codes and floats equal the two-pass output
-    bit for bit;
+    bit for bit; each model kernel equals its plain version at layer 0's
+    inputs and on the random cases of ``repro_torch.testing.kernel_cases``
+    (flash in bf16 within one bf16 ulp of the output's scale, in float32
+    within 2e-5; gla within 1e-4 of the output's scale); the prefill
+    logits are finite and of the expected shape; the float32 step-decode
+    logits are within ``DECODE_F32_TOL`` of the forward's at every
+    position, with equal argmax wherever the top-2 gap exceeds it;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
     throughputs in GB/s of quant codes (2 B per code); ``compress`` with the
     "ref" and "cuda" encode backends; the gap and self-sync plan times, the
     passes and rounds of the self-sync and the decode throughput of ori and
-    opt self-sync; the card's name and power limit; and a ``kernels`` JSON
-    line.
+    opt self-sync; the model phase's prefill ms and tokens/s, serve
+    tokens/s and peak memory a config, the model kernels' times beside
+    their plain versions' and ``scaled_dot_product_attention``'s (the
+    yardstick of ``flash_attention``, timed here and used nowhere in the
+    port); the card's name and power limit; and a ``kernels`` JSON line,
+    one row a TPU kernel of the repo (fourteen).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -102,6 +121,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: Published HBM3 bandwidth of the H100 SXM (bytes/s), for the byte bounds.
 HBM_BYTES_PER_S = 3.35e12
+#: Published dense peaks of the H100 SXM by input type (FLOP/s): bf16 on
+#: the tensor cores, float32 without them.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: The TPU kernels these CUDA kernels replace (file:line of the def).
 REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
             "decode_tiles": "src/repro/kernels/huffman_decode.py:105",
@@ -115,8 +137,11 @@ REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
             "reconstruct1d": "src/repro/kernels/lorenzo.py:89",
             "histogram": "src/repro/kernels/histogram.py:36",
             "pack_tiles": "src/repro/kernels/huffman_encode.py:74",
-            "selfsync_intra": "src/repro/kernels/huffman_selfsync.py:80"}
+            "selfsync_intra": "src/repro/kernels/huffman_selfsync.py:80",
+            "flash_attention": "src/repro/kernels/flash_attn.py:83",
+            "gla_time_mix": "src/repro/kernels/rwkv_gla.py:52"}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attn.cu"
 #: The kernels each path must launch; every other kernel must not launch.
 TWO_PASS_KERNELS = ("count_subseq", "decode_tiles")
 FUSED_KERNELS = ("count_subseq", "decode_tiles_fused",
@@ -131,6 +156,14 @@ RECONSTRUCT_KERNELS = ("reconstruct1d",)
 SELFSYNC_KERNELS = ("selfsync_intra", "decode_tiles")
 ORI_SELFSYNC_KERNELS = ("selfsync_intra", "decode_padded")
 HACC_VALUES = 280_953_867
+#: The model phase: the two configs served at full width, the prefill
+#: shape, the float32 forward-against-decode shape and its gate.
+MODEL_ARCHS = ("qwen3-0.6b", "rwkv6-3b")
+PREFILL_BATCH, PREFILL_LEN = 4, 1024
+CONSIST_BATCH, CONSIST_LEN = 2, 256
+#: Measured on an H100 80GB HBM3 at --seed 0: 6.7e-6 (qwen3-0.6b, logit
+#: scale 3.2) and 8.6e-5 (rwkv6-3b, scale 5.9), sums in another order only.
+DECODE_F32_TOL = 1e-3
 #: KV-cache pages of the batch phase, each shaped like one Qwen3-0.6B page:
 #: (K/V, KV heads, tokens, head_dim).
 N_PAGES = 256
@@ -743,6 +776,344 @@ def run_encode(seed: int, xs) -> dict:
             "reconstruct_launches": rcounts}
 
 
+def model_kernel_bound(kname: str, args, out) -> tuple:
+    """``(bound_ms, bound_by)`` of one launch at these inputs: the larger of
+    the bytes (each input read once, each output written once) at the HBM
+    rate and the operations at the card's peak for their type.  flash:
+    2 (D + Dv) FLOP for each (query, key) pair the causal mask keeps, at the
+    bf16 tensor-core peak; gla: 7 float32 FLOP a state element a step
+    (k v, u (k v) + S, r (...) summed, w S + k v), at the float32 peak."""
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if t is not None)
+    nbytes += sum(t.numel() * t.element_size() for t in out)
+    if kname == "flash_attention":
+        q, k, v = args
+        bh, sq, d = q.shape
+        skv, dv = k.shape[1], v.shape[2]
+        pairs = sum(min(i + 1, skv) for i in range(sq))
+        ops_s = 2 * bh * pairs * (d + dv) / PEAK_FLOPS[_dtype_name(q)]
+    else:
+        r, _, v = args[:3]
+        bh, s, dk = r.shape
+        ops_s = 7 * bh * s * dk * v.shape[2] / PEAK_FLOPS[_dtype_name(r)]
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s
+                                       else "operations")
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def layer0_kernel_inputs(cfg, params, tokens):
+    """The inputs layer 0 of the prefill forward gives its kernel: the
+    attention's (q, k, v) for the dense family, the recurrence's (r, k, v,
+    w, u, state) for rwkv, made by the port's own functions."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import rwkv as R
+
+    with torch.inference_mode():
+        x = params["embed"][tokens].to(cfg.cdt)
+        lp = params["layers"][0]
+        xn = L.rms_norm(x, lp["ln1"])
+        if cfg.family == "dense":
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                     device=tokens.device)
+            return A.attn_kernel_inputs(*A._project_qkv(
+                xn, lp["attn"], cfg, positions))
+        xs = R._token_shift(xn, torch.zeros_like(xn[:, 0]))
+        r, k, v, _, w = R._time_mix_proj(xn, xs, lp["tmix"], cfg)
+        return (*R.recurrence_inputs(r, k, v, w, lp["tmix"], cfg), None)
+
+
+def check_model_kernel(kname, args, stage: str) -> float:
+    """One kernel launch against its plain version on the same inputs, at
+    the tolerance stated: flash in bf16 within one bf16 ulp of the output's
+    scale (both round one float32 result once), in float32 within 2e-5;
+    gla (float32) within 1e-4 of the output's scale (sums over dk in another
+    order).  Returns the largest absolute difference."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import rwkv_gla as GLA
+    from repro_torch.testing import kernel_cases as KC
+
+    if kname == "flash_attention":
+        q, k, v, causal, scale = args
+        got = [FA.flash_attention(q, k, v, causal=causal, scale=scale)]
+        want = [FA.flash_attention_plain(q, k, v, causal=causal,
+                                         scale=scale)]
+        if q.dtype == torch.bfloat16:
+            tol = KC.bf16_ulp(float(want[0].float().abs().max()))
+        else:
+            tol = 2e-5 * max(1.0, float(want[0].abs().max()))
+    else:
+        got = list(GLA.gla_time_mix(*args))
+        want = list(GLA.gla_time_mix_plain(*args))
+        tol = 1e-4 * max(1.0, max(float(w.abs().max()) for w in want))
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    require(all(bool(torch.isfinite(a).all()) for a in got),
+            f"{stage}: {kname} output is not finite")
+    require(err <= tol, f"{stage}: {kname} differs from its plain version "
+            f"by {err} > {tol}")
+    return err
+
+
+def run_model(seed: int) -> dict:
+    """The model phase, for qwen3-0.6b and rwkv6-3b at full width with
+    weights from ``seed`` on the card: the prefill forward (its launch
+    check), the kernel against its plain version at layer 0's inputs and on
+    the random cases of ``repro_torch.testing.kernel_cases``, serve.main at
+    the reference's defaults (its launch check), and step decode against
+    the forward in float32.  Prints one ``model`` row per config and
+    returns ``{"rows": ..., "kernels": {name: entry}}``."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import rwkv_gla as GLA
+    from repro_torch.launch import serve
+    from repro_torch.models import decode as D
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import kernel_cases as KC
+
+    # Full float32 matmuls (the card's default, stated): the float32
+    # forward-against-decode gate and the plain versions rely on it.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- random-input cases, small and ragged -----------------------------
+    case_errs = {"flash_attention": 0.0, "gla_time_mix": 0.0}
+    for case in KC.FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = KC.flash_inputs(case, dtype, "cuda", seed)
+            case_errs["flash_attention"] = max(
+                case_errs["flash_attention"], check_model_kernel(
+                    "flash_attention", (q, k, v, case[-1], None),
+                    f"flash case {case[0]} {dtype}"))
+    for case in KC.GLA_CASES:
+        case_errs["gla_time_mix"] = max(
+            case_errs["gla_time_mix"], check_model_kernel(
+                "gla_time_mix", KC.gla_inputs(case, "cuda", seed),
+                f"gla case {case[0]}"))
+    print(f"model kernel random cases: {len(KC.FLASH_CASES) * 2} flash, "
+          f"{len(KC.GLA_CASES)} gla, max|kernel - plain| "
+          f"{json.dumps(case_errs)}")
+
+    rows, kernels = {}, {}
+    for arch in MODEL_ARCHS:
+        cfg = configs.get_config(arch)
+        kname = ("flash_attention" if cfg.family == "dense"
+                 else "gla_time_mix")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_model(seed, cfg, "cuda")
+        torch.cuda.synchronize()
+        row = {"arch": arch, "family": cfg.family,
+               "init_s": time.perf_counter() - t0,
+               "params": sum(t.numel() for t in _leaves(params)),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(params))}
+        gen = T.generator(seed + 1, "cuda")
+        tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
+                               generator=gen, device="cuda")
+
+        # prefill forward: counts zeroed just before, read just after
+        prefill = St.make_prefill_step(cfg)
+        logits, counts = run_path(f"{arch} prefill", (kname,),
+                                  lambda: prefill(params, tokens))
+        require(counts[kname] == cfg.n_layers,
+                f"{arch}: {counts[kname]} {kname} launches in the prefill, "
+                f"not one a layer ({cfg.n_layers})")
+        require(tuple(logits.shape) == (PREFILL_BATCH, PREFILL_LEN,
+                                        cfg.vocab)
+                and logits.dtype == torch.bfloat16
+                and bool(torch.isfinite(logits).all()),
+                f"{arch}: prefill logits {logits.dtype}"
+                f"{list(logits.shape)}")
+        del logits
+        row["prefill_launches"] = counts[kname]
+        row["prefill_ms"] = cuda_ms(lambda: prefill(params, tokens), 3)
+        row["prefill_tok_per_s"] = PREFILL_BATCH * PREFILL_LEN / (
+            row["prefill_ms"] * 1e-3)
+        row["prefill_profile"] = profile_breakdown(
+            lambda: prefill(params, tokens))
+
+        # the kernel against its plain version at layer 0's inputs
+        args = layer0_kernel_inputs(cfg, params, tokens)
+        if kname == "flash_attention":
+            q, k, v = args
+            err = check_model_kernel(kname, (q, k, v, True, 1.0),
+                                     f"{arch} layer 0")
+            out = FA.flash_attention(q, k, v, causal=True, scale=1.0)
+            b, hq, hkv = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads
+            q4, k4, v4 = (t.view(b, h, PREFILL_LEN, t.shape[-1])
+                          for t, h in ((q, hq), (k, hkv), (v, hkv)))
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=True, scale=1.0, enable_gqa=True)
+
+            lib_err = max_abs_err(library().reshape(out.shape), out)
+            entry = {
+                "ms": cuda_ms(lambda: FA.flash_attention(
+                    q, k, v, causal=True, scale=1.0), 20),
+                "plain_ms": cuda_ms(lambda: FA.flash_attention_plain(
+                    q, k, v, causal=True, scale=1.0), 3),
+                "library_ms": cuda_ms(library, 20),
+                "library_max_abs_err": lib_err}
+            outs = (out,)
+            kargs = (q, k, v)
+        else:
+            err = check_model_kernel(kname, args, f"{arch} layer 0")
+            outs = GLA.gla_time_mix(*args)
+            entry = {
+                "ms": cuda_ms(lambda: GLA.gla_time_mix(*args), 20),
+                "plain_ms": cuda_ms(lambda: GLA.gla_time_mix_plain(*args),
+                                    1),
+                "library_ms": None}
+            kargs = args
+        entry["bound_ms"], entry["bound_by"] = model_kernel_bound(
+            kname, kargs, outs)
+        entry["max_abs_err"] = max(err, case_errs[kname])
+        entry["shape"] = [list(t.shape) for t in kargs if t is not None]
+        entry["dtype"] = _dtype_name(kargs[0])
+        entry["launches"] = counts[kname]
+        del args, kargs, outs
+        if kname == "flash_attention":
+            del q, k, v, q4, k4, v4, out
+
+        # step decode against the forward, float32, B 2, 256 tokens
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        toks = torch.randint(0, cfg.vocab, (CONSIST_BATCH, CONSIST_LEN),
+                             generator=gen, device="cuda")
+        full = St.make_prefill_step(cfg32)(params, toks)
+        cache = D.init_cache(cfg32, CONSIST_BATCH, CONSIST_LEN, "cuda")
+        step = St.make_serve_step(cfg32)
+        t0 = time.perf_counter()
+        steps = []
+        for t in range(CONSIST_LEN):
+            lg, cache = step(params, toks[:, t:t + 1], cache, t)
+            steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        row["decode_f32_steps_s"] = time.perf_counter() - t0
+        # one bf16 serve step at the serve phase's shape (B 4, a 64-slot
+        # cache), as serve.main runs it
+        scache = D.init_cache(cfg, 4, 64, "cuda")
+        stok = toks[:, :1].repeat(2, 1)
+        row["serve_step_profile"] = profile_breakdown(
+            lambda: St.make_serve_step(cfg)(params, stok, scache, 40))
+        del scache
+        stepped = torch.stack(steps, 1)
+        diff = float((stepped - full).abs().max())
+        top2 = full.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > DECODE_F32_TOL
+        agree = stepped.argmax(-1) == full.argmax(-1)
+        row["decode_vs_forward_f32"] = {
+            "max_abs_diff": diff, "tol": DECODE_F32_TOL,
+            "logit_scale": float(full.abs().max()),
+            "positions": int(clear.numel()),
+            "clear_top2": int(clear.sum()),
+            "argmax_agree": int(agree.sum())}
+        require(diff <= DECODE_F32_TOL,
+                f"{arch}: step decode differs from the forward by {diff} > "
+                f"{DECODE_F32_TOL} (float32)")
+        require(bool(agree[clear].all()),
+                f"{arch}: step decode's argmax differs from the forward's "
+                f"where the top-2 gap exceeds {DECODE_F32_TOL}")
+        del full, stepped, steps, cache, lg, params
+        torch.cuda.empty_cache()
+
+        # serve.main at the reference's defaults, counts zeroed just
+        # before, read just after
+        argv = ["--arch", arch, "--batch", "4", "--prompt-len", "32",
+                "--gen-len", "32", "--seed", str(seed)]
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            served, scounts = run_path(
+                f"{arch} serve", (kname,) if cfg.family == "rwkv" else (),
+                lambda: serve.main(argv))
+        print(printed.getvalue(), end="")
+        want = (32 + 32) * cfg.n_layers if cfg.family == "rwkv" else 0
+        require(scounts[kname] == want,
+                f"{arch}: {scounts[kname]} {kname} launches in serve, not "
+                f"{want}")
+        require(served["tokens"].shape == (4, 33)
+                and ((0 <= served["tokens"])
+                     & (served["tokens"] < cfg.vocab)).all(),
+                f"{arch}: serve tokens {served['tokens'].shape}")
+        m = re.search(r"prefill \d+ toks in ([\d.]+)s; generated (\d+) "
+                      r"tokens in ([\d.]+)s \(([\d.]+) tok/s\)",
+                      printed.getvalue())
+        require(m is not None, f"{arch}: serve printed no summary")
+        row["serve"] = {"prefill_32_steps_s": float(m.group(1)),
+                        "generated": int(m.group(2)),
+                        "gen_s": float(m.group(3)),
+                        "tok_per_s": float(m.group(4)),
+                        "launches": scounts[kname]}
+        entry["serve_launches"] = scounts[kname]
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del served
+        torch.cuda.empty_cache()
+        rows[arch] = row
+        kernels[kname] = entry
+        print(f"model {json.dumps(row)}")
+        print(f"model kernel {kname} {json.dumps(entry)}")
+    return {"rows": rows, "kernels": kernels}
+
+
+def profile_breakdown(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): its wall
+    time (host clock, synchronized), the device time summed over the kernels
+    it launched, their count, the device's idle share of the wall time, and
+    the ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
+    device = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall, "device_ms": device,
+            "device_kernels": len(kernels),
+            "idle_share": max(0.0, 1 - device / wall),
+            "top": [[name[:60], ms, n] for name, (ms, n) in ranked]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1016,6 +1387,9 @@ def main() -> int:
     selfsync = run_selfsync(results)
     batch = run_batch(args.seed, results, xs)
     encode = run_encode(args.seed, xs)
+    del xs, fields, results, fused, padded, padded_fused, tuned
+    torch.cuda.empty_cache()
+    model = run_model(args.seed)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1059,6 +1433,17 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "max_abs_err")}
     kernels[1]["batch_launches"] = batch["launches"]["decode_tiles"]
     kernels[1]["batch_merged_lut"] = batch["merged_lut_kernel"]
+    for kname, k in model["kernels"].items():
+        kernels.append({
+            "name": kname, "route": "cuda", "source": SOURCES[kname],
+            "replaces": REPLACES[kname], "launches": k["launches"],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+            "serve_launches": k["serve_launches"], "shape": k["shape"],
+            "dtype": k["dtype"]})
+    require(len(kernels) == len(REPLACES) == len(_build.SIGNATURES),
+            f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -866,3 +866,151 @@ def test_codec_selfsync_paths(cuda):
                                  early_exit=early_exit)
             assert torch.equal(got, base.decode(c.stream, c.codebook,
                                                 c.n_symbols))
+
+
+# ---------------------------------------------------------------------------
+# The model kernels: flash_attention and gla_time_mix
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import flash_attn as FA  # noqa: E402
+from repro_torch.kernels import rwkv_gla as GLA  # noqa: E402
+from repro_torch.testing import kernel_cases as KC  # noqa: E402
+
+
+@pytest.fixture
+def full_f32_matmul():
+    """The plain versions' float32 products in full float32 (no TF32), the
+    card's default, stated and restored."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", KC.FLASH_CASES, ids=lambda c: c[0])
+def test_flash_attention_matches_plain(cuda, full_f32_matmul, case, dtype):
+    """float32: within 2e-5 (the sums run in another order); bfloat16: both
+    round the same float32 result once, so within one bf16 ulp of the
+    output's scale."""
+    q, k, v = KC.flash_inputs(case, dtype, cuda)
+    causal = case[-1]
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, causal=causal)
+    assert FA.flash_attention.launches == before + 1
+    ref = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    err = (out.double() - ref.double()).abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    else:
+        assert err <= KC.bf16_ulp(ref.float().abs().max().item()), err
+    again = FA.flash_attention(q, k, v, causal=causal)
+    assert torch.equal(out, again)
+
+
+def test_flash_attention_scale_and_extreme_logits(cuda, full_f32_matmul):
+    q = torch.full((1, 64, 16), 30.0, device=cuda)
+    k = torch.full((1, 64, 16), 30.0, device=cuda)
+    v = torch.ones((1, 64, 16), device=cuda)
+    out = FA.flash_attention(q, k, v, causal=True)
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, torch.ones_like(out), rtol=1e-5,
+                               atol=0)
+    q, k, v = KC.flash_inputs(KC.FLASH_CASES[5], torch.float32, cuda)
+    out = FA.flash_attention(q * 0.125, k, v, causal=True, scale=1.0)
+    ref = FA.flash_attention_plain(q, k, v, causal=True, scale=0.125)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", KC.GLA_CASES, ids=lambda c: c[0])
+def test_gla_time_mix_matches_plain(cuda, case):
+    """float32 both; the state sums run in another order: 1e-4 of the
+    output's scale."""
+    r, k, v, w, u, state = KC.gla_inputs(case, cuda)
+    before = GLA.gla_time_mix.launches
+    y, st = GLA.gla_time_mix(r, k, v, w, u, state)
+    assert GLA.gla_time_mix.launches == before + 1
+    py, pst = GLA.gla_time_mix_plain(r, k, v, w, u, state)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
+    for got, want in ((y, py), (st, pst)):
+        scale = max(1.0, want.abs().max().item())
+        err = (got - want).abs().max().item()
+        assert err <= 1e-4 * scale, (err, scale)
+    if state is not None:
+        zero = torch.zeros_like(state)
+        y0, _ = GLA.gla_time_mix(r, k, v, w, u, zero)
+        y1, _ = GLA.gla_time_mix(r, k, v, w, u, None)
+        assert torch.equal(y0, y1)
+
+
+def test_model_kernels_refuse_not_fall_back(cuda):
+    """A CUDA tensor the kernels do not take raises; nothing launches and
+    nothing falls back to a plain version."""
+    q = torch.zeros((2, 8, 32), device=cuda)
+    f0, g0 = FA.flash_attention.launches, GLA.gla_time_mix.launches
+    with pytest.raises(TypeError):
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="up to"):
+        big = torch.zeros((2, 8, 256), device=cuda)
+        FA.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError, match="BH"):
+        FA.flash_attention(q, q[:1].expand(3, 8, 32).contiguous(), q[:1]
+                           .expand(3, 8, 32).contiguous())
+    r = torch.zeros((4, 5, 64), device=cuda)
+    u = torch.zeros((2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        GLA.gla_time_mix(r.bfloat16(), r.bfloat16(), r.bfloat16(),
+                         r.bfloat16(), u.bfloat16())
+    with pytest.raises(ValueError, match="u must be"):
+        GLA.gla_time_mix(r, r, r, r, torch.zeros((3, 64), device=cuda))
+    with pytest.raises(ValueError, match="dk"):
+        wide = torch.zeros((4, 5, 200), device=cuda)
+        GLA.gla_time_mix(wide, wide, r, wide,
+                         torch.zeros((2, 200), device=cuda))
+    assert FA.flash_attention.launches == f0
+    assert GLA.gla_time_mix.launches == g0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+def test_model_forward_and_decode_on_card(cuda, full_f32_matmul, arch):
+    """A reduced model in float32 on the card against the same weights on
+    the CPU: the forward through the kernel (one launch a layer) and eight
+    decode steps, within 1e-4 of the logits' scale."""
+    from repro_torch import configs
+    from repro_torch.models import decode as D
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(arch).reduced(compute_dtype="float32")
+    params = T.init_model(0, cfg, cuda)
+    cpu = {k: ([{g: ({n: t.cpu() for n, t in d.items()}
+                     if isinstance(d, dict) else d.cpu())
+                 for g, d in lp.items()} for lp in v]
+               if k == "layers" else v.cpu()) for k, v in params.items()}
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 40)))
+    kernel = FA.flash_attention if cfg.family == "dense" else \
+        GLA.gla_time_mix
+    launches.reset()
+    got = St.make_prefill_step(cfg)(params, toks.to(cuda))
+    assert kernel.launches == cfg.n_layers
+    want = St.make_prefill_step(cfg)(cpu, toks)
+    scale = max(1.0, want.abs().max().item())
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+    cache, ccache = D.init_cache(cfg, 2, 8, cuda), D.init_cache(cfg, 2, 8,
+                                                                "cpu")
+    serve = St.make_serve_step(cfg)
+    launches.reset()
+    for t in range(8):
+        lg, cache = serve(params, toks[:, t:t + 1].to(cuda), cache, t)
+        clg, ccache = serve(cpu, toks[:, t:t + 1], ccache, t)
+        assert (lg.cpu() - clg).abs().max().item() <= 1e-4 * scale
+    assert GLA.gla_time_mix.launches == (8 * cfg.n_layers
+                                         if cfg.family == "rwkv" else 0)
+    assert FA.flash_attention.launches == 0
