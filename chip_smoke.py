@@ -99,8 +99,10 @@ The script
     tokens/s and peak memory a config, the model kernels' times beside
     their plain versions' and ``scaled_dot_product_attention``'s (the
     yardstick of ``flash_attention``, timed here and used nowhere in the
-    port); the card's name and power limit; and a ``kernels`` JSON line,
-    one row a TPU kernel of the repo (fourteen).
+    port), and ``gla_time_mix`` at serve's decode shape (BH 160, S 1, the
+    state in: back to back through the wrapper, and the kernel's device
+    time) beside its byte bound; the card's name and power limit; and a
+    ``kernels`` JSON line, one row a TPU kernel of the repo (fourteen).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -832,7 +834,9 @@ def layer0_kernel_inputs(cfg, params, tokens):
 def check_model_kernel(kname, args, stage: str) -> float:
     """One kernel launch against its plain version on the same inputs, at
     the tolerance stated: flash in bf16 within one bf16 ulp of the output's
-    scale (both round one float32 result once), in float32 within 2e-5;
+    scale (the kernel rounds p to bf16 for its tensor-core P V product, a
+    term moving by at most 2**-9 of |v|, and both round the output once),
+    in float32 within 2e-5;
     gla (float32) within 1e-4 of the output's scale (sums over dk in another
     order).  Returns the largest absolute difference."""
     import torch
@@ -899,7 +903,7 @@ def run_model(seed: int) -> dict:
             q, k, v = KC.flash_inputs(case, dtype, "cuda", seed)
             case_errs["flash_attention"] = max(
                 case_errs["flash_attention"], check_model_kernel(
-                    "flash_attention", (q, k, v, case[-1], None),
+                    "flash_attention", (q, k, v, case[7], case[8]),
                     f"flash case {case[0]} {dtype}"))
     for case in KC.GLA_CASES:
         case_errs["gla_time_mix"] = max(
@@ -984,6 +988,27 @@ def run_model(seed: int) -> dict:
                                     1),
                 "library_ms": None}
             kargs = args
+            # serve's decode step: S 1 with the state in (layer 0's first
+            # step after the prefill's state), as each of serve.main's
+            # 2,048 launches
+            dargs = (*(t[:, :1].contiguous() for t in args[:4]), args[4],
+                     outs[1])
+            err = max(err, check_model_kernel(kname, dargs,
+                                              f"{arch} decode step"))
+            dbound, _ = model_kernel_bound(kname, dargs,
+                                           GLA.gla_time_mix(*dargs))
+            n_dec = 200
+            entry.update({
+                "decode_shape": [list(t.shape) for t in dargs],
+                # back to back through the wrapper: bound by its host cost
+                "decode_ms": cuda_ms(lambda: GLA.gla_time_mix(*dargs),
+                                     n_dec),
+                # the kernel alone, from the profiler's device times
+                "decode_device_ms": profile_breakdown(lambda: [
+                    GLA.gla_time_mix(*dargs) for _ in range(n_dec)])[
+                        "device_ms"] / n_dec,
+                "decode_bound_ms": dbound})
+            del dargs
         entry["bound_ms"], entry["bound_by"] = model_kernel_bound(
             kname, kargs, outs)
         entry["max_abs_err"] = max(err, case_errs[kname])
@@ -1441,7 +1466,9 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "serve_launches": k["serve_launches"], "shape": k["shape"],
-            "dtype": k["dtype"]})
+            "dtype": k["dtype"], **{key: k[key] for key in (
+                "decode_shape", "decode_ms", "decode_device_ms",
+                "decode_bound_ms") if key in k}})
     require(len(kernels) == len(REPLACES) == len(_build.SIGNATURES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
     print(json.dumps({"kernels": kernels}))

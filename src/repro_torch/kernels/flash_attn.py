@@ -2,9 +2,12 @@
 
 Port of ``src/repro/kernels/flash_attn.py:flash_attention``, the TPU
 replacement of the blockwise attention ``models/attention.py:blockwise_attn``
-(``csrc/flash_attn.cu``: one block a query tile, the online softmax's
-``(m, l, acc)`` in registers across the kv loop, tiles above the causal
-diagonal skipped).  Beyond the Pallas kernel it takes any ``Sq`` and
+(``csrc/flash_attn.cu``: one block a 64-row query tile, the online
+softmax's ``(m, l, acc)`` in registers across the kv loop, tiles above the
+causal diagonal skipped).  The kernel chooses by dtype: bfloat16 runs on the
+tensor cores (``mma.sync`` bf16 tiles, double-buffered ``cp.async`` K and
+V, p rounded to bf16 for the P V product), float32 runs scalar float32
+FMAs.  Beyond the Pallas kernel it takes any ``Sq`` and
 ``Skv`` (the ragged last tiles are masked), a ``scale`` (default
 ``D ** -0.5``; the model passes a pre-scaled ``q`` with ``scale=1.0``, as
 the reference's model scales ``q`` in its working type) and GQA: ``q`` has
@@ -68,7 +71,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: float | None = None):
     """Plain version of :func:`flash_attention` (any device): the dense
     masked softmax in float32 from the same inputs, ``q`` scaled in float32
-    first as the kernel does, cast once to ``q``'s type."""
+    first (the float32 kernel does so; the bf16 kernel scales the scores),
+    cast once to ``q``'s type."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
     groups = q.shape[0] // k.shape[0]

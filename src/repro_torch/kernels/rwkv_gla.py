@@ -2,8 +2,10 @@
 
 Port of ``src/repro/kernels/rwkv_gla.py:gla_time_mix``, the TPU replacement
 of the per-step recurrence inside ``models/rwkv.py:time_mix``
-(``csrc/gla_time_mix.cu``: one block a ``(b, h)`` row looping over the
-sequence, the ``(dk, dv)`` state in registers).  For head row ``bh``::
+(``csrc/gla_time_mix.cu``: the ``(dk, dv)`` state of each ``(b, h)`` row
+spread over blocks of 16 columns and over the lanes of a warp, up to 8
+rows a lane, in registers; each block loops over the sequence).  For head row
+``bh``::
 
     y_t = r_t (S + diag(u) k_t^T v_t),   S <- diag(w_t) S + k_t^T v_t
 
