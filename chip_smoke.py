@@ -119,7 +119,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: Published HBM3 bandwidth of the H100 SXM (bytes/s), for the byte bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -157,6 +156,13 @@ ENCODE_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles")
 RECONSTRUCT_KERNELS = ("reconstruct1d",)
 SELFSYNC_KERNELS = ("selfsync_intra", "decode_tiles")
 ORI_SELFSYNC_KERNELS = ("selfsync_intra", "decode_padded")
+#: selfsync_intra's times beside its bound in the kernels line: the chained
+#: heads, no early exit (ori), and the decode-work yardstick (rounds run x
+#: count_subseq's time on the same stream).
+SELFSYNC_EXTRA_KEYS = ("chained_heads_ms", "no_early_exit_ms",
+                       "count_subseq_ms", "rounds_mean", "decode_work_ms",
+                       "no_early_exit_rounds_mean",
+                       "no_early_exit_decode_work_ms")
 HACC_VALUES = 280_953_867
 #: The model phase: the two configs served at full width, the prefill
 #: shape, the float32 forward-against-decode shape and its gate.
@@ -280,6 +286,29 @@ def fused_inputs(codec, c):
         c.n_symbols, tile, hp.ss_max_for_tile(tile, luts.max_len),
         c.outlier_pos, c.outlier_val, c.eb, c.radius, shape=c.shape,
         out_dtype=c.dtype)
+
+
+def selfsync_kernel_args(c):
+    """``selfsync_intra``'s arguments on payload ``c``'s stream at the
+    self-sync path's two kinds of heads, without ``early_exit``: zero (the
+    first pass) and chained (the heads of the last pass, row-local)."""
+    import torch
+
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import ops
+
+    stream = c.stream
+    luts = hp._as_luts(c.codebook, c.device)
+    sps, n_seq = stream.subseqs_per_seq, stream.n_seq
+    starts, _, _ = ops.selfsync_sync(
+        stream.units, luts.dec_sym, luts.dec_len, stream.total_bits,
+        stream.n_subseq, sps, luts.max_len, early_exit=True)
+    heads = (starts.reshape(n_seq, sps)[:, :1]
+             - torch.arange(n_seq, dtype=torch.int32,
+                            device=c.device)[:, None] * (128 * sps))
+    rest = (stream.total_bits, luts.dec_sym, luts.dec_len, luts.max_len, sps)
+    return ((stream.units, torch.zeros_like(heads), *rest),
+            (stream.units, heads.contiguous(), *rest))
 
 
 def max_abs_diff(a, b) -> int:
@@ -443,8 +472,9 @@ def run_selfsync(results) -> dict:
 
     from repro_torch.core.codec import Codec, CodecConfig
     from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import huffman_decode as K
     from repro_torch.kernels import huffman_selfsync as S
-    from repro_torch.kernels import launches, ops
+    from repro_torch.kernels import ops
 
     opt = Codec(CodecConfig(method="selfsync"))
     ori = Codec(CodecConfig(method="selfsync", strategy="padded"))
@@ -487,20 +517,18 @@ def run_selfsync(results) -> dict:
         sps = stream.subseqs_per_seq
         sync_args = (stream.units, luts.dec_sym, luts.dec_len,
                      stream.total_bits, stream.n_subseq, sps, luts.max_len)
-        row = {"field": name, "n_subseq": stream.n_subseq,
-               "n_seq": stream.n_seq}
-        starts = {}
+        n_seq = stream.n_seq
+        row = {"field": name, "n_subseq": stream.n_subseq, "n_seq": n_seq}
         for ee, key in ((True, "early_exit"), (False, "no_early_exit")):
             before = S.selfsync_intra.launches
-            starts[ee], _, rounds = ops.selfsync_sync(*sync_args,
-                                                      early_exit=ee)
+            _, _, rounds = ops.selfsync_sync(*sync_args, early_exit=ee)
             passes = S.selfsync_intra.launches - before
-            per_pass = rounds.double() / passes
+            total = int(rounds.sum())
             row[key] = {
                 "passes": passes,
-                "rounds_mean_per_seq_per_pass": float(per_pass.mean()),
-                "rounds_max_per_seq_per_pass": float(per_pass.max()),
-                "total_rounds_mean_per_seq": float(rounds.double().mean()),
+                "rounds_mean_per_seq_per_pass": total / passes / n_seq,
+                "rounds_max_per_seq_per_pass": int(rounds.max()) / passes,
+                "total_rounds_mean_per_seq": total / n_seq,
                 "total_rounds_max_per_seq": int(rounds.max()),
                 "sync_ms": cuda_ms(
                     lambda ee=ee: ops.selfsync_sync(*sync_args,
@@ -513,36 +541,38 @@ def run_selfsync(results) -> dict:
         # The kernel against its plain version at the path's inputs: the
         # first pass's heads (zero) and the chained heads (the last pass's).
         if name == "isabel3d":
-            n_seq = stream.n_seq
-            heads = (starts[True].reshape(n_seq, sps)[:, :1]
-                     - torch.arange(n_seq, dtype=torch.int32,
-                                    device=c.device)[:, None] * (128 * sps))
+            zero, chained = selfsync_kernel_args(c)
             errs = []
-            for h in (torch.zeros_like(heads), heads.contiguous()):
+            for args in (zero, chained):
                 for ee in (True, False):
-                    kargs = (stream.units, h, stream.total_bits,
-                             luts.dec_sym, luts.dec_len, luts.max_len, sps,
-                             ee)
-                    got = S.selfsync_intra(*kargs)
-                    want = S.selfsync_intra_plain(*kargs)
+                    got = S.selfsync_intra(*args, ee)
+                    want = S.selfsync_intra_plain(*args, ee)
                     require(all(same(a, b) for a, b in zip(got, want)),
                             f"{name}: selfsync_intra (early_exit={ee}) "
                             f"differs from its plain version")
                     errs += [max_abs_diff(a, b) for a, b in zip(got, want)]
-            kargs = (stream.units, torch.zeros_like(heads), stream.total_bits,
-                     luts.dec_sym, luts.dec_len, luts.max_len, sps, True)
-            chained = (stream.units, heads.contiguous(), stream.total_bits,
-                       luts.dec_sym, luts.dec_len, luts.max_len, sps)
+            # The decode-work yardstick: a round decodes every window once,
+            # through the lane loop count_subseq runs over the same windows.
+            count_args, _ = kernel_inputs(codec, c)
+            count_ms = cuda_ms(lambda: K.count_subseq(*count_args), 20)
+            opt_rounds = int(S.selfsync_intra(*zero, True)[3].sum())
+            ori_rounds = int(S.selfsync_intra(*chained, False)[3].sum())
+            opt_rounds, ori_rounds = opt_rounds / n_seq, ori_rounds / n_seq
             row["selfsync_intra"] = {
-                "ms": cuda_ms(lambda: S.selfsync_intra(*kargs), 20),
-                "plain_ms": cuda_ms(lambda: S.selfsync_intra_plain(*kargs),
-                                    1),
+                "ms": cuda_ms(lambda: S.selfsync_intra(*zero, True), 20),
+                "plain_ms": cuda_ms(
+                    lambda: S.selfsync_intra_plain(*zero, True), 1),
                 "chained_heads_ms": cuda_ms(
                     lambda: S.selfsync_intra(*chained, True), 20),
                 "no_early_exit_ms": cuda_ms(
                     lambda: S.selfsync_intra(*chained, False), 20),
                 "bound_ms": (stream.total_bits / 8 + 8 * n_seq
                              + 12 * stream.n_subseq) / HBM_BYTES_PER_S * 1e3,
+                "count_subseq_ms": count_ms,
+                "rounds_mean": opt_rounds,
+                "decode_work_ms": opt_rounds * count_ms,
+                "no_early_exit_rounds_mean": ori_rounds,
+                "no_early_exit_decode_work_ms": ori_rounds * count_ms,
                 "max_abs_err": max(errs)}
         # Phases 1-4 of each decoder, over the quant-code bytes.
         for key, fn in (
@@ -1139,10 +1169,93 @@ def _leaves(tree):
         yield tree
 
 
+def time_kernels(seed: int) -> dict:
+    """Times of the kernels that ``--ab`` compares across source trees,
+    through the wrappers of the ``repro_torch`` on the path, each checked
+    against its plain version first: ``selfsync_intra`` on isabel3d (zero
+    heads with ``early_exit``, chained heads with and without) and
+    ``decode_padded`` on the three fields, at the smoke run's inputs; and
+    on isabel3d the paths that run them: the padded ``decompress`` (cached
+    plan), the self-sync plan with and without ``early_exit``, and the ori
+    self-sync decode."""
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import huffman_decode as K
+    from repro_torch.kernels import huffman_selfsync as S
+
+    _build.build(["count_subseq", "decode_padded", "selfsync_intra"])
+    out = {}
+    for name, x in make_fields(seed).items():
+        codec = Codec(CodecConfig())
+        c = codec.compress(torch.from_numpy(x).cuda())
+        count_args, _ = kernel_inputs(codec, c)
+        require(all(same(a, b) for a, b in zip(
+            K.decode_padded(*count_args), K.decode_padded_plain(*count_args))),
+            f"{name}: decode_padded differs from its plain version")
+        out[f"decode_padded_{name}_ms"] = cuda_ms(
+            lambda: K.decode_padded(*count_args), 20)
+        if name != "isabel3d":
+            continue
+        padded = Codec(CodecConfig(strategy="padded"))
+        ori = Codec(CodecConfig(method="selfsync", strategy="padded"))
+        out.update({
+            "decompress_padded_cached_plan_ms": cuda_ms(
+                lambda: padded.decompress(c), 10),
+            "selfsync_plan_ms": cuda_ms(lambda: hp.build_plan(
+                c.stream, c.codebook, method="selfsync", backend="cuda"), 10),
+            "selfsync_plan_no_early_exit_ms": cuda_ms(lambda: hp.build_plan(
+                c.stream, c.codebook, method="selfsync", backend="cuda",
+                early_exit=False), 5),
+            "ori_decode_ms": cuda_ms(lambda: ori.decode(
+                c.stream, c.codebook, c.n_symbols, early_exit=False), 5)})
+        zero, chained = selfsync_kernel_args(c)
+        for key, args, ee in (("", zero, True),
+                              ("_chained_heads", chained, True),
+                              ("_no_early_exit", chained, False)):
+            require(all(same(a, b) for a, b in zip(
+                S.selfsync_intra(*args, ee),
+                S.selfsync_intra_plain(*args, ee))),
+                f"{name}: selfsync_intra differs from its plain version")
+            out[f"selfsync_intra{key}_ms"] = cuda_ms(
+                lambda: S.selfsync_intra(*args, ee), 20)
+    return out
+
+
+def run_ab(other: str, seed: int) -> list:
+    """``time_kernels`` of the tree at ``other`` and of this one in turns
+    (other, this, this, other), one process each: two builds of one kernel
+    library cannot run in one process."""
+    turns = []
+    for tree, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                       ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--time-kernels", root], capture_output=True, text=True)
+        require(proc.returncode == 0,
+                f"--time-kernels {root} exited {proc.returncode}:\n"
+                f"{proc.stderr[-4000:]}")
+        turns.append({"tree": tree, "root": root,
+                      **json.loads(proc.stdout.strip().splitlines()[-1])})
+        print(f"ab {json.dumps(turns[-1])}", flush=True)
+    return turns
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="ROOT",
+                    help="only time selfsync_intra and decode_padded "
+                    "against those of the checkout at ROOT, in turns "
+                    "(ROOT, this, this, ROOT)")
+    ap.add_argument("--time-kernels", metavar="ROOT",
+                    help="only time those kernels as built from ROOT's "
+                    "src (one turn of --ab)")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.join(os.path.abspath(
+        args.time_kernels or ROOT), "src"))
 
     import torch
 
@@ -1150,6 +1263,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device", file=sys.stderr)
         return 2
+    if args.time_kernels:
+        print(json.dumps(time_kernels(args.seed)))
+        return 0
+    if args.ab:
+        run_ab(os.path.abspath(args.ab), args.seed)
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True).stdout.strip())
+        return 0
 
     from repro_torch.core.codec import Codec, CodecConfig
     from repro_torch.core.sz import compressor, lorenzo
@@ -1456,6 +1578,12 @@ def main() -> int:
     quantize_1d = by_field["hacc1d"]["lorenzo_quantize"]
     kernels[7]["hacc1d"] = {key: quantize_1d[key] for key in (
         "ms", "plain_ms", "bound_ms", "max_abs_err")}
+    kernels[2]["fields_ms"] = {r["field"]: r["decode_padded"]["ms"]
+                               for r in rows}
+    kernels[2]["fields_bound_ms"] = {
+        r["field"]: r["decode_padded"]["bound_ms"] for r in rows}
+    kernels[11].update({key: by_field["isabel3d"]["selfsync_intra"][key]
+                        for key in SELFSYNC_EXTRA_KEYS})
     kernels[1]["batch_launches"] = batch["launches"]["decode_tiles"]
     kernels[1]["batch_merged_lut"] = batch["merged_lut_kernel"]
     for kname, k in model["kernels"].items():

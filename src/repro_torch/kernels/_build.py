@@ -61,8 +61,8 @@ SIGNATURES = {
     "pack_tiles": ("repro_pack_tiles",
                    [_P, _P, _L, _P, _P, _I, _L, _I, _P, _P]),
     "selfsync_intra": ("repro_selfsync_intra",
-                       [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _I, _P, _P,
-                        _P, _P, _P]),
+                       [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _P, _P, _P, _P, _P]),
     "flash_attn": ("repro_flash_attn",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                     _P]),

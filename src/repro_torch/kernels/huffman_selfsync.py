@@ -29,11 +29,41 @@ from repro_torch.kernels.huffman_decode import (_check_smem, _check_stream,
                                                 _expect, _stream_ptr)
 
 
+#: Shared memory of one H100 SM (bytes) and what each resident block
+#: reserves of it; warps an SM holds at most.
+SM_SMEM = 233472
+BLOCK_SMEM_RESERVED = 1024
+SM_WARPS = 64
+
+
+def selfsync_geometry(subseqs_per_seq: int, lut: int):
+    """Launch geometry of :func:`selfsync_intra` for ``subseqs_per_seq``
+    lanes a sequence and a ``lut``-entry LUT: ``(sequences a block, threads
+    a block, shared memory bytes a block)``.
+
+    Up to 32 lanes a sequence, one warp runs a sequence and a block holds
+    several; its only shared memory is the LUT (uint16 symbol and uint8
+    length per entry), staged once for all its sequences.  The block takes
+    as many warps as it needs for the blocks that the SM's shared memory
+    holds to fill the SM's 64 warps, at least 8 and at most 32 (8 at the
+    default 4,096-entry LUT: eight blocks an SM).  Past 32 lanes one block
+    of ``round_up(sps, 32)`` threads (at most 1,024) runs a sequence and
+    also holds two start buffers, the landings and the counts of its lanes
+    (int32 each).
+    """
+    if subseqs_per_seq <= 32:
+        smem = 3 * lut
+        fit = max(1, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
+        warps = min(max(-(-SM_WARPS // fit), 8), 32)
+        return warps, 32 * warps, smem
+    threads = min(-(-subseqs_per_seq // 32) * 32, 1024)
+    return 1, threads, 16 * subseqs_per_seq + 3 * lut
+
+
 def selfsync_smem(subseqs_per_seq: int, lut: int) -> int:
-    """Shared memory of one ``selfsync_intra`` block: two start buffers,
-    the landings and the counts of its lanes (int32 each), and the LUT
-    (uint16 symbol and uint8 length per entry)."""
-    return 16 * subseqs_per_seq + 3 * lut
+    """Shared memory of one ``selfsync_intra`` block
+    (:func:`selfsync_geometry`)."""
+    return selfsync_geometry(subseqs_per_seq, lut)[2]
 
 
 def end_local(n_seq: int, subseqs_per_seq: int, total_bits: int, device):
@@ -121,7 +151,8 @@ def selfsync_intra(units, heads, total_bits: int, dec_sym, dec_len,
                                     dec_len, max_len, subseqs_per_seq,
                                     early_exit)
     lut = dec_sym.numel()
-    _check_smem("selfsync_intra", selfsync_smem(subseqs_per_seq, lut))
+    seqs_per_block, threads, smem = selfsync_geometry(subseqs_per_seq, lut)
+    _check_smem("selfsync_intra", smem)
     start = torch.empty((n_seq, subseqs_per_seq), dtype=torch.int32,
                         device=units.device)
     counts = torch.empty_like(start)
@@ -133,8 +164,9 @@ def selfsync_intra(units, heads, total_bits: int, dec_sym, dec_len,
     rc = launch(units.data_ptr(), units.numel(), heads.data_ptr(), n_seq,
                 subseqs_per_seq, int(total_bits), dec_sym.data_ptr(),
                 dec_len.data_ptr(), lut, max_len, int(bool(early_exit)),
-                start.data_ptr(), counts.data_ptr(), landing.data_ptr(),
-                rounds.data_ptr(), _stream_ptr(units.device))
+                seqs_per_block, threads, smem, start.data_ptr(),
+                counts.data_ptr(), landing.data_ptr(), rounds.data_ptr(),
+                _stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"selfsync_intra kernel launch failed: CUDA "
                            f"error {rc}")

@@ -362,6 +362,31 @@ def test_decode_padded_edges_match_plain(cuda):
     assert torch.equal(_signed(kr), _signed(pr)) and torch.equal(kc, pc)
 
 
+def test_decode_padded_counts_and_zero_tail(cuda):
+    """Windows of 0, 127, 128 and more than 128 codes (1-bit codes), n not a
+    multiple of the 256-row block, written into recycled memory: every row
+    equals the plain version's and is zero past its count."""
+    book, _, stream = _stream(cuda, np.array([10**6, 3, 2, 1]), 30000, 12, 1)
+    n = 3 * 256 + 77
+    rng = np.random.default_rng(8)
+    start = (128 * rng.integers(0, stream.total_bits // 128 - 2, size=n)
+             + rng.integers(0, 60, size=n))
+    end = start + np.array([0, 1, 127, 128, 129, 190])[np.arange(n) % 6]
+    args = (stream.units, torch.from_numpy(start.astype(np.int32)).to(cuda),
+            torch.from_numpy(end.astype(np.int32)).to(cuda),
+            stream.total_bits, torch.from_numpy(book.dec_sym).to(cuda),
+            torch.from_numpy(book.dec_len).to(cuda), 12)
+    junk = torch.full((n, 128), -1, dtype=torch.int16, device=cuda)
+    del junk                       # the kernel's torch.empty reuses it
+    kr, kc = K.decode_padded(*args)
+    pr, pc = K.decode_padded_plain(*args)
+    assert torch.equal(_signed(kr), _signed(pr)) and torch.equal(kc, pc)
+    assert {0, 127, 128} <= set(kc.tolist()) and int(kc.max()) > 128
+    tail = (torch.arange(128, device=cuda)[None, :]
+            >= kc.clamp(max=128)[:, None])
+    assert bool((_signed(kr)[tail] == 0).all())
+
+
 def _epilogue_call(codec, c, tile):
     """The epilogue kernel, its plain version and their arguments for the
     codes of ``c``, at tiles of ``tile`` codes (whole rows for N-D)."""
@@ -785,7 +810,7 @@ def _sync_stream(cuda, sps, tail):
 
 @pytest.mark.parametrize("tail", [False, True])
 @pytest.mark.parametrize("early_exit", [True, False])
-@pytest.mark.parametrize("sps", [4, 32, 64])
+@pytest.mark.parametrize("sps", [1, 3, 4, 5, 16, 31, 32, 33, 64])
 def test_selfsync_intra_matches_plain(cuda, sps, early_exit, tail):
     book, stream = _sync_stream(cuda, sps, tail)
     ds = torch.from_numpy(book.dec_sym).to(cuda)
@@ -804,6 +829,54 @@ def test_selfsync_intra_matches_plain(cuda, sps, early_exit, tail):
             assert g.device.type == "cuda" and torch.equal(g, w)
         assert int(got[3].max()) <= sps
         assert early_exit or bool((got[3] == sps).all())
+
+
+def _random_sync_case(cuda, n_seq, sps, seed):
+    """selfsync_intra's inputs over random bits: n_seq sequences of sps
+    subsequences, a skewed 12-bit codebook, random heads in [0, 128) and a
+    payload that ends 40 bits short of the last subsequence."""
+    rng = np.random.default_rng(seed)
+    freq = np.bincount(rng.zipf(1.3, 20000) % 900, minlength=900)
+    book = codebook.build_codebook(freq, max_len=12)
+    n_units = n_seq * sps * 4 + 2
+    units = rng.integers(0, 2**32, size=n_units, dtype=np.uint64)
+    heads = rng.integers(0, 128, size=(n_seq, 1)).astype(np.int32)
+    return (torch.from_numpy(units.astype(np.uint32)).to(cuda),
+            torch.from_numpy(heads).to(cuda), n_seq * sps * 128 - 40,
+            torch.from_numpy(book.dec_sym).to(cuda),
+            torch.from_numpy(book.dec_len).to(cuda), 12, sps)
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("sps", [5, 32])
+@pytest.mark.parametrize("blocks,extra", [(0, 1), (1, 1), (37, 3)])
+def test_selfsync_intra_sequence_counts(cuda, blocks, extra, sps,
+                                        early_exit):
+    """n_seq = 1 and n_seq not a multiple of the sequences a block, zero
+    and random heads: the warp kernel equals the plain version."""
+    per_block = S.selfsync_geometry(sps, 1 << 12)[0]
+    n_seq = blocks * per_block + extra
+    units, heads, *rest = _random_sync_case(cuda, n_seq, sps, n_seq + sps)
+    for h in (torch.zeros_like(heads), heads):
+        got = S.selfsync_intra(units, h, *rest, early_exit)
+        want = S.selfsync_intra_plain(units, h, *rest, early_exit)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert early_exit or bool((got[3] == sps).all())
+
+
+def test_selfsync_intra_rounds_differ_within_a_block(cuda):
+    """The sequences of one block stop at different rounds; each keeps the
+    outputs of its own last round."""
+    sps = 32
+    per_block = S.selfsync_geometry(sps, 1 << 12)[0]
+    args = _random_sync_case(cuda, 64 * per_block, sps, 11)
+    got = S.selfsync_intra(*args, True)
+    want = S.selfsync_intra_plain(*args, True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rounds = got[3].reshape(-1, per_block)
+    assert bool((rounds.amax(1) > rounds.amin(1)).any())
 
 
 @pytest.mark.parametrize("early_exit", [True, False])

@@ -29,6 +29,7 @@ from repro_torch.core.codec import Codec, CodecConfig
 from repro_torch.core.huffman import decode as hd
 from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz import compressor
+from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import huffman_selfsync as S
 from repro_torch.kernels import launches, ops
 
@@ -186,7 +187,56 @@ def test_wrapper_checks():
         S.selfsync_intra(units, heads.to("meta"), tb, ds, dl, 8, 4)
     with pytest.raises(ValueError, match="whole number"):
         ops.selfsync_sync(units, ds, dl, tb, 7, 4, 8)
-    assert S.selfsync_smem(32, 1 << 12) == 16 * 32 + 3 * 4096
+    assert S.selfsync_smem(32, 1 << 12) == 3 * 4096
+
+
+def _largest_sps(max_len):
+    """The largest subseqs_per_seq a "cuda" codec accepts at max_len: the
+    block kernel's starts, landings and counts beside the LUT."""
+    return (K.SMEM_LIMIT - 3 * (1 << max_len)) // 16
+
+
+@pytest.mark.parametrize("max_len", [8, 12, 14, 16])
+def test_launch_geometry(max_len):
+    """Up to 32 lanes a sequence: warps of one sequence, 8 to 32 a block,
+    the LUT alone in shared memory, enough blocks an SM by shared memory to
+    fill its 64 warps.  Past 32: one block a sequence, within SMEM_LIMIT
+    up to the largest sps the codec accepts."""
+    lut = 1 << max_len
+    for sps in (1, 3, 31, 32):
+        seqs, threads, smem = S.selfsync_geometry(sps, lut)
+        assert (threads, smem) == (32 * seqs, 3 * lut)
+        assert 8 <= seqs <= 32 and smem <= K.SMEM_LIMIT
+        fit = S.SM_SMEM // (smem + S.BLOCK_SMEM_RESERVED)
+        assert fit * seqs >= S.SM_WARPS or seqs == 32
+    assert S.selfsync_geometry(32, 1 << 12) == (8, 256, 3 * 4096)
+    assert S.selfsync_geometry(32, 1 << 16) == (32, 1024, 3 * 65536)
+    assert S.selfsync_geometry(64, lut) == (1, 64, 16 * 64 + 3 * lut)
+    assert S.selfsync_geometry(33, lut) == (1, 64, 16 * 33 + 3 * lut)
+    top = _largest_sps(max_len)
+    seqs, threads, smem = S.selfsync_geometry(top, lut)
+    assert (seqs, threads) == (1, 1024) and smem <= K.SMEM_LIMIT
+    assert S.selfsync_geometry(top + 1, lut)[2] > K.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("max_len", [12, 16])
+def test_cuda_selfsync_accepts_the_same_sps(max_len):
+    """CodecConfig(method="selfsync") on "cuda" accepts the subseqs_per_seq
+    it accepted with one block a sequence at every sps (16 B a lane beside
+    the LUT), and each gets a launch geometry the kernel takes."""
+    top = _largest_sps(max_len)
+    for sps in (1, 3, 31, 32, 33, 64, 1024, top):
+        CodecConfig(method="selfsync", subseqs_per_seq=sps, max_len=max_len)
+        seqs, threads, smem = S.selfsync_geometry(sps, 1 << max_len)
+        assert threads % 32 == 0 and 32 <= threads <= 1024
+        assert smem <= K.SMEM_LIMIT
+        assert threads == 32 * seqs if sps <= 32 else seqs == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        CodecConfig(method="selfsync", subseqs_per_seq=top + 1,
+                    max_len=max_len)
+    CodecConfig(subseqs_per_seq=top + 1, max_len=max_len)      # gap
+    CodecConfig(method="selfsync", backend="ref", subseqs_per_seq=top + 1,
+                max_len=max_len)
 
 
 # ---------------------------------------------------------------------------
