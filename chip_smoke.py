@@ -346,6 +346,56 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def merged_lut_args(cs, plans):
+    """``decode_tiles``' arguments at the largest class dispatch of a
+    ``decode_batch`` of payloads ``cs`` (a recording backend replays the
+    batch, whose decode must equal the "cuda" backend's): ``(args, calls,
+    replay)``."""
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import ops
+
+    calls = []
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return ops.decode_write_tiles(*a, **kw)
+
+    cuda_be = hp.get_backend("cuda")
+    rec = hp.DecodeBackend(name="record", count_fn=cuda_be.count_fn,
+                           tiles_fn=record, padded_fn=cuda_be.padded_fn)
+    batch = ([c.stream for c in cs], [c.codebook for c in cs],
+             [c.n_symbols for c in cs])
+    replay = hp.decode_batch(*batch, plans=plans, backend=rec)
+    require(all(same(r, q) for r, q in zip(
+        replay, hp.decode_batch(*batch, plans=plans, backend="cuda"))),
+            "batch: replayed decode differs")
+    (units, ds, dl, starts, ends, offsets, total_bits, max_len, n_out, tile,
+     ss_max), kw = max(calls, key=lambda call: call[0][8])
+    s0 = ops._tile_inputs(offsets, starts.shape[0], n_out, tile)
+    return ((units, starts, ends, offsets, s0, total_bits, ds, dl, max_len,
+             tile, ss_max, n_out, kw["lut_base"]), calls, replay)
+
+
+def class_tile_args(codec, c):
+    """``decode_tiles``' arguments over all of payload ``c`` at the tile of
+    its most populous compression-ratio class (the tuned strategy's
+    buffer for most of its sequences): ``(tile, args)``."""
+    import numpy as np
+
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import ops
+
+    plan = codec.plan_for(c)
+    classes = plan.classes
+    tile = hp.tile_for_class(int(np.bincount(classes.classes).argmax()),
+                             classes.t_high)
+    _, args = kernel_inputs(codec, c)
+    s0 = ops._tile_inputs(plan.offsets, c.stream.n_subseq, c.n_symbols, tile)
+    luts = hp._as_luts(c.codebook, c.device)
+    return tile, (*args[:4], s0, *args[5:9], tile,
+                  hp.ss_max_for_tile(tile, luts.max_len), args[11])
+
+
 def run_batch(seed: int, results, xs) -> dict:
     """The batch phase: ``Codec().decompress_batch`` over the three fields
     and ``N_PAGES`` KV pages, its launch check and output checks, the
@@ -357,7 +407,6 @@ def run_batch(seed: int, results, xs) -> dict:
     from repro_torch.core.huffman import pipeline as hp
     from repro_torch.core.sz import compressor
     from repro_torch.kernels import huffman_decode as K
-    from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
     pages = [torch.from_numpy(p).cuda() for p in make_pages(seed)]
@@ -391,31 +440,11 @@ def run_batch(seed: int, results, xs) -> dict:
         require(err <= c.eb_effective, f"batch: a page's max|x - x'| {err}")
 
     # The merged-LUT tile kernel at the batch's largest class dispatch,
-    # against its plain version (a recording backend replays the batch).
-    calls = []
-
-    def record(*a, **kw):
-        calls.append((a, kw))
-        return ops.decode_write_tiles(*a, **kw)
-
-    cuda_be = hp.get_backend("cuda")
-    rec = hp.DecodeBackend(name="record", count_fn=cuda_be.count_fn,
-                           tiles_fn=record, padded_fn=cuda_be.padded_fn)
+    # against its plain version.
     plans = [codec.plan_for(c) for c in cs]
-    replay = hp.decode_batch([c.stream for c in cs], [c.codebook for c in cs],
-                             [c.n_symbols for c in cs], plans=plans,
-                             backend=rec)
-    require(all(same(r, q) for r, q in zip(
-        replay, hp.decode_batch([c.stream for c in cs],
-                                [c.codebook for c in cs],
-                                [c.n_symbols for c in cs], plans=plans,
-                                backend="cuda"))),
-            "batch: replayed decode differs")
-    (units, ds, dl, starts, ends, offsets, total_bits, max_len, n_out, tile,
-     ss_max), kw = max(calls, key=lambda call: call[0][8])
-    s0 = ops._tile_inputs(offsets, starts.shape[0], n_out, tile)
-    targs = (units, starts, ends, offsets, s0, total_bits, ds, dl, max_len,
-             tile, ss_max, n_out, kw["lut_base"])
+    targs, calls, replay = merged_lut_args(cs, plans)
+    tile, ss_max, n_out = targs[9], targs[10], targs[11]
+    ds = targs[6]
     kt = K.decode_tiles(*targs)
     pt = K.decode_tiles_plain(*targs)
     require(same(kt, pt), "batch: merged-LUT decode_tiles differs from its "
@@ -1172,12 +1201,16 @@ def _leaves(tree):
 def time_kernels(seed: int) -> dict:
     """Times of the kernels that ``--ab`` compares across source trees,
     through the wrappers of the ``repro_torch`` on the path, each checked
-    against its plain version first: ``selfsync_intra`` on isabel3d (zero
-    heads with ``early_exit``, chained heads with and without) and
-    ``decode_padded`` on the three fields, at the smoke run's inputs; and
-    on isabel3d the paths that run them: the padded ``decompress`` (cached
-    plan), the self-sync plan with and without ``early_exit``, and the ori
-    self-sync decode."""
+    against its plain version first, at the smoke run's inputs:
+    ``count_subseq`` and ``decode_padded`` on the three fields; on isabel3d
+    ``decode_tiles`` at the default tile and at its most populous tuned
+    class's tile, beside its decode-work yardstick (``count_subseq`` on the
+    same windows), and ``selfsync_intra`` (zero heads with ``early_exit``,
+    chained heads with and without); ``decode_tiles`` at the batch's
+    merged-LUT dispatch (the fields and the KV pages); and on isabel3d the
+    paths that run them: the gap decode (phases 1-4), the plan, the tile
+    two-pass and padded ``decompress`` (cached plan), the self-sync plan
+    with and without ``early_exit``, and the ori self-sync decode."""
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
@@ -1186,12 +1219,20 @@ def time_kernels(seed: int) -> dict:
     from repro_torch.kernels import huffman_decode as K
     from repro_torch.kernels import huffman_selfsync as S
 
-    _build.build(["count_subseq", "decode_padded", "selfsync_intra"])
+    _build.build(["count_subseq", "decode_tiles", "decode_padded",
+                  "selfsync_intra"])
     out = {}
+    cs = []
     for name, x in make_fields(seed).items():
         codec = Codec(CodecConfig())
         c = codec.compress(torch.from_numpy(x).cuda())
-        count_args, _ = kernel_inputs(codec, c)
+        cs.append(c)
+        count_args, tile_args = kernel_inputs(codec, c)
+        require(all(same(a, b) for a, b in zip(
+            K.count_subseq(*count_args), K.count_subseq_plain(*count_args))),
+            f"{name}: count_subseq differs from its plain version")
+        out[f"count_subseq_{name}_ms"] = cuda_ms(
+            lambda: K.count_subseq(*count_args), 20)
         require(all(same(a, b) for a, b in zip(
             K.decode_padded(*count_args), K.decode_padded_plain(*count_args))),
             f"{name}: decode_padded differs from its plain version")
@@ -1199,9 +1240,23 @@ def time_kernels(seed: int) -> dict:
             lambda: K.decode_padded(*count_args), 20)
         if name != "isabel3d":
             continue
+        tile, class_args = class_tile_args(codec, c)
+        for key, args in (("decode_tiles", tile_args),
+                          ("decode_tiles_class_tile", class_args)):
+            require(same(K.decode_tiles(*args), K.decode_tiles_plain(*args)),
+                    f"{name}: {key} differs from its plain version")
+            out[f"{key}_ms"] = cuda_ms(lambda: K.decode_tiles(*args), 20)
+        out["class_tile"] = tile
+        out["decode_work_ms"] = out["count_subseq_isabel3d_ms"]
         padded = Codec(CodecConfig(strategy="padded"))
         ori = Codec(CodecConfig(method="selfsync", strategy="padded"))
         out.update({
+            "decode_ms": cuda_ms(lambda: codec.decode(
+                c.stream, c.codebook, c.n_symbols), 10),
+            "plan_ms": cuda_ms(lambda: codec.build_plan(
+                c.stream, c.codebook), 10),
+            "decompress_cached_plan_ms": cuda_ms(
+                lambda: codec.decompress(c), 10),
             "decompress_padded_cached_plan_ms": cuda_ms(
                 lambda: padded.decompress(c), 10),
             "selfsync_plan_ms": cuda_ms(lambda: hp.build_plan(
@@ -1221,6 +1276,14 @@ def time_kernels(seed: int) -> dict:
                 f"{name}: selfsync_intra differs from its plain version")
             out[f"selfsync_intra{key}_ms"] = cuda_ms(
                 lambda: S.selfsync_intra(*args, ee), 20)
+    base = Codec()
+    cs += [base.compress(torch.from_numpy(p).cuda())
+           for p in make_pages(seed)]
+    targs, _, _ = merged_lut_args(cs, [base.plan_for(c) for c in cs])
+    require(same(K.decode_tiles(*targs), K.decode_tiles_plain(*targs)),
+            "batch: merged-LUT decode_tiles differs from its plain version")
+    out["decode_tiles_merged_lut_ms"] = cuda_ms(
+        lambda: K.decode_tiles(*targs), 20)
     return out
 
 
@@ -1247,8 +1310,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="ROOT",
-                    help="only time selfsync_intra and decode_padded "
-                    "against those of the checkout at ROOT, in turns "
+                    help="only time count_subseq, decode_tiles, "
+                    "decode_padded, selfsync_intra and the paths that run "
+                    "them against those of the checkout at ROOT, in turns "
                     "(ROOT, this, this, ROOT)")
     ap.add_argument("--time-kernels", metavar="ROOT",
                     help="only time those kernels as built from ROOT's "
@@ -1401,6 +1465,12 @@ def main() -> int:
         pt = K.decode_tiles_plain(*tile_args)
         require(same(kt, pt),
                 f"{name}: decode_tiles differs from its plain version")
+        ctile, class_args = class_tile_args(codec, c)
+        kct = K.decode_tiles(*class_args)
+        require(same(kct, K.decode_tiles_plain(*class_args))
+                and same(kct, kt),
+                f"{name}: decode_tiles at the class tile {ctile} differs from "
+                f"its plain version")
         fkernel, fplain, fargs = fused_inputs(fcodec, c)
         require(fkernel.__name__ == fname, f"{name}: {fkernel.__name__}")
         kf = fkernel(*fargs)
@@ -1468,7 +1538,10 @@ def main() -> int:
                                     1),
                 "bound_ms": (payload + 12 * n_subseq + 2 * c.n_symbols)
                 / HBM_BYTES_PER_S * 1e3,
-                "max_abs_err": max_abs_diff(kt, pt)},
+                "max_abs_err": max_abs_diff(kt, pt),
+                "class_tile": ctile,
+                "class_tile_ms": cuda_ms(
+                    lambda: K.decode_tiles(*class_args), 20)},
             fname: {
                 "ms": cuda_ms(lambda: fkernel(*fargs), 20),
                 "plain_ms": cuda_ms(lambda: fplain(*fargs), 1),
@@ -1490,6 +1563,9 @@ def main() -> int:
                 / HBM_BYTES_PER_S * 1e3,
                 "max_abs_err": max_abs_err(ke, pe)},
         }
+        # The decode-work yardstick of decode_tiles: count_subseq runs the
+        # same lane loop over the same windows and writes no codes.
+        row["decode_tiles"]["decode_work_ms"] = row["count_subseq"]["ms"]
         row["dequantize_ms"] = cuda_ms(
             lambda: compressor._dequantize(c, got), 10)
         row["plan_ms"] = cuda_ms(
@@ -1584,6 +1660,11 @@ def main() -> int:
         r["field"]: r["decode_padded"]["bound_ms"] for r in rows}
     kernels[11].update({key: by_field["isabel3d"]["selfsync_intra"][key]
                         for key in SELFSYNC_EXTRA_KEYS})
+    kernels[0]["fields_ms"] = {r["field"]: r["count_subseq"]["ms"]
+                               for r in rows}
+    kernels[1].update({key: by_field["isabel3d"]["decode_tiles"][key]
+                       for key in ("decode_work_ms", "class_tile",
+                                   "class_tile_ms")})
     kernels[1]["batch_launches"] = batch["launches"]["decode_tiles"]
     kernels[1]["batch_merged_lut"] = batch["merged_lut_kernel"]
     for kname, k in model["kernels"].items():

@@ -113,6 +113,118 @@ __device__ __forceinline__ int decode_lane(const uint32_t row[kRowUnits],
   return count;
 }
 
+// ---------------------------------------------------------------------------
+// The bit-buffer lane decoder (count_subseq, decode_tiles).
+//
+// decode_lane_buf has decode_lane's contract, with the same result for any
+// window inside the row (end <= kRowBits, as subseq_window gives).  The lane
+// keeps the bits from its position on in a 64-bit buffer, left-aligned, with
+// a count of valid bits; the row's units not yet in the buffer wait in a
+// queue of registers whose front is always q[0], so a refill reads a fixed
+// register (no per-unit select).  Units past the row enter as 0, as
+// peek_row reads them.  Invariant: pos + nbits is the first bit of q[0],
+// and the buffer's bits below its valid ones are 0.
+// ---------------------------------------------------------------------------
+
+// q[0] leaves the queue; a zero unit enters at the back.
+__device__ __forceinline__ void pop_unit(uint32_t q[kRowUnits]) {
+#pragma unroll
+  for (int i = 0; i + 1 < kRowUnits; ++i) q[i] = q[i + 1];
+  q[kRowUnits - 1] = 0u;
+}
+
+// Point the buffer at the bit `skip` (>= 0) past the front of the queue:
+// whole units leave the queue, and the next two fill the buffer.
+__device__ __forceinline__ void seek_buf(uint32_t q[kRowUnits], int skip,
+                                         uint64_t* buf, int* nbits) {
+  for (; skip >= 32; skip -= 32) pop_unit(q);
+  *buf = ((static_cast<uint64_t>(q[0]) << 32) | q[1]) << skip;
+  *nbits = 64 - skip;
+  pop_unit(q);
+  pop_unit(q);
+}
+
+// decode_lane through the bit buffer.  A peek is the buffer's top max_len
+// bits (at least 32 are valid at every peek, and max_len <= 24 <= 32); a
+// step shifts the buffer left by max(l, 1), and fewer than 32 valid bits
+// take one unit from the queue.  A step as long as the valid bits or
+// longer (a corrupt LUT length, up to 255) never shifts the buffer: it
+// re-seeks it from the queue at the new position, if that is still inside
+// the window.  The position follows decode_lane's arithmetic exactly, so
+// the count, the landing and every symbol are decode_lane's.  With kSyms
+// false the symbol table is never read (sym may be null) and emit sees 0.
+template <bool kGlobalLut = false, bool kSyms = true, typename Emit>
+__device__ __forceinline__ int decode_lane_buf(
+    const uint32_t row[kRowUnits], int start, int end, const uint16_t* sym,
+    const uint8_t* len, int lut_size, int lut_base, int max_len,
+    int* landing, Emit emit) {
+  int pos = max(min(start, end), 0);
+  int count = 0;
+  uint32_t q[kRowUnits];
+#pragma unroll
+  for (int i = 0; i < kRowUnits; ++i) q[i] = row[i];
+  uint64_t buf = 0;
+  int nbits = 0;
+  if (pos < end) seek_buf(q, pos, &buf, &nbits);
+  const int rsh = 32 - max_len;
+  while (pos < end) {
+    if (nbits < 32) {
+      buf |= static_cast<uint64_t>(q[0]) << (32 - nbits);
+      nbits += 32;
+      pop_unit(q);
+    }
+    // Codewords until the buffer runs low or the window ends.
+    do {
+      const int peek =
+          static_cast<int>(static_cast<uint32_t>(buf >> 32) >> rsh);
+      const int win = min(max(peek + lut_base, 0), lut_size - 1);
+      int s = 0, l;
+      if constexpr (kSyms) {
+        lut_entry<kGlobalLut>(sym, len, win, &s, &l);
+      } else if constexpr (kGlobalLut) {
+        l = __ldg(len + win);
+      } else {
+        l = len[win];
+      }
+      if (!emit(count, s)) {
+        *landing = pos;
+        return count;
+      }
+      ++count;
+      const int step = max(l, 1);
+      pos += step;
+      if (step < nbits) {
+        buf <<= step;
+        nbits -= step;
+      } else {
+        if (pos < end) seek_buf(q, step - nbits, &buf, &nbits);
+        break;
+      }
+    } while (nbits >= 32 && pos < end);
+  }
+  *landing = pos;
+  return count;
+}
+
+// Copy nbytes from device memory to shared memory, 16 bytes a load where
+// both pointers are 16-byte aligned, the rest byte by byte.
+__device__ __forceinline__ void stage_bytes(void* dst, const void* src,
+                                            int nbytes) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(dst) |
+                     reinterpret_cast<uintptr_t>(src)) & 15) == 0;
+  const int done = vec ? nbytes & ~15 : 0;
+  if (vec) {
+    const uint4* s = static_cast<const uint4*>(src);
+    uint4* d = static_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < done / 16; i += blockDim.x)
+      d[i] = __ldg(s + i);
+  }
+  const uint8_t* s8 = static_cast<const uint8_t*>(src);
+  uint8_t* d8 = static_cast<uint8_t*>(dst);
+  for (int i = done + threadIdx.x; i < nbytes; i += blockDim.x)
+    d8[i] = __ldg(s8 + i);
+}
+
 // Stage the decode LUT (u16 symbol + u8 length per entry) in shared memory.
 __device__ __forceinline__ void stage_lut(const uint16_t* __restrict__ dec_sym,
                                           const uint8_t* __restrict__ dec_len,

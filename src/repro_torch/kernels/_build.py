@@ -33,10 +33,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C entry point and argument types of each kernel library.
 SIGNATURES = {
     "count_subseq": ("repro_count_subseq",
-                     [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
+                     [_P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                      _P, _P]),
     "decode_tiles": ("repro_decode_tiles",
                      [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
-                      _I, _I, _L, _I, _I, _P, _P]),
+                      _I, _I, _L, _I, _I, _I, _I, _I, _P, _P]),
     "decode_padded": ("repro_decode_padded",
                       [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
     "decode_tiles_fused": ("repro_decode_tiles_fused",

@@ -14,7 +14,10 @@ Port of ``src/repro/kernels/huffman_decode.py``:
 
 Each wrapper checks its inputs, then launches its CUDA kernel for CUDA
 tensors and runs its plain version (``*_plain``, beside it) for CPU
-tensors.  Any other device raises.  Each wrapper counts its kernel launches
+tensors.  The launch geometry of ``count_subseq`` and ``decode_tiles``
+(grid, block width, shared memory) is computed here
+(:func:`count_subseq_geometry`, :func:`decode_tiles_geometry`) and handed
+to their C entry points.  Any other device raises.  Each wrapper counts its kernel launches
 in its ``launches`` attribute (``kernels/launches.py`` holds the counters of
 every kernel).  The plain versions run on any device, so a
 check on the card can hold a kernel against its plain version on the same
@@ -22,6 +25,8 @@ inputs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -32,6 +37,21 @@ from repro_torch.kernels import launches
 
 #: Shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232448
+#: What one H100 SM holds at once (compute capability 9.0): shared memory
+#: (bytes) and what each resident block reserves of it, warps, blocks and
+#: 32-bit registers.
+SM_SMEM = 233472
+BLOCK_SMEM_RESERVED = 1024
+SM_WARPS = 64
+SM_BLOCKS = 32
+SM_REGS = 65536
+#: count_subseq's block width and register bound, and decode_tiles' widest
+#: block and register bound: the kernels' __launch_bounds__
+#: (csrc/count_subseq.cu, csrc/decode_tiles.cu).
+COUNT_THREADS = 256
+COUNT_REGS = 32
+TILE_MAX_THREADS = 256
+TILE_REGS = 40
 
 
 def _expect(name, t, dtype, shape=None):
@@ -77,12 +97,16 @@ def _check_stream(units, dec_sym, dec_len, max_len, total_bits, extra):
                          f"{units.device}")
 
 
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
 def decode_tiles_smem(tile_syms: int, lut: int) -> int:
-    """Shared memory of one ``decode_tiles`` block that stages its LUT: the
-    uint16 staging tile plus the LUT (uint16 symbol and uint8 length per
-    entry).  It bounds ``count_subseq`` too, whose block holds the LUT
-    alone."""
-    return 2 * tile_syms + 3 * lut
+    """Shared memory of one ``decode_tiles`` block: the uint16 staging tile,
+    then the LUT's uint16 symbols and uint8 lengths (``lut`` 0 for the
+    variant that reads the LUT from device memory), each from a 16-byte
+    boundary."""
+    return _round16(2 * tile_syms) + _round16(2 * lut) + _round16(lut)
 
 
 def decode_tiles_lut_in_smem(tile_syms: int, lut: int) -> bool:
@@ -90,6 +114,74 @@ def decode_tiles_lut_in_smem(tile_syms: int, lut: int) -> bool:
     memory (it fits beside the tile) or launches the variant that reads it
     from device memory.  Chosen by size, before the launch."""
     return decode_tiles_smem(tile_syms, lut) <= SMEM_LIMIT
+
+
+def resident_blocks(threads: int, smem: int, regs: int) -> int:
+    """Blocks of ``threads`` threads, ``smem`` bytes of shared memory and
+    at most ``regs`` registers a thread that one H100 SM holds at once
+    (registers are granted 256 a warp at a time)."""
+    warps = -(-threads // 32)
+    warp_regs = -(-regs * 32 // 256) * 256
+    return min(SM_WARPS // warps, SM_BLOCKS, SM_REGS // (warp_regs * warps),
+               SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
+
+
+def _balanced_grid(work: int, resident: int) -> int:
+    """Blocks for ``work`` units over at most ``resident`` blocks, each
+    block taking the same number of units (a grid stride): the fewest
+    rounds, then the fewest blocks that fill them."""
+    if work <= 0:
+        return 0
+    rounds = -(-work // max(resident, 1))
+    return -(-work // rounds)
+
+
+def count_subseq_geometry(n: int, lut: int, sm_count: int):
+    """Launch geometry of :func:`count_subseq` for ``n`` windows and a
+    ``lut``-entry LUT on a card of ``sm_count`` SMs: ``(blocks, threads,
+    shared memory bytes a block)``.
+
+    A block stages the uint8 length table alone.  The grid holds at most
+    as many blocks as the SMs hold resident and never more than
+    ``ceil(n / threads)``; each thread takes the same number of windows
+    (a grid stride), so no partial wave of blocks is left at the end.
+    """
+    smem = _round16(lut)
+    resident = sm_count * resident_blocks(COUNT_THREADS, smem, COUNT_REGS)
+    return (_balanced_grid(-(-n // COUNT_THREADS), resident), COUNT_THREADS,
+            smem)
+
+
+def decode_tiles_geometry(n_tiles: int, n_subseq: int, tile_syms: int,
+                          ss_max: int, lut: int, sm_count: int):
+    """Launch geometry of :func:`decode_tiles`: ``(blocks, threads, shared
+    memory bytes a block)`` for ``n_tiles`` tiles of ``tile_syms`` codes
+    over ``n_subseq`` subsequences, a lane budget of ``ss_max`` and a
+    ``lut``-entry LUT, on a card of ``sm_count`` SMs.
+
+    A tile's lanes are the subsequences its output can come from, on
+    average ``n_subseq / n_tiles + 1`` of them.  The block is that mean
+    plus one lane of headroom, rounded up to a warp and capped at
+    ``ss_max`` and at 256 threads; a tile that spans more lanes loops.  So most
+    threads decode: 128 at the default 4,096-code tile and ~2.5 to 3 bits
+    a code, 160 at the tuned classes' tiles (~130 lanes a tile by their
+    design).  The block stages the LUT once (unless it reads it from
+    device memory, :func:`decode_tiles_lut_in_smem`) and loops over tiles,
+    at most as many blocks as the SMs hold resident, each taking the same
+    number of tiles.
+    """
+    lut_in_smem = decode_tiles_lut_in_smem(tile_syms, lut)
+    smem = decode_tiles_smem(tile_syms, lut if lut_in_smem else 0)
+    span = -(-n_subseq // max(n_tiles, 1)) + 2
+    threads = min(-(-min(span, ss_max) // 32) * 32, TILE_MAX_THREADS)
+    resident = sm_count * resident_blocks(threads, smem, TILE_REGS)
+    return _balanced_grid(n_tiles, resident), threads, smem
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_padded_smem(lut: int) -> int:
@@ -141,16 +233,18 @@ def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
         return count_subseq_plain(units, start_abs, end_abs, total_bits,
                                   dec_sym, dec_len, max_len)
     lut = dec_sym.numel()
-    _check_smem("count_subseq", 3 * lut)
     n = start_abs.shape[0]
+    blocks, threads, smem = count_subseq_geometry(
+        n, lut, sm_count(units.device.index))
+    _check_smem("count_subseq", smem)
     counts = torch.empty(n, dtype=torch.int32, device=units.device)
     landing = torch.empty_like(counts)
     if n == 0:
         return counts, landing
     launch = _build.load("count_subseq")
     rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
-                end_abs.data_ptr(), n, int(total_bits), dec_sym.data_ptr(),
-                dec_len.data_ptr(), lut, max_len, counts.data_ptr(),
+                end_abs.data_ptr(), n, int(total_bits), dec_len.data_ptr(),
+                lut, max_len, blocks, threads, smem, counts.data_ptr(),
                 landing.data_ptr(), _stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"count_subseq kernel launch failed: CUDA error "
@@ -234,8 +328,10 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
                                   tile_syms, ss_max, n_out, lut_base)
     lut = dec_sym.numel()
     lut_in_smem = decode_tiles_lut_in_smem(tile_syms, lut)
-    _check_smem("decode_tiles", decode_tiles_smem(tile_syms,
-                                                  lut if lut_in_smem else 0))
+    blocks, threads, smem = decode_tiles_geometry(
+        n_tiles, n_subseq, tile_syms, ss_max, lut,
+        sm_count(units.device.index))
+    _check_smem("decode_tiles", smem)
     out = torch.empty(n_out, dtype=torch.uint16, device=units.device)
     if n_tiles == 0:
         return out
@@ -245,8 +341,8 @@ def decode_tiles(units, start_abs, end_abs, offsets, s0, total_bits: int,
                 None if lut_base is None else lut_base.data_ptr(), n_subseq,
                 int(total_bits), dec_sym.data_ptr(), dec_len.data_ptr(), lut,
                 max_len, tile_syms, ss_max, n_out, n_tiles,
-                0 if lut_in_smem else 1, out.data_ptr(),
-                _stream_ptr(units.device))
+                0 if lut_in_smem else 1, blocks, threads, smem,
+                out.data_ptr(), _stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"decode_tiles kernel launch failed: CUDA error "
                            f"{rc}")

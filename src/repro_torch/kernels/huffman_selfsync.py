@@ -25,15 +25,10 @@ from repro_torch.core.huffman.encode import SUBSEQ_BITS
 from repro_torch.kernels import _build
 from repro_torch.kernels import common as C
 from repro_torch.kernels import launches
-from repro_torch.kernels.huffman_decode import (_check_smem, _check_stream,
+from repro_torch.kernels.huffman_decode import (BLOCK_SMEM_RESERVED,
+                                                SM_SMEM, SM_WARPS,
+                                                _check_smem, _check_stream,
                                                 _expect, _stream_ptr)
-
-
-#: Shared memory of one H100 SM (bytes) and what each resident block
-#: reserves of it; warps an SM holds at most.
-SM_SMEM = 233472
-BLOCK_SMEM_RESERVED = 1024
-SM_WARPS = 64
 
 
 def selfsync_geometry(subseqs_per_seq: int, lut: int):

@@ -119,13 +119,14 @@ def test_default_codec_round_trip(cuda):
 
 
 def test_shared_memory_bound(cuda):
-    """A LUT that cannot sit in shared memory next to the tile raises."""
+    """A LUT whose lengths alone (count_subseq stages nothing else) cannot
+    sit in shared memory raises."""
     units = torch.zeros(128, dtype=torch.uint32, device=cuda)
     s = torch.zeros(32, dtype=torch.int32, device=cuda)
-    ds = torch.zeros(1 << 17, dtype=torch.uint16, device=cuda)
-    dl = torch.zeros(1 << 17, dtype=torch.uint8, device=cuda)
+    ds = torch.zeros(1 << 18, dtype=torch.uint16, device=cuda)
+    dl = torch.zeros(1 << 18, dtype=torch.uint8, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
-        K.count_subseq(units, s, s + 128, 0, ds, dl, 17)
+        K.count_subseq(units, s, s + 128, 0, ds, dl, 18)
 
 
 def test_cpu_inputs_never_launch(cuda):
@@ -190,6 +191,142 @@ def test_corrupt_windows_match_plain(cuda):
     kc, kl = K.count_subseq(*args)
     pc, pl = K.count_subseq_plain(*args)
     assert torch.equal(kc, pc) and torch.equal(kl, pl)
+
+
+def _count_args(cuda, shape, seed, noise):
+    codec, x, c = _payload(cuda, shape, seed, noise)
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, cuda)
+    return codec, c, plan, luts
+
+
+@pytest.mark.parametrize("size", ["one", "below-a-block", "past-a-round"])
+def test_count_subseq_grid_edges(cuda, size):
+    """One window, fewer windows than a block, and more windows than the
+    resident blocks' threads hold, not a multiple of them (a grid-stride
+    round and a partial one): the kernel equals its plain version."""
+    codec, c, plan, luts = _count_args(cuda, (200000,), 11, 1e-3)
+    geom_n = K.count_subseq_geometry(1 << 30, luts.dec_sym.numel(),
+                                     K.sm_count(cuda.index or 0))
+    resident = geom_n[0] * geom_n[1]
+    n = {"one": 1, "below-a-block": 100,
+         "past-a-round": resident + 1001}[size]
+    idx = torch.arange(n, device=cuda) % c.stream.n_subseq
+    args = (c.stream.units, plan.start_bits[idx].contiguous(),
+            plan.end_bits[idx].contiguous(), c.stream.total_bits,
+            luts.dec_sym, luts.dec_len, luts.max_len)
+    blocks, threads, _ = K.count_subseq_geometry(
+        n, luts.dec_sym.numel(), K.sm_count(cuda.index or 0))
+    assert blocks <= -(-n // threads)
+    if size == "past-a-round":
+        assert blocks * threads < n and n % (blocks * threads)
+    kc, kl = K.count_subseq(*args)
+    pc, pl = K.count_subseq_plain(*args)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+
+
+def _tile_args(c, plan, luts, tile, offsets=None, start=None, end=None,
+               n_out=None, ss_max=None):
+    start = plan.start_bits if start is None else start
+    end = plan.end_bits if end is None else end
+    offsets = plan.offsets if offsets is None else offsets
+    n_out = c.n_symbols if n_out is None else n_out
+    s0 = ops._tile_inputs(offsets, start.shape[0], n_out, tile)
+    return (c.stream.units, start, end, offsets, s0, c.stream.total_bits,
+            luts.dec_sym, luts.dec_len, luts.max_len, tile,
+            hp.ss_max_for_tile(tile, luts.max_len) if ss_max is None
+            else ss_max, n_out)
+
+
+@pytest.mark.parametrize("case", ["tiles-many-times-resident",
+                                  "fewer-tiles-than-sms", "class-tile-8192"])
+def test_decode_tiles_grid_edges(cuda, case):
+    """Tiles that outnumber the resident blocks many times over (each block
+    loops over tiles), fewer tiles than SMs, and a tuned class tile of
+    8,192 codes: the kernel equals its plain version and the codes."""
+    shape, tile = {"tiles-many-times-resident": ((64, 128, 256), 64),
+                   "fewer-tiles-than-sms": ((30, 40, 50), 4096),
+                   "class-tile-8192": ((64, 128, 128), 8192)}[case]
+    codec, c, plan, luts = _count_args(cuda, shape, 12, 2e-3)
+    args = _tile_args(c, plan, luts, tile)
+    n_tiles = args[4].shape[0]
+    blocks, threads, smem = K.decode_tiles_geometry(
+        n_tiles, c.stream.n_subseq, tile, args[10], luts.dec_sym.numel(),
+        K.sm_count(cuda.index or 0))
+    if case == "tiles-many-times-resident":
+        assert n_tiles >= 10 * blocks
+    elif case == "fewer-tiles-than-sms":
+        assert n_tiles == blocks < K.sm_count(cuda.index or 0)
+    got = K.decode_tiles(*args)
+    assert torch.equal(_signed(got), _signed(K.decode_tiles_plain(*args)))
+    want = codec.decode(c.stream, c.codebook, c.n_symbols)
+    assert torch.equal(_signed(got), _signed(want))
+
+
+def test_decode_tiles_span_past_ss_max(cuda):
+    """A run of 600 empty windows (count 0) makes one tile's span of
+    subsequences longer than ss_max; the kernel drops the lanes past the
+    budget exactly as the plain version does."""
+    codec, c, plan, luts = _count_args(cuda, (100000,), 8, 1e-3)
+    start = plan.start_bits.clone()
+    end = plan.end_bits.clone()
+    end[500:1100] = start[500:1100]
+    kc, _ = K.count_subseq(c.stream.units, start, end, c.stream.total_bits,
+                           luts.dec_sym, luts.dec_len, luts.max_len)
+    args = _tile_args(c, plan, luts, 4096, offsets=hd.output_offsets(kc),
+                      start=start, end=end, n_out=int(kc.sum()))
+    s0 = args[4]
+    span = s0[1:] - s0[:-1] + 1
+    assert int(span.max()) > args[10] and int(span.argmax()) + 1 < s0.numel()
+    got = K.decode_tiles(*args)
+    assert torch.equal(_signed(got), _signed(K.decode_tiles_plain(*args)))
+
+
+@pytest.mark.parametrize("lens", ["mixed", "mostly-zero"])
+def test_corrupt_lengths_match_plain(cuda, lens):
+    """A LUT with zero lengths and lengths of 31 to 255 (past the 64-bit
+    buffer) through both kernels: counts, landings and codes equal the
+    plain versions'.  Mostly zero lengths (one bit a codeword) over
+    160-bit windows put more than 128 codewords in a window, so the slot
+    clamp is reached."""
+    codec, c, plan, luts = _count_args(cuda, (40, 50, 60), 4, 2e-3)
+    rng = np.random.default_rng(5)
+    dl = luts.dec_len.cpu().numpy().copy()
+    if lens == "mostly-zero":
+        dl[:] = 0
+    else:
+        idx = rng.integers(0, dl.size, size=dl.size // 6)
+        dl[idx[:idx.size // 2]] = 0
+        dl[idx[idx.size // 2:]] = rng.integers(65, 256, size=idx.size
+                                               - idx.size // 2)
+    dl[:7] = [0, 31, 32, 33, 63, 64, 200]
+    dl = torch.from_numpy(dl).to(cuda)
+    end = (plan.start_bits + 160 if lens == "mostly-zero"
+           else plan.end_bits)
+    cargs = (c.stream.units, plan.start_bits, end, c.stream.total_bits,
+             luts.dec_sym, dl, luts.max_len)
+    kc, kl = K.count_subseq(*cargs)
+    pc, pl = K.count_subseq_plain(*cargs)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+    assert (int(pc.max()) > 128) == (lens == "mostly-zero")
+    bad = dataclasses.replace(luts, dec_len=dl)
+    args = _tile_args(c, plan, bad, 1024, offsets=hd.output_offsets(pc),
+                      end=end, n_out=int(pc.sum()))
+    got = K.decode_tiles(*args)
+    assert torch.equal(_signed(got), _signed(K.decode_tiles_plain(*args)))
+
+
+def test_repeated_launches_identical(cuda):
+    """Two launches of each kernel on the same inputs give the same
+    bytes."""
+    codec, c, plan, luts = _count_args(cuda, (50, 60, 70), 13, 2e-3)
+    cargs = (c.stream.units, plan.start_bits, plan.end_bits,
+             c.stream.total_bits, luts.dec_sym, luts.dec_len, luts.max_len)
+    a, b = K.count_subseq(*cargs), K.count_subseq(*cargs)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    args = _tile_args(c, plan, luts, 4096)
+    assert torch.equal(_signed(K.decode_tiles(*args)),
+                       _signed(K.decode_tiles(*args)))
 
 
 # ---------------------------------------------------------------------------
