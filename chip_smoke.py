@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --ab ROOT      # kernels vs another checkout
 
 Drives the port's decode paths through ``Codec``, all on the card, at a
 real data size on three fields made from ``--seed``:
@@ -73,6 +74,10 @@ The script
     output bit for bit, with ``fused_dispatches >= 1`` and
     ``fused_fallbacks == 0`` on the fused paths; each kernel equals its
     plain PyTorch version on the card at the path's inputs, bit for bit;
+    ``count_subseq``, ``decode_padded`` and ``selfsync_intra`` on
+    isabel3d's windows through its table widened to ``2**LONG_MAX_LEN``
+    entries (their device-memory LUT variants) equal the same kernels with
+    the table in shared memory and their plain versions, bit for bit;
     every batch output equals its tensor's own ``decompress``, with at most
     ``t_high + 1`` decode-write dispatches for the whole batch; every
     "cuda"-encoded payload decodes to the codes of its quantize kernel and
@@ -102,7 +107,10 @@ The script
     port), and ``gla_time_mix`` at serve's decode shape (BH 160, S 1, the
     state in: back to back through the wrapper, and the kernel's device
     time) beside its byte bound; the card's name and power limit; and a
-    ``kernels`` JSON line, one row a TPU kernel of the repo (fourteen).
+    ``kernels`` JSON line, one row a TPU kernel of the repo (fourteen),
+    with rows 5 and 7 on both N-D fields, rows 8, 10 and 11 also on one KV
+    page, and rows 1, 3 and 12 also through their device-memory LUT.  Each
+    time is read after warm-up, once two readings in a row agree.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -172,6 +180,10 @@ CONSIST_BATCH, CONSIST_LEN = 2, 256
 #: Measured on an H100 80GB HBM3 at --seed 0: 6.7e-6 (qwen3-0.6b, logit
 #: scale 3.2) and 8.6e-5 (rwkv6-3b, scale 5.9), sums in another order only.
 DECODE_F32_TOL = 1e-3
+#: The code-length cap at which the three kernels that stage a LUT of
+#: 2**max_len entries run their device-memory variants (the reference
+#: accepts max_len 1-24 on every backend).
+LONG_MAX_LEN = 20
 #: KV-cache pages of the batch phase, each shaped like one Qwen3-0.6B page:
 #: (K/V, KV heads, tokens, head_dim).
 N_PAGES = 256
@@ -234,8 +246,17 @@ def run_path(name: str, kernels, drive):
     return out, counts
 
 
+#: ``cuda_ms`` reads until two readings in a row agree within this share,
+#: or it has taken ``TIMING_MAX_READS`` readings.
+TIMING_AGREE = 0.05
+TIMING_MAX_READS = 6
+
+
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call of ``fn`` by CUDA events, warmed up."""
+    """Mean milliseconds per call of ``fn`` by CUDA events, warmed up until
+    two readings in a row (of ``iters`` calls each) agree within
+    ``TIMING_AGREE``, or ``TIMING_MAX_READS`` readings: the last reading.
+    Kernel times can read 1.6-2.2x slow at the start of a run."""
     import torch
 
     for _ in range(warmup):
@@ -243,12 +264,19 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    prev = None
+    for _ in range(TIMING_MAX_READS):
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / iters
+        if prev is not None and abs(ms - prev) <= TIMING_AGREE * min(
+                ms, prev):
+            break
+        prev = ms
+    return ms
 
 
 def kernel_inputs(codec, c):
@@ -394,6 +422,77 @@ def class_tile_args(codec, c):
     luts = hp._as_luts(c.codebook, c.device)
     return tile, (*args[:4], s0, *args[5:9], tile,
                   hp.ss_max_for_tile(tile, luts.max_len), args[11])
+
+
+def widened_lut(luts, max_len: int):
+    """Payload ``luts``' decode table re-indexed by ``max_len`` bits: entry
+    i is the entry of its first ``luts.max_len`` bits, so a decode at
+    ``max_len`` reads the same codewords, lands at the same positions and
+    writes the same codes as at ``luts.max_len``, from a ``2**max_len``-entry
+    table (past shared memory from max_len 17 or 18)."""
+    import torch
+
+    reps = 1 << (max_len - luts.max_len)
+    sym = luts.dec_sym.view(torch.int16).repeat_interleave(reps)
+    return (sym.view(torch.uint16).contiguous(),
+            luts.dec_len.repeat_interleave(reps).contiguous())
+
+
+def long_code_kernels(codec, c, max_len: int = LONG_MAX_LEN,
+                      refusal_ok: bool = False) -> dict:
+    """``count_subseq``, ``decode_padded`` and ``selfsync_intra`` (zero
+    heads, ``early_exit``) on payload ``c``'s windows (``codec``'s gap
+    plan), at the codebook's max_len (the LUT staged in shared memory) and
+    through the same table widened to ``max_len`` bits (:func:`widened_lut`:
+    the device-memory variants).  Each variant is held against the other
+    and against the plain version at ``max_len``, bit for bit; returns
+    their times (ms).  A kernel that refuses the wide table fails the run,
+    unless ``refusal_ok`` (timing another tree, one that may predate the
+    variants): its time is then None."""
+    import torch
+
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import huffman_decode as K
+    from repro_torch.kernels import huffman_selfsync as S
+
+    luts = hp._as_luts(c.codebook, c.device)
+    plan = codec.plan_for(c)
+    ds, dl = widened_lut(luts, max_len)
+    stream = c.stream
+    narrow = (stream.units, plan.start_bits, plan.end_bits,
+              stream.total_bits, luts.dec_sym, luts.dec_len, luts.max_len)
+    wide = narrow[:4] + (ds, dl, max_len)
+    heads = torch.zeros((stream.n_seq, 1), dtype=torch.int32, device=c.device)
+    sps = stream.subseqs_per_seq
+    s_narrow = (stream.units, heads, stream.total_bits, luts.dec_sym,
+                luts.dec_len, luts.max_len, sps, True)
+    s_wide = (stream.units, heads, stream.total_bits, ds, dl, max_len, sps,
+              True)
+    out = {"max_len": max_len, "lut_entries": 1 << max_len}
+    for key, kernel, plain, a, b in (
+            ("count_subseq", K.count_subseq, K.count_subseq_plain, narrow,
+             wide),
+            ("decode_padded", K.decode_padded, K.decode_padded_plain, narrow,
+             wide),
+            ("selfsync_intra", S.selfsync_intra, S.selfsync_intra_plain,
+             s_narrow, s_wide)):
+        out[f"{key}_smem_ms"] = cuda_ms(lambda: kernel(*a), 20)
+        try:
+            got = kernel(*b)
+        except ValueError as e:
+            require(refusal_ok, f"{key} refused a {1 << max_len}-entry LUT: "
+                    f"{e}")
+            out[f"{key}_global_ms"] = None
+            continue
+        want = kernel(*a)
+        require(all(same(x, y) for x, y in zip(got, want)),
+                f"{key} at a {1 << max_len}-entry LUT differs from the same "
+                f"table at max_len {luts.max_len}")
+        require(all(same(x, y) for x, y in zip(got, plain(*b))),
+                f"{key} at a {1 << max_len}-entry LUT differs from its "
+                f"plain version")
+        out[f"{key}_global_ms"] = cuda_ms(lambda: kernel(*b), 20)
+    return out
 
 
 def run_batch(seed: int, results, xs) -> dict:
@@ -703,7 +802,7 @@ def run_encode(seed: int, xs) -> dict:
         require(err <= c.eb_effective,
                 f"encode: {name} max|x - x'| = {err} > eb_effective "
                 f"{c.eb_effective}")
-        if name in xs:
+        if name in xs or name == "page0":
             quant[name] = (codes, outlier, resid, err)
     torch.cuda.synchronize()
 
@@ -723,7 +822,7 @@ def run_encode(seed: int, xs) -> dict:
     # Each kernel against its plain version, at the inputs of the path.
     rows = {}
     for (name, x), c in zip(tensors, cs):
-        if name not in xs:
+        if name not in quant:       # the fields and one KV page
             continue
         codes, outlier, resid, err = quant[name]
         two_eb = ops._two_eb_f32(c.eb)
@@ -1198,19 +1297,28 @@ def _leaves(tree):
         yield tree
 
 
-def time_kernels(seed: int) -> dict:
+def time_kernels(seed: int, other: bool = False) -> dict:
     """Times of the kernels that ``--ab`` compares across source trees,
     through the wrappers of the ``repro_torch`` on the path, each checked
     against its plain version first, at the smoke run's inputs:
     ``count_subseq`` and ``decode_padded`` on the three fields; on isabel3d
-    ``decode_tiles`` at the default tile and at its most populous tuned
-    class's tile, beside its decode-work yardstick (``count_subseq`` on the
-    same windows), and ``selfsync_intra`` (zero heads with ``early_exit``,
-    chained heads with and without); ``decode_tiles`` at the batch's
-    merged-LUT dispatch (the fields and the KV pages); and on isabel3d the
-    paths that run them: the gap decode (phases 1-4), the plan, the tile
-    two-pass and padded ``decompress`` (cached plan), the self-sync plan
-    with and without ``early_exit``, and the ori self-sync decode."""
+    and cesm2d the N-D fused kernel and the N-D epilogue
+    (``decode_tiles_fused_nd``, ``dequant_reconstruct_nd``) and the fused
+    and padded fused ``decompress`` (cached plan) that run them; on
+    isabel3d ``decode_tiles`` at the default tile and at its most populous
+    tuned class's tile, beside its decode-work yardstick (``count_subseq``
+    on the same windows), and ``selfsync_intra`` (zero heads with
+    ``early_exit``, chained heads with and without); ``count_subseq``,
+    ``decode_padded`` and ``selfsync_intra`` through the same table widened
+    to a ``2**LONG_MAX_LEN``-entry LUT (the device-memory variants; None
+    for an ``other`` tree that refuses the table) beside their
+    shared-memory times on the same windows; ``decode_tiles`` at the
+    batch's merged-LUT dispatch (the fields and the KV pages), and the
+    batch phase's ``decompress_batch`` and one ``decompress`` a tensor over
+    the same tensors (cached plans); and on isabel3d the paths that run
+    them: the gap decode (phases 1-4), the plan, the tile two-pass and
+    padded ``decompress`` (cached plan), the self-sync plan with and
+    without ``early_exit``, and the ori self-sync decode."""
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
@@ -1218,15 +1326,50 @@ def time_kernels(seed: int) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels import huffman_decode as K
     from repro_torch.kernels import huffman_selfsync as S
+    from repro_torch.kernels import ops
 
     _build.build(["count_subseq", "decode_tiles", "decode_padded",
-                  "selfsync_intra"])
+                  "selfsync_intra", "decode_tiles_fused_nd",
+                  "dequant_reconstruct_nd"])
     out = {}
-    cs = []
+    fields = {}
     for name, x in make_fields(seed).items():
         codec = Codec(CodecConfig())
-        c = codec.compress(torch.from_numpy(x).cuda())
-        cs.append(c)
+        fields[name] = (codec, codec.compress(torch.from_numpy(x).cuda()))
+    base = Codec()
+    cs = [c for _, c in fields.values()]
+    cs += [base.compress(torch.from_numpy(p).cuda()) for p in make_pages(seed)]
+    plans = [base.plan_for(c) for c in cs]
+    # The batch phase's two ways over the same tensors (cached plans) come
+    # first: they are host-bound, and the kernels timed below would leave
+    # each tree's process in a different state (allocations, caches).
+    out["batch_decompress_batch_cached_plan_ms"] = cuda_ms(
+        lambda: base.decompress_batch(cs), 5)
+    out["batch_decompress_each_cached_plan_ms"] = cuda_ms(
+        lambda: [base.decompress(c) for c in cs], 3)
+    for name, (codec, c) in fields.items():
+        if len(c.shape) > 1:
+            fcodec = Codec(CodecConfig(fused=True))
+            pfcodec = Codec(CodecConfig(strategy="padded", fused=True))
+            fkernel, fplain, fargs = fused_inputs(fcodec, c)
+            require(same(fkernel(*fargs), fplain(*fargs)),
+                    f"{name}: {fkernel.__name__} differs from its plain "
+                    f"version")
+            out[f"{fkernel.__name__}_{name}_ms"] = cuda_ms(
+                lambda: fkernel(*fargs), 20)
+            ekernel, eplain, eargs = ops.padded_epilogue_inputs(
+                codec.decode(c.stream, c.codebook, c.n_symbols), c.n_symbols,
+                c.outlier_pos, c.outlier_val, c.eb, c.radius, c.shape,
+                c.dtype)
+            require(same(ekernel(*eargs), eplain(*eargs)),
+                    f"{name}: {ekernel.__name__} differs from its plain "
+                    f"version")
+            out[f"{ekernel.__name__}_{name}_ms"] = cuda_ms(
+                lambda: ekernel(*eargs), 20)
+            out[f"decompress_fused_cached_plan_{name}_ms"] = cuda_ms(
+                lambda: fcodec.decompress(c), 10)
+            out[f"decompress_padded_fused_cached_plan_{name}_ms"] = cuda_ms(
+                lambda: pfcodec.decompress(c), 10)
         count_args, tile_args = kernel_inputs(codec, c)
         require(all(same(a, b) for a, b in zip(
             K.count_subseq(*count_args), K.count_subseq_plain(*count_args))),
@@ -1248,6 +1391,7 @@ def time_kernels(seed: int) -> dict:
             out[f"{key}_ms"] = cuda_ms(lambda: K.decode_tiles(*args), 20)
         out["class_tile"] = tile
         out["decode_work_ms"] = out["count_subseq_isabel3d_ms"]
+        out["long_codes"] = long_code_kernels(codec, c, refusal_ok=other)
         padded = Codec(CodecConfig(strategy="padded"))
         ori = Codec(CodecConfig(method="selfsync", strategy="padded"))
         out.update({
@@ -1276,10 +1420,7 @@ def time_kernels(seed: int) -> dict:
                 f"{name}: selfsync_intra differs from its plain version")
             out[f"selfsync_intra{key}_ms"] = cuda_ms(
                 lambda: S.selfsync_intra(*args, ee), 20)
-    base = Codec()
-    cs += [base.compress(torch.from_numpy(p).cuda())
-           for p in make_pages(seed)]
-    targs, _, _ = merged_lut_args(cs, [base.plan_for(c) for c in cs])
+    targs, _, _ = merged_lut_args(cs, plans)
     require(same(K.decode_tiles(*targs), K.decode_tiles_plain(*targs)),
             "batch: merged-LUT decode_tiles differs from its plain version")
     out["decode_tiles_merged_lut_ms"] = cuda_ms(
@@ -1311,8 +1452,11 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="ROOT",
                     help="only time count_subseq, decode_tiles, "
-                    "decode_padded, selfsync_intra and the paths that run "
-                    "them against those of the checkout at ROOT, in turns "
+                    "decode_padded, selfsync_intra (with their LUT in "
+                    "shared and in device memory), decode_tiles_fused_nd, "
+                    "dequant_reconstruct_nd, the paths that run them "
+                    "and the batch phase's decompress ways against those "
+                    "of the checkout at ROOT, in turns "
                     "(ROOT, this, this, ROOT)")
     ap.add_argument("--time-kernels", metavar="ROOT",
                     help="only time those kernels as built from ROOT's "
@@ -1328,7 +1472,8 @@ def main() -> int:
               "needs a CUDA device", file=sys.stderr)
         return 2
     if args.time_kernels:
-        print(json.dumps(time_kernels(args.seed)))
+        other = os.path.abspath(args.time_kernels) != ROOT
+        print(json.dumps(time_kernels(args.seed, other)))
         return 0
     if args.ab:
         run_ab(os.path.abspath(args.ab), args.seed)
@@ -1607,6 +1752,11 @@ def main() -> int:
         rows.append(row)
         print(f"field {json.dumps(row)}")
 
+    # -- the device-memory LUT variants: isabel3d's windows through its
+    # table widened to 2**LONG_MAX_LEN entries ------------------------------
+    long_codes = long_code_kernels(*results["isabel3d"][:2])
+    print(f"long codes {json.dumps(long_codes)}")
+
     selfsync = run_selfsync(results)
     batch = run_batch(args.seed, results, xs)
     encode = run_encode(args.seed, xs)
@@ -1623,7 +1773,7 @@ def main() -> int:
     # 1-D kernels.  Launch counts are those of each path's run.
     by_field = {r["field"]: r for r in rows}
     for name, row in encode["fields"].items():
-        by_field[name] = {**by_field[name], **{
+        by_field[name] = {**by_field.get(name, {}), **{
             k: v for k, v in row.items() if isinstance(v, dict)}}
     by_field["isabel3d"]["selfsync_intra"] = (
         selfsync["fields"]["isabel3d"]["selfsync_intra"])
@@ -1667,6 +1817,28 @@ def main() -> int:
                                    "class_tile_ms")})
     kernels[1]["batch_launches"] = batch["launches"]["decode_tiles"]
     kernels[1]["batch_merged_lut"] = batch["merged_lut_kernel"]
+    # Rows 5 and 7 on both N-D fields; rows 8, 10 and 11 on one KV page,
+    # whose 256 launches the encode path runs besides the fields'.
+    for i, kname in ((4, "decode_tiles_fused_nd"),
+                     (6, "dequant_reconstruct_nd")):
+        kernels[i]["fields_ms"] = {r["field"]: r[kname]["ms"] for r in rows
+                                   if kname in r}
+        kernels[i]["fields_bound_ms"] = {
+            r["field"]: r[kname]["bound_ms"] for r in rows if kname in r}
+    for i, kname in ((7, "lorenzo_quantize"), (9, "histogram"),
+                     (10, "pack_tiles")):
+        page = by_field["page0"][kname]
+        kernels[i]["page"] = {key: page[key] for key in (
+            "ms", "plain_ms", "bound_ms", "max_abs_err")}
+        kernels[i]["page"]["shape"] = list(PAGE_SHAPE)
+    # The device-memory LUT variants (max_len LONG_MAX_LEN) of rows 1, 3
+    # and 12 beside their shared-memory times on the same windows.
+    for i, kname in ((0, "count_subseq"), (2, "decode_padded"),
+                     (11, "selfsync_intra")):
+        kernels[i]["global_lut"] = {
+            "max_len": long_codes["max_len"],
+            "ms": long_codes[f"{kname}_global_ms"],
+            "smem_lut_ms": long_codes[f"{kname}_smem_ms"]}
     for kname, k in model["kernels"].items():
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],

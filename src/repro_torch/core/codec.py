@@ -135,15 +135,17 @@ class CodecConfig:
             raise ValueError(f"tile_syms must be >= 1, got {self.tile_syms}")
         # The largest tile this codec's decodes stage: tile_syms, and the
         # largest class tile of the tuned dispatch, which decompress_batch
-        # runs whatever the strategy.
+        # runs whatever the strategy.  A LUT that does not fit beside it is
+        # read from device memory, so only the staging tile itself bounds
+        # the config.
         tile = max(self.tile_syms, hp.max_class_tile(self.t_high))
-        smem = K.decode_tiles_smem(tile, 1 << self.max_len)
+        smem = K.decode_tiles_smem(tile, 0)
         if self.backend == "cuda" and smem > K.SMEM_LIMIT:
             raise ValueError(
-                f"backend 'cuda' cannot decode max_len={self.max_len} with "
-                f"tile_syms={self.tile_syms} and t_high={self.t_high}: a "
-                f"decode_tiles block of {tile} codes needs {smem} B of "
-                f"shared memory, Hopper allows {K.SMEM_LIMIT}")
+                f"backend 'cuda' cannot decode tile_syms={self.tile_syms} "
+                f"with t_high={self.t_high}: a decode_tiles block of {tile} "
+                f"codes needs {smem} B of shared memory for its staging "
+                f"tile, Hopper allows {K.SMEM_LIMIT}")
         if self.subseqs_per_seq < 1:
             raise ValueError("subseqs_per_seq must be >= 1, got "
                              f"{self.subseqs_per_seq}")
@@ -152,9 +154,9 @@ class CodecConfig:
                 and smem > K.SMEM_LIMIT):
             raise ValueError(
                 f"backend 'cuda' cannot self-sync subseqs_per_seq="
-                f"{self.subseqs_per_seq} at max_len={self.max_len}: a "
-                f"selfsync_intra block needs {smem} B of shared memory, "
-                f"Hopper allows {K.SMEM_LIMIT}")
+                f"{self.subseqs_per_seq}: a selfsync_intra block needs "
+                f"{smem} B of shared memory for its lanes' starts, landings "
+                f"and counts, Hopper allows {K.SMEM_LIMIT}")
         if not isinstance(self.fused, bool):
             raise ValueError(f"fused must be a bool, got {self.fused!r}")
         if self.plan_cache_size < 0:

@@ -236,49 +236,4 @@ __device__ __forceinline__ void stage_lut(const uint16_t* __restrict__ dec_sym,
   }
 }
 
-// The decode stage shared by the three tile kernels (common.stage_tile):
-// lane j of output tile `tile` decodes subsequence s0[tile] + j and hands its
-// k-th symbol to store(local, sym) at local = offset - tile_base +
-// min(k, 127) when that falls inside [0, tile_syms).  For a well-formed
-// stream exactly one lane owns each position, so the stores never
-// conflict.  Lanes past the last subsequence do no work; a lane whose output
-// starts past the tile leaves at once, and a lane stops as soon as its next
-// symbol would land past the tile end.  Both exits drop only writes the
-// reference drops.  The lane budget is ss_max; above blockDim lanes a thread
-// loops.  The caller stages the LUT, initialises the tile and synchronises
-// before and after.  With kGlobalLut, s_sym/s_len are the table in device
-// memory (see lut_entry) and nothing is staged.
-template <bool kGlobalLut = false, typename Store>
-__device__ __forceinline__ void stage_tile_codes(
-    const uint32_t* __restrict__ units, long long n_units,
-    const int* __restrict__ start_abs, const int* __restrict__ end_abs,
-    const int* __restrict__ offsets, const int* __restrict__ s0,
-    const int* __restrict__ lut_base, int n_subseq, int total_bits,
-    const uint16_t* s_sym, const uint8_t* s_len, int lut_size, int max_len,
-    int tile, int tile_syms, int ss_max, Store store) {
-  const long long tile_base = static_cast<long long>(tile) * tile_syms;
-  const int first = s0[tile];
-  for (int j = threadIdx.x; j < ss_max; j += blockDim.x) {
-    const int s = first + j;
-    if (s >= n_subseq) continue;             // clipped lane: no work
-    const long long off_ll = offsets[s] - tile_base;
-    if (off_ll >= tile_syms) continue;       // output starts past the tile
-    const int off = static_cast<int>(max(off_ll, -2LL * kMaxSyms));
-    int row_id, start, end;
-    subseq_window(start_abs[s], end_abs[s], total_bits, &row_id, &start,
-                  &end);
-    uint32_t row[kRowUnits];
-    load_row(units, n_units, row_id, row);
-    const int lb = lut_base != nullptr ? lut_base[s] : 0;
-    int land;
-    decode_lane<kGlobalLut>(row, start, end, s_sym, s_len, lut_size, lb,
-                            max_len, &land, [&](int k, int sym) {
-                              const int local = off + min(k, kMaxSyms - 1);
-                              if (local >= tile_syms) return false;
-                              if (local >= 0) store(local, sym);
-                              return true;
-                            });
-  }
-}
-
 }  // namespace repro_torch

@@ -21,6 +21,9 @@
 //     took two 6-way selects, a 64-bit shift and clamps;
 //   * the kernel reads only the code lengths, so a block stages the u8
 //     length table alone (4 KB at max_len 12, 64 KB at 16), 16 bytes a load;
+//     a table past shared memory (max_len 18 and up) stays in device memory
+//     and is read through the read-only path (the kGlobalLut variant, which
+//     huffman_decode.count_subseq_geometry chooses by size);
 //   * the grid is sized to the card: at most as many blocks as the SMs
 //     hold resident, never more than ceil(n / threads), and each thread
 //     takes the same number of subsequences (a grid stride, so neighbouring
@@ -43,6 +46,7 @@ namespace repro_torch {
 constexpr int kCountThreads = 256;
 constexpr int kCountMinBlocks = 8;
 
+template <bool kGlobalLut>
 __global__ void __launch_bounds__(kCountThreads, kCountMinBlocks)
     count_subseq_kernel(const uint32_t* __restrict__ units, long long n_units,
                         const int* __restrict__ start_abs,
@@ -51,8 +55,12 @@ __global__ void __launch_bounds__(kCountThreads, kCountMinBlocks)
                         int lut_size, int max_len, int* __restrict__ counts,
                         int* __restrict__ landing) {
   extern __shared__ __align__(16) unsigned char s_len[];
-  stage_bytes(s_len, dec_len, lut_size);
-  __syncthreads();
+  const uint8_t* len = dec_len;
+  if constexpr (!kGlobalLut) {
+    stage_bytes(s_len, dec_len, lut_size);
+    __syncthreads();
+    len = s_len;
+  }
 
   const int stride = gridDim.x * blockDim.x;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -62,38 +70,52 @@ __global__ void __launch_bounds__(kCountThreads, kCountMinBlocks)
     uint32_t row[kRowUnits];
     load_row(units, n_units, row_id, row);
     int land;
-    const int c = decode_lane_buf<false, false>(
-        row, start, end, nullptr, s_len, lut_size, 0, max_len, &land,
+    const int c = decode_lane_buf<kGlobalLut, false>(
+        row, start, end, nullptr, len, lut_size, 0, max_len, &land,
         [](int, int) { return true; });
     counts[i] = c;
     landing[i] = land;
   }
 }
 
-}  // namespace repro_torch
-
-// C entry point.  Launches `blocks` blocks of `threads` (<= 256) threads
-// with `smem` bytes of shared memory (the length table rounded up to 16
-// bytes) on `stream`, allocates nothing, does not synchronize; returns
-// cudaGetLastError() (0 on success).
-extern "C" int repro_count_subseq(const void* units, long long n_units,
-                                  const void* start_abs, const void* end_abs,
-                                  int n, int total_bits, const void* dec_len,
-                                  int lut_size, int max_len, int blocks,
-                                  int threads, int smem, void* counts,
-                                  void* landing, void* stream) {
-  using namespace repro_torch;
+template <bool kGlobalLut>
+int launch(const void* units, long long n_units, const void* start_abs,
+           const void* end_abs, int n, int total_bits, const void* dec_len,
+           int lut_size, int max_len, int blocks, int threads, int smem,
+           void* counts, void* landing, void* stream) {
+  auto kernel = count_subseq_kernel<kGlobalLut>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        count_subseq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  count_subseq_kernel<<<blocks, threads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_units,
       static_cast<const int*>(start_abs), static_cast<const int*>(end_abs), n,
       total_bits, static_cast<const uint8_t*>(dec_len), lut_size, max_len,
       static_cast<int*>(counts), static_cast<int*>(landing));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro_torch
+
+// C entry point.  Launches `blocks` blocks of `threads` (<= 256) threads
+// with `smem` bytes of shared memory (the length table rounded up to 16
+// bytes, or 0 with `global_lut`) on `stream`, allocates nothing, does not
+// synchronize; returns cudaGetLastError() (0 on success).  `global_lut` (0
+// or 1) selects the variant that reads the lengths from device memory.
+extern "C" int repro_count_subseq(const void* units, long long n_units,
+                                  const void* start_abs, const void* end_abs,
+                                  int n, int total_bits, const void* dec_len,
+                                  int lut_size, int max_len, int global_lut,
+                                  int blocks, int threads, int smem,
+                                  void* counts, void* landing, void* stream) {
+  using namespace repro_torch;
+  return global_lut
+             ? launch<true>(units, n_units, start_abs, end_abs, n, total_bits,
+                            dec_len, lut_size, max_len, blocks, threads, smem,
+                            counts, landing, stream)
+             : launch<false>(units, n_units, start_abs, end_abs, n,
+                             total_bits, dec_len, lut_size, max_len, blocks,
+                             threads, smem, counts, landing, stream);
 }

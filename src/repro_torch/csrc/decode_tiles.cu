@@ -13,8 +13,8 @@
 // bit-serial decode loop, the same loop as count_subseq's (~25 M codewords
 // on isabel3d), plus the staging and the write.  The design:
 //   * The lanes decode through common.cuh's bit-buffer lane decoder
-//     (decode_lane_buf), in a tile stage of this kernel's own; the fused
-//     kernels keep stage_tile_codes and decode_lane.
+//     (decode_lane_buf), in a tile stage of this kernel's own (the fused
+//     kernels have theirs in fused.cuh).
 //   * Lanes are sized to the tile, not to the static budget ss_max
 //     (pipeline.ss_max_for_tile: 411 at 4,096 codes and max_len 12).  The
 //     subsequences whose output can fall in tile t are s0[t] .. s0[t + 1]
@@ -33,7 +33,7 @@
 //     L2 reads on isabel3d's 6,104 tiles).  A tile is decoded between two
 //     barriers; then each thread writes its 16-byte chunks of the staging
 //     tile to device memory and zeroes them behind it for the next tile.
-//   * Exits, as in stage_tile_codes: a lane past the last subsequence does
+//   * Exits, as in common.stage_tile: a lane past the last subsequence does
 //     no work; a lane whose output starts past the tile leaves at once; a
 //     lane stops as soon as its next symbol would land past the tile end;
 //     the k-th symbol goes to slot min(k, 127).  Each drops only writes the

@@ -7,9 +7,10 @@
 // ops.decode_write_tiles_fused).  One block per output tile of tile_syms
 // codes.  The block
 //   1. takes its tile index t from the launch's ticket counter;
-//   2. decodes the tile through common.cuh's stage_tile_codes into int32
+//   2. decodes the tile's lanes (sized to the tile, as decode_tiles.cu
+//      sizes them) through common.cuh's bit-buffer lane decoder into int32
 //      residuals d = code - radius in shared memory and scatters the tile's
-//      outliers (fused.cuh: stage_residuals);
+//      outliers (fused.cuh: stage_unit_residuals);
 //   3. scans d in place (the tile's inclusive cumsum) and takes the tile
 //      total, its aggregate;
 //   4. finds the sum of every earlier tile by decoupled look-back
@@ -51,10 +52,13 @@ __global__ void __launch_bounds__(1024) decode_tiles_fused_kernel(
   uint8_t* s_len = reinterpret_cast<uint8_t*>(s_sym + lut_size);
 
   const int t = take_ticket(ticket, scratch);
+  const int n_tiles =
+      static_cast<int>((n_out + tile_syms - 1) / tile_syms);
   stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
-  stage_residuals(units, n_units, start_abs, end_abs, offsets, s0, lut_base,
-                  n_subseq, total_bits, lut_size, max_len, t, tile_syms,
-                  ss_max, radius, opos, oval, obounds, s_sym, s_len, d);
+  stage_unit_residuals(units, n_units, start_abs, end_abs, offsets, s0,
+                       lut_base, n_subseq, total_bits, lut_size, max_len,
+                       n_tiles, 1, [t](int) { return t; }, tile_syms, ss_max,
+                       radius, opos, oval, obounds, s_sym, s_len, d, scratch);
   scan_rows(d, tile_syms, tile_syms, scratch);
   const uint32_t prefix =
       lookback_prefix(t, d[tile_syms - 1], status, scratch);

@@ -35,10 +35,14 @@
 namespace repro_torch {
 
 // Shared scratch words a fused block uses beside its tile and its LUT:
-// 32 warp flags, 32 warp sums, the ticket and the carry broadcast.
+// 32 warp flags, 32 warp sums (which also hold a unit's outlier slices and
+// its look-back's value offsets at other times), the ticket, the carry
+// broadcast and the lanes of each tile of a unit.
 constexpr int kFusedScratchWords = 80;
 constexpr int kTicketWord = 64;
 constexpr int kCarryWord = 65;
+constexpr int kLaneWords = 66;   // 8 words: the lanes of a unit's tiles
+constexpr int kBoundWords = 0;   // 16 words: its tiles' outlier slices
 
 // Threads of a fused block: one per lane of the decode stage, at least 256
 // for the scan and the epilogue, at most 1024 (lanes above loop).
@@ -81,78 +85,6 @@ __device__ __forceinline__ void count_poll(long long* polls) {
   if (++*polls > kMaxPolls) __trap();
 }
 
-// Tagged carries: a 64-bit word (tag << 32) | value, stored and loaded as
-// one, so a reader that sees the tag it waits for also sees its value, with
-// no flag, fence or barrier between them.  Loads bypass L1.
-__device__ __forceinline__ unsigned long long ld_relaxed(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long tagged(unsigned tag,
-                                                     uint32_t value) {
-  return (static_cast<unsigned long long>(tag) << 32) | value;
-}
-
-// Thread 0 polls one tagged word, backing off between polls, until it
-// carries `want`; then the whole block goes on (tag 0: no wait).  A block
-// far down a chain waits here, and only the block next in line polls all
-// of its words, so the waiting blocks do not crowd the words being handed
-// on in L2.  Called by every thread of the block.
-__device__ __forceinline__ void gate_on_tag(const unsigned long long* word,
-                                            unsigned want) {
-  if (want == 0) return;
-  if (threadIdx.x == 0) {
-    long long polls = 0;
-    unsigned ns = 32;
-    while (static_cast<unsigned>(ld_relaxed(word) >> 32) != want) {
-      count_poll(&polls);
-      __nanosleep(ns);
-      ns = ns < 256 ? 2 * ns : ns;
-    }
-  }
-  __syncthreads();
-}
-
-// Each thread reads the carries of up to kBatch of its indices (first,
-// first + stride, ...; those below end) at once: the loads are in flight
-// together, and only those whose tag is not yet `want` are read again.
-// Waiting for tag 0 (nothing written yet) reads nothing and gives zeros.
-constexpr int kBatch = 4;
-
-__device__ __forceinline__ void wait_tags(
-    const unsigned long long* words, int first, int stride, int end,
-    unsigned want, uint32_t value[kBatch]) {
-  if (want == 0) {  // tag 0: nothing to wait for
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) value[u] = 0;
-    return;
-  }
-  unsigned long long w[kBatch];
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const int i = first + u * stride;
-    w[u] = i < end ? ld_relaxed(words + i) : tagged(want, 0u);
-  }
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u) {
-    const int i = first + u * stride;
-    long long polls = 0;
-    while (static_cast<unsigned>(w[u] >> 32) != want) {
-      count_poll(&polls);
-      w[u] = ld_relaxed(words + i);
-    }
-    value[u] = static_cast<uint32_t>(w[u]);
-  }
-}
-
 // The outlier half of _dequant_block: the exact residuals of the outliers
 // [obounds[tile], obounds[tile + 1]) of the side list, scattered into the
 // tile's d.  The caller's ops layer finds each tile's range by
@@ -186,31 +118,203 @@ __device__ __forceinline__ void load_residuals(
   scatter_outliers(tile, block, opos, oval, obounds, d);
 }
 
-// _dequant_block for tile `tile` of `block` codes decoded from the stream
-// (the fused decode kernels): d = code - radius at every position (a
-// position no lane writes holds code 0, as in the reference's
-// zero-initialised tile), then the tile's outliers.  The caller stages the
-// LUT (stage_lut) before the first call; the first barrier here publishes
-// it.
-__device__ __forceinline__ void stage_residuals(
+// The slice [lo, hi) of the outlier side list of each of a unit's n_here
+// (<= 8) tiles, in scratch words [0, 8) and [8, 16): threads 0 .. n_here-1
+// load them; the caller's next barrier publishes them.
+template <typename TileOf>
+__device__ __forceinline__ void load_unit_bounds(
+    int n_here, TileOf tile_of, const int* __restrict__ obounds,
+    uint32_t* scratch) {
+  if (static_cast<int>(threadIdx.x) < n_here) {
+    const int t = tile_of(threadIdx.x);
+    scratch[kBoundWords + threadIdx.x] = static_cast<uint32_t>(obounds[t]);
+    scratch[kBoundWords + 8 + threadIdx.x] =
+        static_cast<uint32_t>(obounds[t + 1]);
+  }
+}
+
+// scatter_outliers for a unit's n_here tiles, tile i's into d + i * block,
+// from the slices load_unit_bounds left.  Ends with __syncthreads().
+template <typename TileOf>
+__device__ __forceinline__ void scatter_unit_outliers(
+    int n_here, TileOf tile_of, int block, const int* __restrict__ opos,
+    const int* __restrict__ oval, const uint32_t* scratch, uint32_t* d) {
+  for (int i = 0; i < n_here; ++i) {
+    const int hi = static_cast<int>(scratch[kBoundWords + 8 + i]);
+    const long long base = static_cast<long long>(tile_of(i)) * block;
+    uint32_t* di = d + static_cast<size_t>(i) * block;
+    for (int o = static_cast<int>(scratch[kBoundWords + i]) + threadIdx.x;
+         o < hi; o += blockDim.x) {
+      const long long loc = opos[o] - base;
+      if (loc >= 0 && loc < block) di[loc] = static_cast<uint32_t>(oval[o]);
+    }
+  }
+  __syncthreads();
+}
+
+// _dequant_block for a unit's n_here tiles tile_of(0 .. n_here - 1) of
+// `block` codes read from a code array (the N-D epilogue), tile i into
+// d + i * block: d = code - radius, then the tiles' outliers.  Each thread
+// has kLoadBatch codes in flight at once, and the tiles' outlier slices
+// load beside them.  Uses scratch words [0, 16).  Ends with
+// __syncthreads().
+constexpr int kLoadBatch = 8;
+
+template <typename TileOf>
+__device__ __forceinline__ void load_unit_residuals(
+    const uint16_t* __restrict__ codes, int n_here, TileOf tile_of,
+    int block, int radius, const int* __restrict__ opos,
+    const int* __restrict__ oval, const int* __restrict__ obounds,
+    uint32_t* d, uint32_t* scratch) {
+  const int nt = blockDim.x;
+  const int n = n_here * block;
+  load_unit_bounds(n_here, tile_of, obounds, scratch);
+  if (block % 4 == 0 && (reinterpret_cast<uintptr_t>(codes) & 7) == 0) {
+    // Every tile starts on an 8-byte boundary: 4 codes a load.
+    const int n4 = n / 4, block4 = block / 4;
+    const uint2* codes4 = reinterpret_cast<const uint2*>(codes);
+    for (int x0 = threadIdx.x; x0 < n4; x0 += kLoadBatch * nt) {
+      uint2 c[kLoadBatch];
+      int i = x0 / block4, r = x0 - i * block4;
+#pragma unroll
+      for (int b = 0; b < kLoadBatch; ++b) {
+        const int x = x0 + b * nt;
+        c[b] = x < n4 ? codes4[static_cast<long long>(tile_of(i)) * block4 +
+                               r]
+                      : make_uint2(0u, 0u);
+        for (r += nt; r >= block4; r -= block4) ++i;
+      }
+#pragma unroll
+      for (int b = 0; b < kLoadBatch; ++b) {
+        const int x = x0 + b * nt;
+        if (x < n4) {
+          uint32_t* dst = d + 4 * static_cast<size_t>(x);
+          dst[0] = static_cast<uint32_t>(static_cast<int>(c[b].x & 0xffffu) -
+                                         radius);
+          dst[1] = static_cast<uint32_t>(static_cast<int>(c[b].x >> 16) -
+                                         radius);
+          dst[2] = static_cast<uint32_t>(static_cast<int>(c[b].y & 0xffffu) -
+                                         radius);
+          dst[3] = static_cast<uint32_t>(static_cast<int>(c[b].y >> 16) -
+                                         radius);
+        }
+      }
+    }
+    __syncthreads();
+    scatter_unit_outliers(n_here, tile_of, block, opos, oval, scratch, d);
+    return;
+  }
+  for (int x0 = threadIdx.x; x0 < n; x0 += kLoadBatch * nt) {
+    int c[kLoadBatch];
+    int i = x0 / block, r = x0 - i * block;   // tile and place of x
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const int x = x0 + b * nt;
+      c[b] = x < n ? codes[static_cast<long long>(tile_of(i)) * block + r]
+                   : 0;
+      for (r += nt; r >= block; r -= block) ++i;
+    }
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const int x = x0 + b * nt;
+      if (x < n) d[x] = static_cast<uint32_t>(c[b] - radius);
+    }
+  }
+  __syncthreads();
+  scatter_unit_outliers(n_here, tile_of, block, opos, oval, scratch, d);
+}
+
+// The lanes of output tile `tile` (of n_tiles, `block` codes each): the
+// subsequences its codes can come from, s0[tile] .. s0[tile + 1] (..
+// n_subseq - 1 for the last tile; offsets are an exclusive prefix sum of
+// counts, so a later subsequence's output starts past the tile), at most
+// ss_max, the lanes the reference has (it drops the rest).
+__device__ __forceinline__ int tile_span(const int* __restrict__ s0,
+                                         int tile, int n_tiles, int n_subseq,
+                                         int ss_max) {
+  const int last = tile + 1 < n_tiles ? s0[tile + 1] : n_subseq - 1;
+  return min(max(last - s0[tile] + 1, 0), ss_max);
+}
+
+// Lane j of output tile `tile` decodes its subsequence through common.cuh's
+// bit-buffer lane decoder (decode_lane_buf) and writes d = code - radius
+// into the tile's residuals at local = offset - tile_base + min(k, 127)
+// inside [0, block).  Exits, as in decode_tiles.cu: a lane past the last
+// subsequence does no work; a lane whose output starts past the tile leaves
+// at once; a lane stops as soon as its next symbol would land past the tile
+// end.  Each drops only writes the reference drops.
+__device__ __forceinline__ void decode_lane_residuals(
     const uint32_t* __restrict__ units, long long n_units,
     const int* __restrict__ start_abs, const int* __restrict__ end_abs,
     const int* __restrict__ offsets, const int* __restrict__ s0,
     const int* __restrict__ lut_base, int n_subseq, int total_bits,
-    int lut_size, int max_len, int tile, int block, int ss_max, int radius,
-    const int* __restrict__ opos, const int* __restrict__ oval,
-    const int* __restrict__ obounds, const uint16_t* s_sym,
-    const uint8_t* s_len, uint32_t* d) {
+    const uint16_t* s_sym, const uint8_t* s_len, int lut_size, int max_len,
+    int tile, int block, int j, int radius, uint32_t* d) {
+  const int s = s0[tile] + j;
+  if (s >= n_subseq) return;                 // clipped lane: no work
+  const long long off_ll =
+      offsets[s] - static_cast<long long>(tile) * block;
+  if (off_ll >= block) return;               // output starts past the tile
+  const int off = static_cast<int>(max(off_ll, -2LL * kMaxSyms));
+  int row_id, start, end;
+  subseq_window(start_abs[s], end_abs[s], total_bits, &row_id, &start, &end);
+  uint32_t row[kRowUnits];
+  load_row(units, n_units, row_id, row);
+  const int lb = lut_base != nullptr ? lut_base[s] : 0;
+  int land;
+  decode_lane_buf(row, start, end, s_sym, s_len, lut_size, lb, max_len,
+                  &land, [&](int k, int sym) {
+                    const int local = off + min(k, kMaxSyms - 1);
+                    if (local >= block) return false;
+                    if (local >= 0) {
+                      d[local] = static_cast<uint32_t>(sym - radius);
+                    }
+                    return true;
+                  });
+}
+
+// _dequant_block for the n_here tiles tile_of(0 .. n_here - 1) of `block`
+// codes each, decoded from the stream (the fused decode kernels) into
+// d + i * block: d = code - radius at every position (a position no lane
+// writes holds code 0, as in the reference's zero-initialised tile), then
+// each tile's outliers.  The lanes of all n_here tiles (at most 8) are
+// spread over the block's threads at once.  The caller has staged the LUT
+// (stage_lut); the first barrier here publishes it.  Threads 0 .. n_here-1
+// find one tile's lanes and outlier slice each.  Uses scratch words
+// [0, 16) and [66, 74).  Ends with __syncthreads().
+template <typename TileOf>
+__device__ __forceinline__ void stage_unit_residuals(
+    const uint32_t* __restrict__ units, long long n_units,
+    const int* __restrict__ start_abs, const int* __restrict__ end_abs,
+    const int* __restrict__ offsets, const int* __restrict__ s0,
+    const int* __restrict__ lut_base, int n_subseq, int total_bits,
+    int lut_size, int max_len, int n_tiles, int n_here, TileOf tile_of,
+    int block, int ss_max, int radius, const int* __restrict__ opos,
+    const int* __restrict__ oval, const int* __restrict__ obounds,
+    const uint16_t* s_sym, const uint8_t* s_len, uint32_t* d,
+    uint32_t* scratch) {
+  uint32_t* span = scratch + kLaneWords;     // span[i]: tile i's lanes
   const uint32_t zero_code = static_cast<uint32_t>(-radius);
-  for (int i = threadIdx.x; i < block; i += blockDim.x) d[i] = zero_code;
+  const int n = n_here * block;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = zero_code;
+  load_unit_bounds(n_here, tile_of, obounds, scratch);
+  if (static_cast<int>(threadIdx.x) < n_here) {
+    span[threadIdx.x] = static_cast<uint32_t>(
+        tile_span(s0, tile_of(threadIdx.x), n_tiles, n_subseq, ss_max));
+  }
   __syncthreads();
-  stage_tile_codes(units, n_units, start_abs, end_abs, offsets, s0, lut_base,
-                   n_subseq, total_bits, s_sym, s_len, lut_size, max_len,
-                   tile, block, ss_max, [&](int local, int sym) {
-                     d[local] = static_cast<uint32_t>(sym - radius);
-                   });
+  int lanes = 0;
+  for (int i = 0; i < n_here; ++i) lanes += static_cast<int>(span[i]);
+  for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
+    int i = 0, j = l;                        // tile i, its lane j
+    while (j >= static_cast<int>(span[i])) j -= static_cast<int>(span[i++]);
+    decode_lane_residuals(units, n_units, start_abs, end_abs, offsets, s0,
+                          lut_base, n_subseq, total_bits, s_sym, s_len,
+                          lut_size, max_len, tile_of(i), block, j, radius,
+                          d + static_cast<size_t>(i) * block);
+  }
   __syncthreads();
-  scatter_outliers(tile, block, opos, oval, obounds, d);
+  scatter_unit_outliers(n_here, tile_of, block, opos, oval, scratch, d);
 }
 
 // Inclusive prefix sums of v[0, n) in place, restarting at every multiple
@@ -354,45 +458,86 @@ __device__ __forceinline__ uint32_t lookback_prefix(
 }
 
 // ---------------------------------------------------------------------------
-// N-D carries: chained row carries and the plane carry, as tagged words
+// N-D carries: decoupled look-back along both axes of a grid of units
 // ---------------------------------------------------------------------------
 //
 // The field is (planes, rows, cols) (planes = 1 for 2-D); a tile is w whole
 // rows, block = w * cols codes, and for 3-D w divides rows, so a tile never
 // crosses a plane.  The inverse Lorenzo is the cumsum along every axis:
 //   e = cumsum of d along each row        (inside the tile: scan_rows)
-//   f = row carry + cumsum of e down rows (row carry: f of the plane's
-//                                          previous row, 0 at a plane start)
-//   q = plane carry + f                   (3-D; plane carry: q of the same
-//                                          rows in the previous plane)
-// On the TPU both carries sat in VMEM scratch across an ordered grid.  Here
-// a block takes a unit of `group` consecutive tiles (one tile for 3-D) and
-// hands the carries on through global memory as tagged words, (tag << 32)
-// | value, one per column or element, whose tag names the unit that wrote
-// it.  A reader polls the words it needs until they carry the tag it waits
-// for; the value comes in the same 64-bit load, so a hand-over costs one
-// store and one load through L2, with no flag, fence or barrier.
-//   * Row carry: a chained scan.  Unit (p, k), of index u = p * K + k (K
-//     units a plane), waits for the (cols,) carry unit (p, k-1) wrote (tag
-//     u), adds its rows and writes the carry of its last row (tag u + 1).
-//     One vector is enough per chain, because only the next unit reads it.
-//     The chains of the planes share a ring of slots = min(planes, K)
-//     vectors, vector p % slots, so the first unit of plane p waits (for
-//     the tag, not the value) until the last unit of plane p - slots has
-//     written its vector, which it does after reading it.
-//   * Plane carry (3-D): one (rows, cols) plane of tagged words, 8 MiB at
-//     most, which stays in the 50 MB L2.  Tile (p, k) waits for the words
-//     tile (p-1, k) wrote (tag p), adds them and writes q (tag p + 1),
-//     except on the last plane.
-// Tickets go to units by anti-diagonal, d = p + k (diagonal_unit), not
-// plane by plane: unit (p, k) waits only for units of diagonal d - 1 (with
-// slots = K, plane p - K's last unit is on diagonal d - 1 too), so every
-// wait is for a unit of lower ticket, and the blocks in flight hold whole
-// diagonals, all of whose units can proceed at once.  The ring and the
-// plane are zeroed (tag 0: nothing written) by the wrapper for every
-// launch.  A final partial tile of a 2-D field holds fake rows after the
-// last row; they pollute only a carry no unit reads, and are never written
-// to the output.
+//   f = row carry + cumsum of e down rows (row carry: the sum of e over the
+//                                          plane's earlier rows)
+//   q = plane carry + f                   (3-D; plane carry: the sum of f
+//                                          over the earlier planes)
+// On the TPU both carries sat in VMEM scratch across an ordered grid.
+//
+// Units.  A block takes one unit: unit_planes planes x unit_tiles
+// consecutive tiles of a plane (2-D: 1 x up to 8; 3-D: up to 8 x 1), held
+// in shared memory as [plane i][nrows rows][cols].  The units form a
+// units_p x units_k grid.  Unit (g, k) needs, for each of its planes, the
+// column sums of e over the units (g, 0 .. k-1) (its row carry), and, for
+// 3-D, the sum of f over the units (0 .. g-1, k) at its rows (its plane
+// carry).  Both are prefix sums along a chain of units whose terms, the
+// units' aggregates, a unit computes alone:
+//   * row aggregate: the column sums of its rows of e, one (cols,) vector
+//     a plane, known right after its own scan;
+//   * plane aggregate: the sum over its planes of f, one value an element
+//     of its rows, known once its row carry is.
+//
+// Decoupled look-back (Merrill & Garland 2016; lookback_prefix above for
+// the 1-D kernels), a vector at a time.  A unit publishes its aggregate at
+// once, without waiting for anyone: every thread stores its elements'
+// values, the block meets, and thread 0 releases the chain's flag,
+// "aggregate" (publish_status).  Then warp 0 reads the flags
+// of the chain's units k-1, k-2, ... (or g-1, g-2, ...), one a lane, and
+// finds the first of them that holds its inclusive prefix with only
+// aggregates before it (lookback_depth); every thread then adds, element
+// by element, those aggregates and that prefix, the values read through
+// L2 (lookback_sums), and the unit publishes its own inclusive prefix (the
+// sum plus its aggregate) the same way.  A chain's first unit publishes its
+// prefix at once.  Every aggregate is published before its unit reads
+// anything, so a walk never waits for a predecessor's own walk unless it
+// reaches the depth cap: a walk reads at most `depth` units (<= 32, a
+// warp's lanes), and should the depth-th still hold only its aggregate
+// (depth units of one chain all unfinished) it waits for that one's
+// prefix.  The prefix frontier of a chain so advances up to `depth` units
+// a hop, where the chained carry this design replaced advanced one.  A
+// flag is a uint32: the unit of ticket t stores 2t + 2 after its
+// aggregate's values and 2t + 3 after its prefix's, which sit in separate
+// arrays, so a reader never sees values change under it.  The values are
+// uint32_t sums mod 2^32 (see the top of this file), so the order of the
+// additions does not change a bit of the result.
+//
+// The ring.  A status vector per unit would be 8 B a code for the plane
+// carry (200 MB on a 100 x 500 x 500 field), so statuses live in a ring of
+// `slots` slots, the unit of ticket t in slot t % slots, and a slot is
+// reused `slots` tickets later.  Tickets go to units by anti-diagonal,
+// d = g + k (diagonal_unit), so a unit's chain predecessors, and the units
+// within `depth` hops after it, lie on the diagonals just before and just
+// after its own.  When a unit finishes its carries (both walks done, both
+// prefixes published) it marks its slot's done word.  Before its first
+// store to the ring, the unit of ticket t >= slots waits until the slot's
+// previous occupant j = t - slots is done, and so is every unit that can
+// read j's statuses: a reader lies at most `depth` hops after j along one
+// chain, so it is one of j's first `depth` row successors or plane
+// successors (ring_gate).  Every one of them has finished its walks, so no
+// reader will read j again, and j's own prefix stores have landed: a slot
+// is never overwritten while a reader may still need it.  The waits are
+// for lower tickets only: those units lie on diagonals d(j) .. d(j) +
+// depth, and with slots >= (depth + 1) x the longest diagonal those
+// diagonals hold fewer than `slots` tickets, so d(j) + depth < d(t); a
+// lower ticket belongs to a block that is already running.  So every wait
+// ends, whatever the schedule.  The geometry (fused_decode.nd_geometry)
+// also sizes the ring to the blocks the card holds at once beyond that, so
+// that in a run the units a gate waits for are mostly done.  A flag larger
+// than a reader expects would mean its slot was reused; the kernel traps
+// rather than read it (tests/test_torch_launch_geometry.py plays this
+// protocol on random schedules and checks that it never happens, and that
+// it does without the gate).  The wrapper zeroes the ticket, the flags
+// (0: nothing published) and the done words for every launch; the values
+// need no zeroing.  A final partial tile of a 2-D field holds fake rows
+// after the last row; they pollute only a carry no unit reads, and are
+// never written to the output.
 
 // Largest d with d (d + 1) / 2 <= t.
 __device__ __forceinline__ long long tri_root(long long t) {
@@ -428,70 +573,366 @@ __device__ __forceinline__ void diagonal_unit(int t, int planes, int K,
   *k = static_cast<int>(d) - *p;
 }
 
-// The row carry and, for 3-D, the plane carry of unit (p, k), applied in
-// place to its n codes of e (n / cols whole rows, `block` codes a tile),
-// which become q.  Called by every thread; ends with __syncthreads().
-__device__ __forceinline__ void nd_carries(
-    uint32_t* d, int n, int cols, int block, int p, int k,
-    int units_per_plane, int planes, int slots,
-    unsigned long long* row_carry, unsigned long long* plane_carry) {
-  const int nt = blockDim.x;
-  const int rows = n / cols;
-  const int u = p * units_per_plane + k;
-  // Row carry from unit (p, k-1); a plane's first unit starts from 0 but
-  // waits until plane p - slots has left the ring vector.  Tag 0: no wait.
-  const unsigned want =
-      k > 0 ? static_cast<unsigned>(u)
-            : (p >= slots
-                   ? static_cast<unsigned>(u - (slots - 1) * units_per_plane)
-                   : 0u);
-  unsigned long long* rc =
-      row_carry + static_cast<size_t>(p % slots) * cols;
-  gate_on_tag(rc, want);
-  for (int c0 = threadIdx.x; c0 < cols; c0 += kBatch * nt) {
-    uint32_t carry[kBatch];
-    wait_tags(rc, c0, nt, cols, want, carry);
-#pragma unroll
-    for (int b = 0; b < kBatch; ++b) {
-      const int c = c0 + b * nt;
-      if (c >= cols) break;
-      uint32_t run = k > 0 ? carry[b] : 0u;
-      for (int r = 0; r < rows; ++r) {
-        run += d[r * cols + c];
-        d[r * cols + c] = run;
+// The first ticket on diagonal d of a planes x K grid
+// (fused_decode.diagonal_first).
+__device__ __forceinline__ long long diagonal_first(int d, int planes,
+                                                    int K) {
+  const long long a = min(planes, K), b = max(planes, K);
+  if (d <= a - 1) return static_cast<long long>(d) * (d + 1) / 2;
+  if (d <= b) return a * (a - 1) / 2 + (d - a + 1) * a;
+  const long long r = static_cast<long long>(planes) + K - 1 - d;
+  return static_cast<long long>(planes) * K - r * (r + 1) / 2;
+}
+
+// The ticket of unit (p, k) (the inverse of diagonal_unit).
+__device__ __forceinline__ int diagonal_ticket(int p, int k, int planes,
+                                               int K) {
+  const int d = p + k;
+  return static_cast<int>(diagonal_first(d, planes, K)) + p -
+         max(0, d - (K - 1));
+}
+
+// The geometry of an N-D launch (fused_decode.NdGeometry).
+struct NdGrid {
+  int rows_per_tile, cols, planes, tiles_per_plane;
+  int unit_planes, unit_tiles, units_p, units_k;
+  int slots, depth, row_words, plane_words;
+};
+
+// The unit of ticket t: its position, its planes and tiles.
+struct NdUnit {
+  int t, g, k, n_planes, n_tiles, nrows;
+};
+
+__device__ __forceinline__ NdUnit nd_unit(int t, const NdGrid& grid) {
+  NdUnit u;
+  u.t = t;
+  diagonal_unit(t, grid.units_p, grid.units_k, &u.g, &u.k);
+  u.n_planes = min(grid.unit_planes, grid.planes - u.g * grid.unit_planes);
+  u.n_tiles =
+      min(grid.unit_tiles, grid.tiles_per_plane - u.k * grid.unit_tiles);
+  u.nrows = u.n_tiles * grid.rows_per_tile;
+  return u;
+}
+
+// Tile j of plane i of the unit: its index among all tiles.
+__device__ __forceinline__ int nd_tile(const NdGrid& grid, const NdUnit& u,
+                                       int i, int j) {
+  return (u.g * grid.unit_planes + i) * grid.tiles_per_plane +
+         u.k * grid.unit_tiles + j;
+}
+
+// The status of one chain of the unit of ticket t in the ring: its flag,
+// and the offset of its aggregate's or its inclusive prefix's values
+// (uint32_t, one an element of the chain's vector).  A slot holds two flags
+// (row, plane) and 2 x (row_words + plane_words) values.
+__device__ __forceinline__ unsigned* status_flag(const NdGrid& grid,
+                                                 unsigned* flags, int t,
+                                                 bool plane) {
+  return flags + 2 * (t % grid.slots) + (plane ? 1 : 0);
+}
+
+__device__ __forceinline__ uint32_t status_offset(const NdGrid& grid, int t,
+                                                  bool plane, bool prefix) {
+  const uint32_t at = static_cast<uint32_t>(t % grid.slots) * 2u *
+                      static_cast<uint32_t>(grid.row_words + grid.plane_words);
+  return at + (plane ? 2 * grid.row_words + (prefix ? grid.plane_words : 0)
+                     : (prefix ? grid.row_words : 0));
+}
+
+// The ticket of the h-th predecessor (h >= 1) of unit u along a chain (row:
+// unit (g, k - h); plane: unit (g - h, k)).
+__device__ __forceinline__ int pred_ticket(const NdGrid& grid,
+                                           const NdUnit& u, bool plane,
+                                           int h) {
+  return plane ? diagonal_ticket(u.g - h, u.k, grid.units_p, grid.units_k)
+               : diagonal_ticket(u.g, u.k - h, grid.units_p, grid.units_k);
+}
+
+__device__ __forceinline__ unsigned ld_relaxed_u32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release_u32(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Publish a status whose values every thread has stored: the block meets
+// (the barrier performs every thread's stores relative to thread 0), and
+// thread 0 releases the flag, which makes them visible to any thread that
+// acquires it (as CUTLASS's semaphore releases a split-K partial).  Called
+// by every thread.
+__device__ __forceinline__ void publish_status(unsigned* flag,
+                                               unsigned value) {
+  __syncthreads();
+  if (threadIdx.x == 0) st_release_u32(flag, value);
+}
+
+// How far unit u looks back along one chain, found by warp 0 from the
+// flags alone: lane h polls the flag of predecessor h + 1 (h < n_pred =
+// min(position, depth)), and the walk ends at the first predecessor that
+// is not an aggregate once it is a prefix.  At the depth cap it waits for
+// that predecessor's prefix.  A flag past the predecessor's own tags would
+// mean its slot had been reused under the reader, which the ring's gate
+// rules out: trap rather than read it.  Leaves the predecessors' value
+// offsets (scratch words [0, depth)) and returns the depth d to every
+// thread: the sum is predecessors 1 .. d-1's aggregates plus predecessor
+// d's prefix.
+__device__ __forceinline__ int lookback_depth(const NdGrid& grid,
+                                              const NdUnit& u, bool plane,
+                                              int n_pred, unsigned* flags,
+                                              uint32_t* scratch) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const bool mine = lane < n_pred;
+    const int tp = mine ? pred_ticket(grid, u, plane, lane + 1) : 0;
+    const unsigned want = 2u * static_cast<unsigned>(tp) + 2u;
+    const unsigned* f = mine ? status_flag(grid, flags, tp, plane) : flags;
+    long long polls = 0;
+    int depth;
+    while (true) {
+      const unsigned v = mine ? ld_relaxed_u32(f) : 0u;
+      if (mine && v > want + 1) __trap();
+      const unsigned agg = __ballot_sync(0xffffffffu, mine && v == want);
+      const unsigned pre = __ballot_sync(0xffffffffu, mine && v == want + 1);
+      const int first = __ffs(~agg) - 1;        // first lane not an aggregate
+      if (first < n_pred && ((pre >> first) & 1u)) {
+        depth = first + 1;
+        break;
       }
-      st_relaxed(rc + c, tagged(static_cast<unsigned>(u + 1), run));
+      count_poll(&polls);
+    }
+    __threadfence();                   // acquire: the flags before the values
+    if (mine) {
+      scratch[lane] = status_offset(grid, tp, plane, lane + 1 == depth);
+    }
+    if (lane == 0) scratch[kCarryWord] = static_cast<uint32_t>(depth);
+  }
+  __syncthreads();
+  return static_cast<int>(scratch[kCarryWord]);
+}
+
+// The exclusive prefixes, along the chain whose walk lookback_depth left
+// in scratch, of this thread's elements e0, e0 + blockDim.x, ... (kSumBatch
+// of them, those below n): their depth's predecessors' values, read
+// through L2 only, two hops' loads in flight together.  The caller
+// stores nothing between the loads, so none waits for another.
+constexpr int kSumBatch = 8;
+
+__device__ __forceinline__ void lookback_sums(const uint32_t* vals,
+                                              const uint32_t* scratch,
+                                              int depth, int e0, int n,
+                                              uint32_t excl[kSumBatch]) {
+  const int nt = blockDim.x;
+#pragma unroll
+  for (int b = 0; b < kSumBatch; ++b) excl[b] = 0;
+  for (int h = 0; h < depth; h += 2) {
+    // two hops a round (the second a zero hop past the depth)
+    const uint32_t* src0 = vals + scratch[h];
+    const uint32_t* src1 = h + 1 < depth ? vals + scratch[h + 1] : nullptr;
+    uint32_t v0[kSumBatch], v1[kSumBatch];
+#pragma unroll
+    for (int b = 0; b < kSumBatch; ++b) {
+      const int e = e0 + b * nt;
+      v0[b] = e < n ? __ldcg(src0 + e) : 0u;
+      v1[b] = e < n && src1 != nullptr ? __ldcg(src1 + e) : 0u;
+    }
+#pragma unroll
+    for (int b = 0; b < kSumBatch; ++b) excl[b] += v0[b] + v1[b];
+  }
+}
+
+// Before the unit's first store to its slot: wait until the slot's previous
+// occupant j = t - slots, and every unit that can read j's statuses (its
+// row successors (g, k+1 .. k+depth) and its plane successors (g+1 ..
+// g+depth, k)), are done (see above).  Thread x polls the done word of one
+// of them: a unit marks its slot's word t + 1 when it is done, and a later
+// occupant of that slot, which came after it through this same gate,
+// stores more.  Called by every thread.
+__device__ __forceinline__ void ring_gate(const NdGrid& grid, const NdUnit& u,
+                                          const unsigned* done) {
+  const int x = threadIdx.x;
+  if (u.t >= grid.slots && x <= 2 * grid.depth) {
+    const int j = u.t - grid.slots;
+    int g, k;
+    diagonal_unit(j, grid.units_p, grid.units_k, &g, &k);
+    if (x > grid.depth) {
+      g += x - grid.depth;
+    } else {
+      k += x;
+    }
+    if (g < grid.units_p && k < grid.units_k) {
+      const int r = x == 0 ? j
+                           : diagonal_ticket(g, k, grid.units_p,
+                                             grid.units_k);
+      const unsigned* w = done + r % grid.slots;
+      long long polls = 0;
+      unsigned ns = 32;
+      while (true) {
+        unsigned c;
+        asm volatile("ld.acquire.gpu.u32 %0, [%1];"
+                     : "=r"(c)
+                     : "l"(w)
+                     : "memory");
+        if (c >= static_cast<unsigned>(r) + 1u) break;
+        count_poll(&polls);
+        __nanosleep(ns);
+        ns = ns < 256 ? 2 * ns : ns;
+      }
     }
   }
   __syncthreads();
+}
 
-  if (planes > 1) {
-    // Plane carry (group = 1): q of the same rows in plane p - 1, from tile
-    // (p-1, k).
-    unsigned long long* pc = plane_carry + static_cast<size_t>(k) * block;
-    const bool keep = p + 1 < planes;
-    for (int i0 = threadIdx.x; i0 < block; i0 += kBatch * nt) {
-      uint32_t prev[kBatch];
-      wait_tags(pc, i0, nt, block, static_cast<unsigned>(p), prev);
+// The row carry and, for 3-D, the plane carry of unit u, applied in place
+// to its codes of e in d ([plane i][nrows][cols]), which become q; then the
+// unit counts itself done.  Called by every thread; ends with
+// __syncthreads().
+__device__ __forceinline__ void nd_carries(uint32_t* d, const NdGrid& grid,
+                                           const NdUnit& u, unsigned* flags,
+                                           uint32_t* vals, unsigned* done,
+                                           uint32_t* scratch) {
+  const int nt = blockDim.x;
+  const int cols = grid.cols;
+  const int m = u.nrows * cols;            // codes of one plane of the unit
+  const int n_row = u.n_planes * cols;     // row-carry elements (i, c)
+  const unsigned agg_tag = 2u * static_cast<unsigned>(u.t) + 2u;
+
+  // Column sums down the unit's rows, in place: F, whose last row is the
+  // row aggregate.
+  for (int i = 0; i < u.n_planes; ++i) {
+    for (int c = threadIdx.x; c < cols; c += nt) {
+      uint32_t* col = d + static_cast<size_t>(i) * m + c;
+      uint32_t run = 0;
+      for (int r = 0; r < u.nrows; ++r) {
+        run += col[r * cols];
+        col[r * cols] = run;
+      }
+    }
+  }
+  __syncthreads();
+  ring_gate(grid, u, done);
+
+  if (grid.units_k > 1) {
+    const bool next = u.k + 1 < grid.units_k;     // a successor reads it
+    const size_t last = static_cast<size_t>(u.nrows - 1) * cols;
+    auto agg = [&](int e) {
+      return d[static_cast<size_t>(e / cols) * m + last + e % cols];
+    };
+    if (next) {            // a chain's first unit publishes its prefix
+      uint32_t* out = vals + status_offset(grid, u.t, false, u.k == 0);
+      for (int e = threadIdx.x; e < n_row; e += nt) out[e] = agg(e);
+      publish_status(status_flag(grid, flags, u.t, false),
+                     u.k == 0 ? agg_tag + 1 : agg_tag);
+    }
+    if (u.k > 0) {
+      const int depth = lookback_depth(grid, u, false, min(u.k, grid.depth),
+                                       flags, scratch);
+      uint32_t* out = vals + status_offset(grid, u.t, false, true);
+      for (int e0 = threadIdx.x; e0 < n_row; e0 += kSumBatch * nt) {
+        uint32_t excl[kSumBatch];
+        lookback_sums(vals, scratch, depth, e0, n_row, excl);
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = i0 + b * nt;
-        if (i >= block) break;
-        const uint32_t q = d[i] + (p > 0 ? prev[b] : 0u);
-        if (keep) st_relaxed(pc + i, tagged(static_cast<unsigned>(p + 1), q));
-        d[i] = q;
+        for (int b = 0; b < kSumBatch; ++b) {
+          const int e = e0 + b * nt;
+          if (e >= n_row) break;
+          if (next) out[e] = excl[b] + agg(e);
+          uint32_t* col = d + static_cast<size_t>(e / cols) * m + e % cols;
+          for (int r = 0; r < u.nrows; ++r) col[r * cols] += excl[b];
+        }
+      }
+      if (next) {
+        publish_status(status_flag(grid, flags, u.t, false), agg_tag + 1);
       }
     }
     __syncthreads();
   }
+
+  if (grid.planes > 1) {
+    // f summed over the unit's planes, in place, then the plane carry from
+    // the plane groups before it (none if there is one group).
+    const bool next = u.g + 1 < grid.units_p;
+    const size_t top = static_cast<size_t>(u.n_planes - 1) * m;
+    uint32_t* out = vals + status_offset(grid, u.t, true, u.g == 0);
+    for (int e = threadIdx.x; e < m; e += nt) {
+      uint32_t run = 0;
+      for (int i = 0; i < u.n_planes; ++i) {
+        run += d[static_cast<size_t>(i) * m + e];
+        d[static_cast<size_t>(i) * m + e] = run;
+      }
+      if (next) out[e] = run;
+    }
+    if (next) {
+      publish_status(status_flag(grid, flags, u.t, true),
+                     u.g == 0 ? agg_tag + 1 : agg_tag);
+    }
+    if (u.g > 0) {
+      const int depth = lookback_depth(grid, u, true, min(u.g, grid.depth),
+                                       flags, scratch);
+      uint32_t* pre = vals + status_offset(grid, u.t, true, true);
+      for (int e0 = threadIdx.x; e0 < m; e0 += kSumBatch * nt) {
+        uint32_t excl[kSumBatch];
+        lookback_sums(vals, scratch, depth, e0, m, excl);
+#pragma unroll
+        for (int b = 0; b < kSumBatch; ++b) {
+          const int e = e0 + b * nt;
+          if (e >= m) break;
+          if (next) pre[e] = excl[b] + d[top + e];
+          for (int i = 0; i < u.n_planes; ++i) {
+            d[static_cast<size_t>(i) * m + e] += excl[b];
+          }
+        }
+      }
+      if (next) {
+        publish_status(status_flag(grid, flags, u.t, true), agg_tag + 1);
+      }
+    }
+    __syncthreads();
+  }
+
+  // Done: every read of the ring and every store to the slot above happen
+  // before the done word (the barrier above, then a release), and the gate
+  // that reads it acquires it.
+  __syncthreads();
+  if (threadIdx.x == 0) st_release_u32(done + u.t % grid.slots, u.t + 1u);
 }
 
-// Threads of an N-D block: enough for `lanes`, and for every column's
-// carry in one batch of tagged loads (kBatch a thread); at most 1024.
-inline int nd_threads(int cols, int lanes) {
-  const int col_threads = ((cols + kBatch - 1) / kBatch + 31) / 32 * 32;
-  const int t = col_threads > lanes ? col_threads : lanes;
-  return t > 1024 ? 1024 : t;
+// Write the unit's q, plane by plane, as the output type (positions past
+// n_out, the fake rows of a 2-D field's last tile, are not written).
+template <typename T>
+__device__ __forceinline__ void nd_write_out(const uint32_t* d,
+                                             const NdGrid& grid,
+                                             const NdUnit& u, long long n_out,
+                                             float two_eb,
+                                             T* __restrict__ out) {
+  const int block = grid.rows_per_tile * grid.cols;
+  const int m = u.nrows * grid.cols;
+  for (int i = 0; i < u.n_planes; ++i) {
+    const long long base = static_cast<long long>(nd_tile(grid, u, i, 0)) *
+                           block;
+    const int n_here =
+        static_cast<int>(min(static_cast<long long>(m), n_out - base));
+    write_out(d + static_cast<size_t>(i) * m, 0u, n_here, two_eb,
+              out + base);
+  }
+}
+
+// Block width bound of the N-D kernels (fused_decode.ND_MAX_THREADS), and
+// the blocks an SM holds at that width, which bound their registers to 64
+// (fused_decode.ND_REGS).
+constexpr int kNdMaxThreads = 512;
+constexpr int kNdMinBlocks = 2;
+
+// Whether `threads` threads a block can run the N-D protocol on `grid`:
+// lookback_depth polls one predecessor a lane of warp 0 (a whole warp,
+// depth 1 to 32), and ring_gate one unit a thread (2 x depth + 1 of them;
+// with fewer, a slot could be reused under a reader it never waited for).
+inline bool nd_launch_ok(const NdGrid& grid, int threads) {
+  return threads >= 32 && threads <= kNdMaxThreads && grid.depth >= 1 &&
+         grid.depth <= 32 && threads >= 2 * grid.depth + 1 &&
+         grid.slots >= 1;
 }
 
 }  // namespace repro_torch

@@ -36,6 +36,11 @@
 // live in shared memory beside the LUT, and the round ends in two block
 // barriers, the second a __syncthreads_or vote.
 //
+// Both kernels have a variant (kGlobalLut) that leaves a LUT too large for
+// shared memory (3 B an entry: max_len 17 and up) in device memory and
+// reads it through the read-only path; huffman_selfsync.selfsync_geometry
+// chooses it by size, before the launch.
+//
 // What bounds it on the H100: the byte floor is the payload, 8 B per
 // sequence (head and rounds) and 12 B written per subsequence (0.005 ms on a
 // 577,152-subsequence stream).  The real limit is the bit-serial decode
@@ -59,6 +64,7 @@ __device__ __forceinline__ int window_end(int sub, int total_bits) {
           static_cast<long long>(kRowBits)));
 }
 
+template <bool kGlobalLut>
 __global__ void __launch_bounds__(1024)
 selfsync_intra_warp_kernel(const uint32_t* __restrict__ units,
                            long long n_units, const int* __restrict__ heads,
@@ -71,10 +77,16 @@ selfsync_intra_warp_kernel(const uint32_t* __restrict__ units,
                            int* __restrict__ landing_out,
                            int* __restrict__ rounds_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* s_sym = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* s_len = smem + 2 * static_cast<size_t>(lut_size);
-  stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
-  __syncthreads();
+  const uint16_t* sym = dec_sym;
+  const uint8_t* len = dec_len;
+  if constexpr (!kGlobalLut) {
+    uint16_t* s_sym = reinterpret_cast<uint16_t*>(smem);
+    uint8_t* s_len = smem + 2 * static_cast<size_t>(lut_size);
+    stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
+    __syncthreads();
+    sym = s_sym;
+    len = s_len;
+  }
 
   const int lane = threadIdx.x & 31;
   const int seq = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -91,8 +103,9 @@ selfsync_intra_warp_kernel(const uint32_t* __restrict__ units,
   int count = 0, land = 0, rounds = 0;
   bool more = true;
   while (more) {                         // warp-uniform
-    count = decode_lane(row, start, end, s_sym, s_len, lut_size, 0, max_len,
-                        &land, [](int, int) { return true; });
+    count = decode_lane<kGlobalLut>(row, start, end, sym, len, lut_size, 0,
+                                    max_len, &land,
+                                    [](int, int) { return true; });
     const int prev = __shfl_up_sync(kFullMask, land, 1);
     const int next = lane == 0 ? start : prev - kSubseqBits;
     const bool changed = __any_sync(kFullMask, live && next != start);
@@ -108,6 +121,7 @@ selfsync_intra_warp_kernel(const uint32_t* __restrict__ units,
   if (lane == 0) rounds_out[seq] = rounds;
 }
 
+template <bool kGlobalLut>
 __global__ void selfsync_intra_block_kernel(
     const uint32_t* __restrict__ units, long long n_units,
     const int* __restrict__ heads, int sps, int total_bits,
@@ -119,9 +133,15 @@ __global__ void selfsync_intra_block_kernel(
   int* s_buf = reinterpret_cast<int*>(smem);     // starts, two buffers
   int* s_land = s_buf + 2 * sps;
   int* s_cnt = s_land + sps;
-  uint16_t* s_sym = reinterpret_cast<uint16_t*>(s_cnt + sps);
-  uint8_t* s_len = reinterpret_cast<uint8_t*>(s_sym + lut_size);
-  stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
+  const uint16_t* sym = dec_sym;
+  const uint8_t* len = dec_len;
+  if constexpr (!kGlobalLut) {
+    uint16_t* s_sym = reinterpret_cast<uint16_t*>(s_cnt + sps);
+    uint8_t* s_len = reinterpret_cast<uint8_t*>(s_sym + lut_size);
+    stage_lut(dec_sym, dec_len, lut_size, s_sym, s_len);
+    sym = s_sym;
+    len = s_len;
+  }
 
   const int seq = blockIdx.x;
   const int first = seq * sps;                   // first subsequence
@@ -147,9 +167,9 @@ __global__ void selfsync_intra_block_kernel(
         load_row(units, n_units, first + j, row);
       }
       int land;
-      s_cnt[j] = decode_lane(row, cur[j], window_end(first + j, total_bits),
-                             s_sym, s_len, lut_size, 0, max_len, &land,
-                             [](int, int) { return true; });
+      s_cnt[j] = decode_lane<kGlobalLut>(
+          row, cur[j], window_end(first + j, total_bits), sym, len, lut_size,
+          0, max_len, &land, [](int, int) { return true; });
       s_land[j] = land;
     }
     __syncthreads();
@@ -184,23 +204,63 @@ cudaError_t allow_smem(Kernel kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// Check the geometry against sps and launch the kernel it names.
+template <bool kGlobalLut>
+int launch(const uint32_t* u, long long n_units, const int* h, int n_seq,
+           int sps, int total_bits, const uint16_t* sym, const uint8_t* len,
+           int lut_size, int max_len, int early_exit, int seqs_per_block,
+           int threads, int smem, int* st, int* cn, int* ld, int* rd,
+           cudaStream_t s) {
+  const int lut_smem = kGlobalLut ? 0 : 3 * lut_size;
+  if (sps < 1 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
+      smem < lut_smem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (sps <= 32) {
+    if (threads != 32 * seqs_per_block) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t e =
+        allow_smem(selfsync_intra_warp_kernel<kGlobalLut>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int blocks = (n_seq + seqs_per_block - 1) / seqs_per_block;
+    selfsync_intra_warp_kernel<kGlobalLut><<<blocks, threads, smem, s>>>(
+        u, n_units, h, n_seq, sps, total_bits, sym, len, lut_size, max_len,
+        early_exit, st, cn, ld, rd);
+  } else {
+    if (seqs_per_block != 1 || smem < 16 * sps + lut_smem) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const cudaError_t e =
+        allow_smem(selfsync_intra_block_kernel<kGlobalLut>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    selfsync_intra_block_kernel<kGlobalLut><<<n_seq, threads, smem, s>>>(
+        u, n_units, h, sps, total_bits, sym, len, lut_size, max_len,
+        early_exit, st, cn, ld, rd);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace repro_torch
 
 // C entry point.  The geometry comes from the wrapper
 // (huffman_selfsync.py:selfsync_geometry): sps <= 32 runs the warp kernel
 // with seqs_per_block warps of 32 threads, sps > 32 the block kernel with
 // one sequence and `threads` threads a block; `smem` is a block's dynamic
-// shared memory.  A geometry that does not match sps is refused with
-// cudaErrorInvalidValue.  Launches on `stream`, allocates nothing, does not
-// synchronize; returns cudaGetLastError() (0 on success).
+// shared memory.  `global_lut` (0 or 1) selects the variants that read the
+// LUT from device memory instead of staging it.  A geometry that does not
+// match sps is refused with cudaErrorInvalidValue.  Launches on `stream`,
+// allocates nothing, does not synchronize; returns cudaGetLastError() (0 on
+// success).
 extern "C" int repro_selfsync_intra(const void* units, long long n_units,
                                     const void* heads, int n_seq, int sps,
                                     int total_bits, const void* dec_sym,
                                     const void* dec_len, int lut_size,
-                                    int max_len, int early_exit,
-                                    int seqs_per_block, int threads, int smem,
-                                    void* start, void* counts, void* landing,
-                                    void* rounds, void* stream) {
+                                    int max_len, int global_lut,
+                                    int early_exit, int seqs_per_block,
+                                    int threads, int smem, void* start,
+                                    void* counts, void* landing, void* rounds,
+                                    void* stream) {
   using namespace repro_torch;
   const auto* u = static_cast<const uint32_t*>(units);
   const auto* h = static_cast<const int*>(heads);
@@ -211,29 +271,11 @@ extern "C" int repro_selfsync_intra(const void* units, long long n_units,
   auto* ld = static_cast<int*>(landing);
   auto* rd = static_cast<int*>(rounds);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (sps < 1 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
-      smem < 3 * lut_size) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (sps <= 32) {
-    if (threads != 32 * seqs_per_block) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t e = allow_smem(selfsync_intra_warp_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const int blocks = (n_seq + seqs_per_block - 1) / seqs_per_block;
-    selfsync_intra_warp_kernel<<<blocks, threads, smem, s>>>(
-        u, n_units, h, n_seq, sps, total_bits, sym, len, lut_size, max_len,
-        early_exit, st, cn, ld, rd);
-  } else {
-    if (seqs_per_block != 1 || smem < 16 * sps + 3 * lut_size) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const cudaError_t e = allow_smem(selfsync_intra_block_kernel, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    selfsync_intra_block_kernel<<<n_seq, threads, smem, s>>>(
-        u, n_units, h, sps, total_bits, sym, len, lut_size, max_len,
-        early_exit, st, cn, ld, rd);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return global_lut
+             ? launch<true>(u, n_units, h, n_seq, sps, total_bits, sym, len,
+                            lut_size, max_len, early_exit, seqs_per_block,
+                            threads, smem, st, cn, ld, rd, s)
+             : launch<false>(u, n_units, h, n_seq, sps, total_bits, sym, len,
+                             lut_size, max_len, early_exit, seqs_per_block,
+                             threads, smem, st, cn, ld, rd, s);
 }

@@ -33,27 +33,30 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 #: C entry point and argument types of each kernel library.
 SIGNATURES = {
     "count_subseq": ("repro_count_subseq",
-                     [_P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P,
-                      _P, _P]),
+                     [_P, _L, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P]),
     "decode_tiles": ("repro_decode_tiles",
                      [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I,
                       _I, _I, _L, _I, _I, _I, _I, _I, _P, _P]),
     "decode_padded": ("repro_decode_padded",
-                      [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P]),
+                      [_P, _L, _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P,
+                       _P]),
     "decode_tiles_fused": ("repro_decode_tiles_fused",
                            [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
                             _I, _I, _I, _L, _I, _P, _P, _P, _I, _F, _P, _P,
                             _I, _P, _P]),
     "decode_tiles_fused_nd": ("repro_decode_tiles_fused_nd",
                               [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I,
-                               _P, _P, _P, _I, _F, _P, _P, _P, _I, _P, _P]),
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _L, _I, _P, _P, _P, _I, _F,
+                               _I, _I, _P, _P, _P, _P, _I, _P, _P]),
     "dequant_reconstruct": ("repro_dequant_reconstruct",
                             [_P, _I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P,
                              _P]),
     "dequant_reconstruct_nd": ("repro_dequant_reconstruct_nd",
-                               [_P, _I, _I, _I, _I, _I, _I, _L, _I, _P, _P,
-                                _P, _I, _F, _P, _P, _P, _I, _P, _P]),
+                               [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _L, _P, _P, _P, _I, _F, _I, _I, _P,
+                                _P, _P, _P, _I, _P, _P]),
     "lorenzo_quantize": ("repro_lorenzo_quantize",
                          [_P, _L, _P, _I, _F, _I, _P, _P, _P, _P]),
     "reconstruct1d": ("repro_reconstruct1d",
@@ -63,7 +66,7 @@ SIGNATURES = {
                    [_P, _P, _L, _P, _P, _I, _L, _I, _P, _P]),
     "selfsync_intra": ("repro_selfsync_intra",
                        [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _P, _P, _P, _P, _P]),
+                        _I, _I, _P, _P, _P, _P, _P]),
     "flash_attn": ("repro_flash_attn",
                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                     _P]),

@@ -9,9 +9,10 @@ Port of ``src/repro/kernels/fused_decode.py``:
     tiles by decoupled look-back) and ``cast(float(q) * 2eb)``
     (``csrc/decode_tiles_fused.cu``).
   * :func:`decode_tiles_fused_nd` -- the same for 2-D/3-D fields, with
-    whole-row tiles, a chained ``(cols,)`` row carry and a ``(rows, cols)``
-    plane carry handed on through global memory as tagged words
-    (``csrc/decode_tiles_fused_nd.cu``).
+    whole-row tiles taken a unit of tiles a block, and the ``(cols,)`` row
+    carry and the plane carry found by decoupled look-back over a ring of
+    flagged statuses in global memory (``csrc/decode_tiles_fused_nd.cu``;
+    the geometry from :func:`nd_geometry`).
   * :func:`dequant_reconstruct` / :func:`dequant_reconstruct_nd` -- the
     same epilogues alone, over a uint16 code array: the fused form of the
     padded decoder (``csrc/dequant_reconstruct.cu``,
@@ -38,7 +39,9 @@ with the ``-1`` padding at the tail, as both packages' ``compress`` write it.
 
 from __future__ import annotations
 
+import functools
 import math
+import typing
 
 import torch
 
@@ -51,9 +54,22 @@ OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: Shared scratch bytes of a fused block beside its tile and LUT (80 words:
 #: warp partials of the block scan, the ticket, the carry).
 SCRATCH_BYTES = 320
-#: Most whole tiles one block of the 2-D kernel takes, to shorten the chain.
+#: Most whole tiles one unit (block) of an N-D kernel takes.
 MAX_GROUP = 8
-
+#: Most chain predecessors an N-D unit's look-back reads before it waits
+#: for the last of them to publish its inclusive prefix (at most 32, the
+#: lanes of the warp that reads their flags): deep for 2-D, whose one row
+#: chain holds every unit in flight, shallow for 3-D, whose many short
+#: chains rarely hold more than a few, which keeps its ring small.
+LOOKBACK_DEPTH_2D = 32
+LOOKBACK_DEPTH_3D = 8
+#: Widest block of the N-D kernels and their register bound: the kernels'
+#: __launch_bounds__(512, 2) (csrc/fused.cuh: kNdMaxThreads, kNdMinBlocks).
+#: A unit of at least ``ND_WIDE_UNIT`` codes (a 2-D unit of wide rows)
+#: takes a block of 512 threads, any other 256.
+ND_MAX_THREADS = 512
+ND_REGS = 64
+ND_WIDE_UNIT = 16384
 
 
 def decode_tiles_fused_smem(tile_syms: int, lut: int) -> int:
@@ -63,8 +79,8 @@ def decode_tiles_fused_smem(tile_syms: int, lut: int) -> int:
 
 
 def decode_tiles_fused_nd_smem(block: int, lut: int) -> int:
-    """Shared memory of one ``decode_tiles_fused_nd`` block of ``block =
-    rows_per_tile * cols`` codes (the carries live in global memory)."""
+    """Shared memory of one ``decode_tiles_fused_nd`` block of ``block``
+    codes (a unit's tiles; the carries live in global memory)."""
     return decode_tiles_fused_smem(block, lut)
 
 
@@ -74,25 +90,150 @@ def dequant_reconstruct_smem(block: int) -> int:
     return decode_tiles_fused_smem(block, 0)
 
 
-def tile_group(shape, block: int, n_tiles: int, lut: int) -> int:
-    """Tiles one block of an N-D kernel takes: for 2-D as many whole tiles
-    as shared memory holds beside a ``lut``-entry LUT (0 for the epilogue),
-    at most ``MAX_GROUP``, so the one row-carry chain has ``group`` times
-    fewer steps; 1 for 3-D, whose chains run side by side."""
-    if len(shape) == 3:
-        return 1
+# ---------------------------------------------------------------------------
+# N-D units, tickets and the look-back ring (csrc/fused.cuh, "N-D carries")
+# ---------------------------------------------------------------------------
+
+
+def diagonal_first(d: int, rows: int, cols: int) -> int:
+    """Tickets before anti-diagonal ``d``: the first ticket on it."""
+    a, b = min(rows, cols), max(rows, cols)
+    if d <= a - 1:
+        return d * (d + 1) // 2
+    if d <= b:
+        return a * (a - 1) // 2 + (d - a + 1) * a
+    r = rows + cols - 1 - d
+    return rows * cols - r * (r + 1) // 2
+
+
+def diagonal_unit(t: int, rows: int, cols: int):
+    """The unit ``(g, k)`` that ticket ``t`` names: tickets go by
+    anti-diagonal ``d = g + k``, and by ``g`` within one."""
+    lo, hi = 0, rows + cols - 2
+    while lo < hi:                       # last d with diagonal_first <= t
+        mid = (lo + hi + 1) // 2
+        if diagonal_first(mid, rows, cols) <= t:
+            lo = mid
+        else:
+            hi = mid - 1
+    g = max(0, lo - (cols - 1)) + t - diagonal_first(lo, rows, cols)
+    return g, lo - g
+
+
+def diagonal_ticket(g: int, k: int, rows: int, cols: int) -> int:
+    """The ticket of unit ``(g, k)`` (the inverse of :func:`diagonal_unit`)."""
+    d = g + k
+    return diagonal_first(d, rows, cols) + g - max(0, d - (cols - 1))
+
+
+class NdGeometry(typing.NamedTuple):
+    """Launch geometry of an N-D kernel (:func:`nd_geometry`).
+
+    A unit, one block's work, is ``unit_planes`` planes x ``unit_tiles``
+    consecutive tiles of a plane (2-D: 1 x up to ``MAX_GROUP``; 3-D: up to
+    ``MAX_GROUP`` x 1); the units form a ``units_p`` x ``units_k`` grid
+    whose row chains carry along k and whose column chains carry along the
+    planes.  ``slots`` ring slots hold the statuses of the units in
+    flight, each chain's aggregate and inclusive prefix: ``row_words``
+    values for the row carry (one (cols,) vector a plane of the unit) and
+    ``plane_words`` for the plane carry (the unit's rows of one plane),
+    with a flag each and a done word.  ``depth`` bounds a look-back;
+    ``resident`` is what the card holds at once."""
+    rows_per_tile: int
+    cols: int
+    planes: int
+    tiles_per_plane: int
+    unit_planes: int
+    unit_tiles: int
+    units_p: int
+    units_k: int
+    threads: int
+    smem: int
+    resident: int
+    depth: int
+    slots: int
+    row_words: int
+    plane_words: int
+
+    @property
+    def units(self) -> int:
+        return self.units_p * self.units_k
+
+    @property
+    def slot_words(self) -> int:
+        return self.row_words + self.plane_words
+
+    @property
+    def scratch_words(self) -> int:
+        """uint32 words of the zeroed scratch: the ticket, and three words
+        a slot (its done word, its row and plane status flags)."""
+        return 1 + 3 * self.slots
+
+    @property
+    def value_words(self) -> int:
+        """uint32 words of the ring's values (any contents): a slot holds
+        each chain's aggregate and inclusive prefix."""
+        return 2 * self.slots * self.slot_words
+
+
+def _nd_unit_geometry(shape, rows_per_tile: int, n_tiles: int, lut: int,
+                      sm_count: int, group: int):
+    rows, cols = shape[-2], shape[-1]
+    planes = shape[0] if len(shape) == 3 else 1
+    block = rows_per_tile * cols
+    tiles_per_plane = rows // rows_per_tile if planes > 1 else n_tiles
+    gp, gk = (group, 1) if planes > 1 else (1, group)
+    units_p, units_k = -(-planes // gp), -(-tiles_per_plane // gk)
+    threads = ND_MAX_THREADS if group * block >= ND_WIDE_UNIT else 256
+    smem = decode_tiles_fused_nd_smem(group * block, lut)
+    resident = sm_count * K.resident_blocks(threads, smem, ND_REGS)
+    depth = LOOKBACK_DEPTH_3D if planes > 1 else LOOKBACK_DEPTH_2D
+    a = min(units_p, units_k)
+    slots = min(units_p * units_k, (depth + 1) * a + resident)
+    return NdGeometry(
+        rows_per_tile=rows_per_tile, cols=cols, planes=planes,
+        tiles_per_plane=tiles_per_plane,
+        unit_planes=gp, unit_tiles=gk, units_p=units_p, units_k=units_k,
+        threads=threads, smem=smem, resident=resident, depth=depth,
+        slots=slots, row_words=gp * cols if units_k > 1 else 0,
+        plane_words=gk * block if units_p > 1 else 0)
+
+
+@functools.lru_cache(maxsize=256)
+def nd_geometry(shape, rows_per_tile: int, n_tiles: int, lut: int,
+                sm_count: int) -> NdGeometry:
+    """Launch geometry of ``decode_tiles_fused_nd`` (a ``lut``-entry LUT)
+    or of ``dequant_reconstruct_nd`` (``lut`` 0) for ``n_tiles`` tiles
+    of ``rows_per_tile`` rows of the squeezed ``shape``, on a card of
+    ``sm_count`` SMs.
+
+    The group (tiles a unit: along k for 2-D, along the planes for 3-D) is
+    at most ``MAX_GROUP``, the tiles along that axis and what shared memory
+    holds beside the LUT.  A 2-D field takes the largest: its one row chain
+    is as short as it can be.  A 3-D field takes the one with the fewest
+    waves of resident blocks times tiles a unit plus one (a unit's fixed
+    cost of its look-backs), the larger on a tie: fewer, larger units
+    write fewer statuses.  The block is 512 threads wide for a unit of
+    ``ND_WIDE_UNIT`` codes or more, else 256; the decode lanes and the
+    elements of the scans and carries loop over it.  The ring holds
+    ``(depth + 1) x`` (the longest anti-diagonal) slots beyond the resident
+    blocks (see csrc/fused.cuh for why), or one a unit if that is fewer.
+    """
+    block = rows_per_tile * shape[-1]
+    along = shape[0] if len(shape) == 3 else n_tiles
     fit = (K.SMEM_LIMIT - decode_tiles_fused_nd_smem(0, lut)) // (4 * block)
-    return max(1, min(MAX_GROUP, n_tiles, fit))
-
-
-def ring_slots(shape, rows_per_tile: int) -> int:
-    """Row-carry ring vectors of the N-D kernel: 1 for 2-D; for 3-D
-    ``min(planes, tiles a plane)``, which keeps every wait of the kernel's
-    diagonal tile order on an earlier diagonal and the ring no larger than
-    the plane carry."""
+    top = max(1, min(MAX_GROUP, along, fit))
     if len(shape) == 2:
-        return 1
-    return min(shape[0], shape[1] // rows_per_tile)
+        return _nd_unit_geometry(shape, rows_per_tile, n_tiles, lut,
+                                 sm_count, top)
+    best = None
+    for group in range(1, top + 1):
+        geo = _nd_unit_geometry(shape, rows_per_tile, n_tiles, lut,
+                                sm_count, group)
+        cost = -(-geo.units // max(geo.resident, 1)) * (group + 1)
+        if best is None or cost <= best[0]:
+            best = (cost, geo)
+    return best[1]
 
 
 def _reconstruct_plain(codes, opos, oval, two_eb: float, radius: int, shape,
@@ -241,28 +382,30 @@ def _nd_geometry(shape, rows_per_tile: int):
 
 
 class _NdLaunch:
-    """Grid and carry scratch of one N-D kernel launch: ``group`` tiles a
-    unit (:func:`tile_group`), ``units_per_plane`` units a plane, the ring
-    of ``slots`` row-carry vectors (:func:`ring_slots`), and one zeroed
-    int64 buffer holding the ticket (8 B), the ring (slots x cols tagged
-    words) and, for 3-D, the plane carry (rows x cols tagged words)."""
+    """One N-D kernel launch: its geometry (:func:`nd_geometry`), one zeroed
+    int32 buffer holding the ticket and the ring's done words and status
+    flags, and the ring's values."""
 
     def __init__(self, shape, rows_per_tile: int, n_tiles: int, lut: int,
                  device):
-        rows, self.cols = shape[-2], shape[-1]
-        self.planes = shape[0] if len(shape) == 3 else 1
-        block = rows_per_tile * self.cols
-        self.group = tile_group(shape, block, n_tiles, lut)
-        self.units_per_plane = (rows // rows_per_tile if self.planes > 1
-                                else (n_tiles + self.group - 1) // self.group)
-        self.slots = ring_slots(shape, rows_per_tile)
-        n_plane = rows * self.cols if self.planes > 1 else 0
-        self.scratch = torch.zeros(1 + self.slots * self.cols + n_plane,
-                                   dtype=torch.int64, device=device)
+        self.geo = nd_geometry(shape, rows_per_tile, n_tiles, lut,
+                               K.sm_count(device.index))
+        self.scratch = torch.zeros(self.geo.scratch_words, dtype=torch.int32,
+                                   device=device)
+        self.values = torch.empty(self.geo.value_words, dtype=torch.int32,
+                                  device=device)
         self.ticket = self.scratch.data_ptr()
-        self.row_carry = self.ticket + 8
-        self.plane_carry = (self.row_carry + 8 * self.slots * self.cols
-                            if self.planes > 1 else None)
+        self.done = self.ticket + 4
+        self.flags = self.done + 4 * self.geo.slots
+        self.vals = self.values.data_ptr()
+
+    def grid_args(self):
+        """The C entry points' grid arguments, rows_per_tile to
+        plane_words."""
+        g = self.geo
+        return (g.rows_per_tile, g.cols, g.planes, g.tiles_per_plane,
+                g.unit_planes, g.unit_tiles, g.units_p, g.units_k, g.slots,
+                g.depth, g.row_words, g.plane_words)
 
 
 def decode_tiles_fused_nd_plain(units, start_abs, end_abs, offsets, s0,
@@ -316,11 +459,11 @@ def decode_tiles_fused_nd(units, start_abs, end_abs, offsets, s0,
                 end_abs.data_ptr(), offsets.data_ptr(), s0.data_ptr(),
                 None if lut_base is None else lut_base.data_ptr(),
                 start_abs.shape[0], int(total_bits), dec_sym.data_ptr(),
-                dec_len.data_ptr(), lut, max_len, rows_per_tile, g.cols,
-                g.planes, g.units_per_plane, g.group, g.slots, ss_max, n_out,
-                n_tiles, opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(),
-                radius, two_eb, g.ticket, g.row_carry, g.plane_carry,
-                OUT_KINDS[out_dtype], out.data_ptr(),
+                dec_len.data_ptr(), lut, max_len, *g.grid_args(), ss_max,
+                n_out, n_tiles,
+                opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(), radius,
+                two_eb, g.geo.threads, g.geo.smem, g.ticket, g.done, g.flags,
+                g.vals, OUT_KINDS[out_dtype], out.data_ptr(),
                 K._stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"decode_tiles_fused_nd kernel launch failed: "
@@ -432,11 +575,10 @@ def dequant_reconstruct_nd(codes, opos, oval, obounds, two_eb: float,
     out = torch.empty(n_out, dtype=out_dtype, device=codes.device)
     g = _NdLaunch(shape, rows_per_tile, n_tiles, 0, codes.device)
     launch = _build.load("dequant_reconstruct_nd")
-    rc = launch(codes.data_ptr(), rows_per_tile, g.cols, g.planes,
-                g.units_per_plane, g.group, g.slots, n_out, n_tiles,
+    rc = launch(codes.data_ptr(), *g.grid_args(), n_out,
                 opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(), radius,
-                two_eb, g.ticket, g.row_carry, g.plane_carry,
-                OUT_KINDS[out_dtype], out.data_ptr(),
+                two_eb, g.geo.threads, g.geo.smem, g.ticket, g.done, g.flags,
+                g.vals, OUT_KINDS[out_dtype], out.data_ptr(),
                 K._stream_ptr(codes.device))
     if rc != 0:
         raise RuntimeError(f"dequant_reconstruct_nd kernel launch failed: "

@@ -5,12 +5,16 @@ Port of ``src/repro/kernels/huffman_decode.py``:
   * :func:`count_subseq` -- phase 1 ("get output idx."): codewords and
     landing position per subsequence window (``csrc/count_subseq.cu``).
   * :func:`decode_tiles` -- phase 4 (paper Alg. 1): tile-staged decode and
-    dense write of the quant codes (``csrc/decode_tiles.cu``), with the LUT
-    staged in shared memory or, when it does not fit there (a merged
-    multi-tensor LUT), read from device memory.
+    dense write of the quant codes (``csrc/decode_tiles.cu``).
   * :func:`decode_padded` -- phase 4 of the padded baseline: each
     subsequence decodes into its own row of a ``(n_subseq, 128)`` array,
     the original decoders' scattered writes (``csrc/decode_padded.cu``).
+
+Each kernel stages its LUT in shared memory when it fits, and otherwise
+(a merged multi-tensor LUT, or ``max_len`` 17-24) launches a variant that
+reads it from device memory; the wrapper chooses by size, before the
+launch (:func:`count_subseq_lut_in_smem`, :func:`decode_tiles_lut_in_smem`,
+:func:`decode_padded_lut_in_smem`).
 
 Each wrapper checks its inputs, then launches its CUDA kernel for CUDA
 tensors and runs its plain version (``*_plain``, beside it) for CPU
@@ -136,17 +140,26 @@ def _balanced_grid(work: int, resident: int) -> int:
     return -(-work // rounds)
 
 
+def count_subseq_lut_in_smem(lut: int) -> bool:
+    """Whether ``count_subseq`` stages its ``lut``-entry length table in
+    shared memory (up to max_len 17) or launches the variant that reads it
+    from device memory.  Chosen by size, before the launch."""
+    return _round16(lut) <= SMEM_LIMIT
+
+
 def count_subseq_geometry(n: int, lut: int, sm_count: int):
     """Launch geometry of :func:`count_subseq` for ``n`` windows and a
     ``lut``-entry LUT on a card of ``sm_count`` SMs: ``(blocks, threads,
     shared memory bytes a block)``.
 
-    A block stages the uint8 length table alone.  The grid holds at most
+    A block stages the uint8 length table alone, or nothing when the table
+    does not fit shared memory (:func:`count_subseq_lut_in_smem`: the
+    variant that reads it from device memory).  The grid holds at most
     as many blocks as the SMs hold resident and never more than
     ``ceil(n / threads)``; each thread takes the same number of windows
     (a grid stride), so no partial wave of blocks is left at the end.
     """
-    smem = _round16(lut)
+    smem = _round16(lut) if count_subseq_lut_in_smem(lut) else 0
     resident = sm_count * resident_blocks(COUNT_THREADS, smem, COUNT_REGS)
     return (_balanced_grid(-(-n // COUNT_THREADS), resident), COUNT_THREADS,
             smem)
@@ -185,8 +198,16 @@ def sm_count(index: int) -> int:
 
 
 def decode_padded_smem(lut: int) -> int:
-    """Shared memory of one ``decode_padded`` block: the LUT alone."""
+    """Shared memory of one ``decode_padded`` block: the LUT alone (``lut``
+    0 for the variant that reads it from device memory)."""
     return 3 * lut
+
+
+def decode_padded_lut_in_smem(lut: int) -> bool:
+    """Whether ``decode_padded`` stages its ``lut``-entry LUT in shared
+    memory (up to max_len 16) or launches the variant that reads it from
+    device memory.  Chosen by size, before the launch."""
+    return decode_padded_smem(lut) <= SMEM_LIMIT
 
 
 def _check_smem(name, nbytes):
@@ -221,7 +242,9 @@ def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
 
     units: uint32[n_units]; start_abs/end_abs: int32[n]; dec_sym:
     uint16[lut]; dec_len: uint8[lut].  Returns ``(counts, landing)``
-    int32[n], ``landing`` row-local as in the reference.
+    int32[n], ``landing`` row-local as in the reference.  A length table
+    too large for shared memory (:func:`count_subseq_lut_in_smem`) is read
+    from device memory.
     """
     _check_stream(units, dec_sym, dec_len, max_len, total_bits,
                   {"start_abs": start_abs, "end_abs": end_abs})
@@ -244,7 +267,8 @@ def count_subseq(units, start_abs, end_abs, total_bits: int, dec_sym,
     launch = _build.load("count_subseq")
     rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
                 end_abs.data_ptr(), n, int(total_bits), dec_len.data_ptr(),
-                lut, max_len, blocks, threads, smem, counts.data_ptr(),
+                lut, max_len, 0 if count_subseq_lut_in_smem(lut) else 1,
+                blocks, threads, smem, counts.data_ptr(),
                 landing.data_ptr(), _stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"count_subseq kernel launch failed: CUDA error "
@@ -374,7 +398,9 @@ def decode_padded(units, start_abs, end_abs, total_bits: int, dec_sym,
     units: uint32[n_units]; start_abs/end_abs: int32[n]; dec_sym:
     uint16[lut]; dec_len: uint8[lut].  Returns ``(padded, counts)``:
     uint16[n, 128], the k-th code of subsequence i at ``padded[i, min(k,
-    127)]`` and zeros past its count, and int32[n] counts.
+    127)]`` and zeros past its count, and int32[n] counts.  A LUT too
+    large for shared memory (:func:`decode_padded_lut_in_smem`) is read
+    from device memory.
     """
     _check_stream(units, dec_sym, dec_len, max_len, total_bits,
                   {"start_abs": start_abs, "end_abs": end_abs})
@@ -386,7 +412,7 @@ def decode_padded(units, start_abs, end_abs, total_bits: int, dec_sym,
         return decode_padded_plain(units, start_abs, end_abs, total_bits,
                                    dec_sym, dec_len, max_len)
     lut = dec_sym.numel()
-    _check_smem("decode_padded", decode_padded_smem(lut))
+    lut_in_smem = decode_padded_lut_in_smem(lut)
     n = start_abs.shape[0]
     padded = torch.empty((n, C.MAX_SYMS), dtype=torch.uint16,
                          device=units.device)
@@ -396,8 +422,9 @@ def decode_padded(units, start_abs, end_abs, total_bits: int, dec_sym,
     launch = _build.load("decode_padded")
     rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
                 end_abs.data_ptr(), n, int(total_bits), dec_sym.data_ptr(),
-                dec_len.data_ptr(), lut, max_len, padded.data_ptr(),
-                counts.data_ptr(), _stream_ptr(units.device))
+                dec_len.data_ptr(), lut, max_len, 0 if lut_in_smem else 1,
+                padded.data_ptr(), counts.data_ptr(),
+                _stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"decode_padded kernel launch failed: CUDA error "
                            f"{rc}")

@@ -12,8 +12,10 @@ round's starts).  With ``early_exit`` the rounds stop at the fixed point
 without it, exactly ``subseqs_per_seq`` rounds run.  The inter-sequence
 chaining of heads is ``ops.selfsync_sync``.
 
-The wrapper launches ``csrc/selfsync_intra.cu`` for CUDA tensors and runs
-:func:`selfsync_intra_plain` for CPU tensors; any other device raises.
+The wrapper launches ``csrc/selfsync_intra.cu`` for CUDA tensors (the LUT
+staged in shared memory, or read from device memory when it does not fit
+there) and runs :func:`selfsync_intra_plain` for CPU tensors; any other
+device raises.
 Its launches are counted in ``selfsync_intra.launches``.
 """
 
@@ -26,9 +28,18 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import common as C
 from repro_torch.kernels import launches
 from repro_torch.kernels.huffman_decode import (BLOCK_SMEM_RESERVED,
-                                                SM_SMEM, SM_WARPS,
+                                                SM_SMEM, SM_WARPS, SMEM_LIMIT,
                                                 _check_smem, _check_stream,
                                                 _expect, _stream_ptr)
+
+
+def selfsync_lut_in_smem(subseqs_per_seq: int, lut: int) -> bool:
+    """Whether ``selfsync_intra`` stages its ``lut``-entry LUT in shared
+    memory (it fits beside what the block keeps there) or launches the
+    variant that reads it from device memory.  Chosen by size, before the
+    launch."""
+    lanes = 0 if subseqs_per_seq <= 32 else 16 * subseqs_per_seq
+    return lanes + 3 * lut <= SMEM_LIMIT
 
 
 def selfsync_geometry(subseqs_per_seq: int, lut: int):
@@ -44,15 +55,18 @@ def selfsync_geometry(subseqs_per_seq: int, lut: int):
     default 4,096-entry LUT: eight blocks an SM).  Past 32 lanes one block
     of ``round_up(sps, 32)`` threads (at most 1,024) runs a sequence and
     also holds two start buffers, the landings and the counts of its lanes
-    (int32 each).
+    (int32 each).  A LUT that does not fit beside them
+    (:func:`selfsync_lut_in_smem`) stays in device memory and takes no
+    shared memory.
     """
+    staged = 3 * lut if selfsync_lut_in_smem(subseqs_per_seq, lut) else 0
     if subseqs_per_seq <= 32:
-        smem = 3 * lut
+        smem = staged
         fit = max(1, SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
         warps = min(max(-(-SM_WARPS // fit), 8), 32)
         return warps, 32 * warps, smem
     threads = min(-(-subseqs_per_seq // 32) * 32, 1024)
-    return 1, threads, 16 * subseqs_per_seq + 3 * lut
+    return 1, threads, 16 * subseqs_per_seq + staged
 
 
 def selfsync_smem(subseqs_per_seq: int, lut: int) -> int:
@@ -158,7 +172,9 @@ def selfsync_intra(units, heads, total_bits: int, dec_sym, dec_len,
     launch = _build.load("selfsync_intra")
     rc = launch(units.data_ptr(), units.numel(), heads.data_ptr(), n_seq,
                 subseqs_per_seq, int(total_bits), dec_sym.data_ptr(),
-                dec_len.data_ptr(), lut, max_len, int(bool(early_exit)),
+                dec_len.data_ptr(), lut, max_len,
+                0 if selfsync_lut_in_smem(subseqs_per_seq, lut) else 1,
+                int(bool(early_exit)),
                 seqs_per_block, threads, smem, start.data_ptr(),
                 counts.data_ptr(), landing.data_ptr(), rounds.data_ptr(),
                 _stream_ptr(units.device))

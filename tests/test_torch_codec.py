@@ -243,12 +243,13 @@ def test_naive_ref_method():
 
 
 @pytest.mark.parametrize("max_len,tile_syms,ok", [
-    (16, 4096, True), (17, 4096, False), (15, 67072, True),
-    (15, 67073, False)])
+    (16, 4096, True), (17, 4096, True), (24, 116224, True),
+    (24, 116225, False)])
 def test_cuda_backend_shared_memory_bound(max_len, tile_syms, ok):
-    """On "cuda", a decode_tiles block's tile and LUT must fit Hopper's
-    shared memory: the config refuses what the kernels would refuse."""
-    smem = K.decode_tiles_smem(tile_syms, 1 << max_len)
+    """On "cuda", a decode_tiles block's staging tile must fit Hopper's
+    shared memory (a LUT that does not fit beside it is read from device
+    memory): the config refuses what the kernels would refuse."""
+    smem = K.decode_tiles_smem(tile_syms, 0)
     assert (smem <= K.SMEM_LIMIT) == ok
     if ok:
         CodecConfig(max_len=max_len, tile_syms=tile_syms)
@@ -326,7 +327,7 @@ def test_unported_options_raise(field, value, item):
 
 @pytest.mark.parametrize("kw", [dict(eb=0), dict(mode="x"), dict(method="x"),
                                 dict(strategy="x"), dict(backend="pallas"),
-                                dict(encode_backend="x"), dict(max_len=17),
+                                dict(encode_backend="x"), dict(max_len=0),
                                 dict(radius=1), dict(max_len=25),
                                 dict(tile_syms=0), dict(subseqs_per_seq=0),
                                 dict(fused=1), dict(plan_cache_size=-1),
@@ -334,3 +335,16 @@ def test_unported_options_raise(field, value, item):
 def test_config_validation(kw):
     with pytest.raises((ValueError, RuntimeError)):
         CodecConfig(**kw)
+
+
+@pytest.mark.parametrize("max_len", [17, 20, 24])
+@pytest.mark.parametrize("method", ["gap", "selfsync"])
+def test_cuda_config_accepts_long_codes(max_len, method):
+    """"cuda" accepts max_len 17-24, as the reference does on every
+    backend: each kernel whose LUT outgrows shared memory reads it from
+    device memory instead."""
+    config = CodecConfig(max_len=max_len, method=method)
+    assert config.backend == "cuda" and config.max_len == max_len
+    lut = 1 << max_len
+    assert not K.decode_padded_lut_in_smem(lut)
+    assert K.count_subseq_lut_in_smem(lut) == (max_len == 17)

@@ -120,13 +120,150 @@ def test_default_codec_round_trip(cuda):
 
 def test_shared_memory_bound(cuda):
     """A LUT whose lengths alone (count_subseq stages nothing else) cannot
-    sit in shared memory raises."""
-    units = torch.zeros(128, dtype=torch.uint32, device=cuda)
-    s = torch.zeros(32, dtype=torch.int32, device=cuda)
-    ds = torch.zeros(1 << 18, dtype=torch.uint16, device=cuda)
-    dl = torch.zeros(1 << 18, dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        K.count_subseq(units, s, s + 128, 0, ds, dl, 18)
+    sit in shared memory (2**18 entries) launches the variant that reads
+    them from device memory, and equals the plain version."""
+    assert not K.count_subseq_lut_in_smem(1 << 18)
+    assert K.count_subseq_geometry(32, 1 << 18, K.sm_count(0))[2] == 0
+    rng = np.random.default_rng(18)
+    units = torch.from_numpy(rng.integers(0, 2**32, 4096, dtype=np.uint64)
+                             .astype(np.uint32)).to(cuda)
+    start = torch.arange(1000, dtype=torch.int32, device=cuda) * 128 + \
+        torch.from_numpy(rng.integers(0, 40, 1000).astype(np.int32)).to(cuda)
+    ds = torch.from_numpy(rng.integers(0, 1000, 1 << 18).astype(np.uint16)
+                          ).to(cuda)
+    dl = torch.from_numpy(rng.integers(0, 19, 1 << 18).astype(np.uint8)
+                          ).to(cuda)
+    args = (units, start, start + 128, 4096 * 32, ds, dl, 18)
+    before = K.count_subseq.launches
+    kc, kl = K.count_subseq(*args)
+    assert K.count_subseq.launches == before + 1
+    pc, pl = K.count_subseq_plain(*args)
+    assert torch.equal(kc, pc) and torch.equal(kl, pl)
+    assert int(kc.sum()) > 1000
+
+
+@pytest.fixture
+def no_plain_versions(monkeypatch):
+    """Every decode kernel's plain version raises if called: a wrapper
+    handed a CUDA tensor must launch its kernel (the shared-memory variant
+    or the device-memory one), never fall back to torch ops."""
+    from repro_torch.kernels import fused_decode as fd
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    for mod, name in ((K, "count_subseq_plain"), (K, "decode_tiles_plain"),
+                      (K, "decode_padded_plain"),
+                      (S, "selfsync_intra_plain"),
+                      (fd, "decode_tiles_fused_plain"),
+                      (fd, "decode_tiles_fused_nd_plain"),
+                      (fd, "dequant_reconstruct_plain"),
+                      (fd, "dequant_reconstruct_nd_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+LONG_CODE_KERNELS = {
+    ("tile", "gap"): ("count_subseq", "decode_tiles"),
+    ("padded", "gap"): ("count_subseq", "decode_padded"),
+    ("tuned", "gap"): ("count_subseq", "decode_tiles"),
+    ("tile", "selfsync"): ("selfsync_intra", "decode_tiles"),
+    ("padded", "selfsync"): ("selfsync_intra", "decode_padded"),
+    ("tuned", "selfsync"): ("selfsync_intra", "decode_tiles"),
+}
+
+
+@pytest.fixture(scope="module")
+def long_code_payload():
+    """A 3-D field compressed on the CPU by the "ref" codec at max_len 20
+    (a 2**20-entry LUT, 3 MB: past shared memory for every decode kernel),
+    and its "ref" decompress."""
+    shape = (24, 50, 60)
+    rng = np.random.default_rng(20)
+    x = smooth_field(shape, seed=20) + np.float32(3e-2) * \
+        rng.standard_normal(shape).astype(np.float32)
+    ref = Codec(CodecConfig(max_len=20, backend="ref"))
+    c = ref.compress(torch.from_numpy(x))
+    return c, ref.decompress(c)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("strategy,method", list(LONG_CODE_KERNELS))
+def test_long_codes_decode_on_card(cuda, no_plain_versions,
+                                   long_code_payload, strategy, method,
+                                   fused):
+    """A max_len 20 stream decodes through the default "cuda" Codec bit for
+    bit against backend="ref", on every strategy, both methods, fused on
+    and off, through the kernels' device-memory LUT variants; the fused
+    tile path falls back to two-pass (its LUT does not fit beside a tile),
+    counted, and the padded fused epilogue (no LUT) runs."""
+    c, want = long_code_payload
+    assert c.codebook.max_len == 20
+    codec = Codec(CodecConfig(max_len=20, strategy=strategy, method=method,
+                              fused=fused))
+    cc = c.to(codec.device)
+    codec.reset_stats()
+    launches.reset()
+    y = codec.decompress(cc)
+    counts = launches.counts()
+    assert y.device.type == "cuda" and torch.equal(y.cpu(), want)
+    for name in LONG_CODE_KERNELS[(strategy, method)]:
+        assert counts[name] >= 1, (name, counts)
+    if fused and strategy == "padded":
+        assert counts["dequant_reconstruct_nd"] == 1
+        assert codec.stats["fused_dispatches"] == 1
+    elif fused:
+        assert codec.stats["fused_fallbacks"] >= 1
+        assert counts["decode_tiles_fused_nd"] == 0
+
+
+
+@pytest.fixture(scope="module")
+def wide_tile_payload():
+    """A 3-D field of 600,000 values compressed on the CPU by the "ref"
+    codec, half of its planes zero (sequences of compression ratio 16, so
+    class 16 at t_high 113), and its "ref" decompress."""
+    shape = (60, 100, 100)
+    rng = np.random.default_rng(21)
+    x = smooth_field(shape, seed=21) + np.float32(1e-2) * \
+        rng.standard_normal(shape).astype(np.float32)
+    x[:30] = 0
+    ref = Codec(CodecConfig(backend="ref"))
+    c = ref.compress(torch.from_numpy(x))
+    return c, ref.decompress(c)
+
+
+@pytest.mark.parametrize("strategy,method,tile_syms,t_high", [
+    ("tile", "gap", 116224, hp.T_HIGH_DEFAULT),
+    ("tile", "selfsync", 116224, hp.T_HIGH_DEFAULT),
+    ("tuned", "gap", 4096, 113),
+    ("tuned", "selfsync", 4096, 113)])
+def test_widest_staging_tiles_decode_on_card(cuda, no_plain_versions,
+                                            wide_tile_payload, strategy,
+                                            method, tile_syms, t_high):
+    """The widest tiles a "cuda" config accepts decode bit for bit against
+    backend="ref" on the tile, tuned and opt self-sync paths: tile_syms
+    116,224 (the staging tile alone fills shared memory; decode_tiles
+    reads the LUT from device memory) and t_high 113 (class tiles up to
+    115,712 codes; this field's sequences reach class 16, past the
+    default t_high's overflow class)."""
+    c, want = wide_tile_payload
+    codec = Codec(CodecConfig(strategy=strategy, method=method,
+                              tile_syms=tile_syms, t_high=t_high))
+    cc = c.to(codec.device)
+    launches.reset()
+    y = codec.decompress(cc)
+    counts = launches.counts()
+    assert y.device.type == "cuda" and torch.equal(y.cpu(), want)
+    assert counts["decode_tiles"] >= 1
+    assert counts["selfsync_intra" if method == "selfsync"
+                  else "count_subseq"] >= 1
+    if strategy == "tile":
+        assert -(-c.n_symbols // tile_syms) > 1
+        assert not K.decode_tiles_lut_in_smem(tile_syms,
+                                              1 << c.codebook.max_len)
+    else:
+        assert int(codec.plan_for(cc).classes.classes.max()) > \
+            hp.T_HIGH_DEFAULT
 
 
 def test_cpu_inputs_never_launch(cuda):
@@ -362,21 +499,39 @@ def _fused_payload(cuda, shape, seed, noise, dtype, radius=512, max_len=12):
 FUSED_CASES = {
     # 15,625 tiles of 64 codes: a long decoupled look-back
     "1d-64-code-tiles": ((1_000_000,), 64, 1e-3, 512, 12, "decode_tiles_fused"),
-    # one row per tile: a 20,000-tile row-carry chain
+    # one row per tile: one row chain of 2,500 units of 8 tiles
     "2d-row-per-tile": ((20000, 64), 64, 1e-3, 512, 12,
                         "decode_tiles_fused_nd"),
-    # 200 planes of 4 tiles: a ring of 4 row-carry vectors, so each
-    # plane's first tile waits for the plane 4 before it; fused_tile_rows
-    # steps w from 10 down to 8
+    # 200 planes of 4 tiles, 2 planes a unit: more plane groups than units
+    # a plane; fused_tile_rows steps w from 10 down to 8
     "3d-200-planes": ((200, 32, 48), 512, 1e-3, 512, 12,
                       "decode_tiles_fused_nd"),
-    # 4 planes of 50 tiles: fewer planes than tiles a plane (the last
-    # diagonals of the tile order shrink)
+    # 4 planes of 50 tiles: fewer planes than units a plane (the last
+    # diagonals of the unit order shrink)
     "3d-4-planes": ((4, 600, 40), 512, 1e-3, 512, 12,
                     "decode_tiles_fused_nd"),
     # most codes are outliers
     "outlier-dense": ((300, 500), 4096, 5e-2, 4, 12,
                       "decode_tiles_fused_nd"),
+    # one unit: no carry at all
+    "2d-one-unit": ((7, 9), 4096, 1e-3, 512, 12, "decode_tiles_fused_nd"),
+    # 2,501 units of 8 one-row tiles, the last one partial, more than the
+    # ring's 561 slots and the 528 resident blocks
+    "2d-partial-group": ((20001, 64), 64, 1e-3, 512, 12,
+                         "decode_tiles_fused_nd"),
+    # 400 planes of 32 two-row tiles: 2,560 units of 5 planes, more than
+    # the ring's 816 slots: slots are reused behind the gate
+    "3d-ring-reuse": ((400, 64, 20), 64, 1e-3, 512, 12,
+                      "decode_tiles_fused_nd"),
+    # 256 planes in groups of 7: the last group holds 4
+    "3d-partial-plane-group": ((256, 100, 16), 64, 1e-3, 512, 12,
+                               "decode_tiles_fused_nd"),
+    # one tile a plane: plane chains only
+    "3d-one-tile-a-plane": ((50, 8, 300), 4096, 1e-3, 512, 12,
+                            "decode_tiles_fused_nd"),
+    # one plane: squeezed to 2-D
+    "3d-one-plane": ((1, 300, 40), 512, 1e-3, 512, 12,
+                     "decode_tiles_fused_nd"),
 }
 
 
@@ -425,7 +580,8 @@ def test_fused_row_at_the_shared_memory_bound(cuda):
 
 
 @pytest.mark.parametrize("case", ["1d-64-code-tiles", "2d-row-per-tile",
-                                  "3d-200-planes", "3d-4-planes"])
+                                  "3d-200-planes", "3d-4-planes",
+                                  "2d-partial-group", "3d-ring-reuse"])
 def test_fused_repeated_launches_identical(cuda, case):
     """20 launches on one stream, all bit-identical: a race in the carry
     scratch or the ticket order would show as a difference."""
@@ -557,16 +713,30 @@ EPILOGUE_CASES = {
                          "dequant_reconstruct"),
     # the padded path's 4,096-code tiles
     "1d-4096": ((300_001,), 4096, 1e-3, 512, "dequant_reconstruct"),
-    # one row per tile: a 20,000-tile row-carry chain (2,500 units of 8)
+    # one row per tile: one row chain (2,500 units of 8)
     "2d-row-per-tile": ((20000, 64), 64, 1e-3, 512,
                         "dequant_reconstruct_nd"),
-    # 200 planes of 4 tiles: a ring of 4 row-carry vectors
+    # 200 planes of 4 tiles, 2 planes a unit
     "3d-200-planes": ((200, 32, 48), 512, 1e-3, 512,
                       "dequant_reconstruct_nd"),
     # 4 planes of 50 tiles
     "3d-4-planes": ((4, 600, 40), 512, 1e-3, 512, "dequant_reconstruct_nd"),
     # most codes are outliers, at the padded path's tiles
     "outlier-dense": ((300, 500), 4096, 5e-2, 4, "dequant_reconstruct_nd"),
+    # one unit: no carry at all
+    "2d-one-unit": ((7, 9), 4096, 1e-3, 512, "dequant_reconstruct_nd"),
+    # more units than ring slots and resident blocks, the last one partial
+    "2d-partial-group": ((20001, 64), 64, 1e-3, 512,
+                         "dequant_reconstruct_nd"),
+    # ring slots reused behind the gate
+    "3d-ring-reuse": ((400, 64, 20), 64, 1e-3, 512,
+                      "dequant_reconstruct_nd"),
+    # a partial last plane group
+    "3d-partial-plane-group": ((256, 100, 16), 64, 1e-3, 512,
+                               "dequant_reconstruct_nd"),
+    # one tile a plane: plane chains only
+    "3d-one-tile-a-plane": ((50, 8, 300), 4096, 1e-3, 512,
+                            "dequant_reconstruct_nd"),
 }
 
 
@@ -595,7 +765,8 @@ def test_epilogues_match_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("case", ["1d-64-code-tiles", "2d-row-per-tile",
-                                  "3d-200-planes"])
+                                  "3d-200-planes", "2d-partial-group",
+                                  "3d-ring-reuse"])
 def test_epilogue_repeated_launches_identical(cuda, case):
     shape, tile, noise, radius, _ = EPILOGUE_CASES[case]
     codec, c = _fused_payload(cuda, shape, 14, noise, torch.float32, radius)
@@ -623,6 +794,128 @@ def test_epilogue_row_at_the_shared_memory_bound(cuda):
     wide = dataclasses.replace(c, shape=(3, cols + 1))
     assert "per-tile row bound" in compressor.fused_unsupported_reason(
         wide, "cuda", "gap", "padded")
+
+
+ND_KERNEL_CASES = ["2d-partial-group", "3d-ring-reuse",
+                   "3d-partial-plane-group", "3d-one-tile-a-plane"]
+
+
+def _nd_edges(shape, tile):
+    """Flat positions at the edges of the N-D kernels' units and planes
+    for ``shape`` at tiles of ``tile`` codes: the first and last code of
+    every unit's rows in every plane."""
+    import math
+
+    from repro_torch.kernels import fused_decode as fd
+
+    sq = ops.fused_squeeze(shape)
+    w = ops.fused_tile_rows(sq, tile)
+    n = math.prod(sq)
+    n_tiles = -(-n // (w * sq[-1]))
+    geo = fd.nd_geometry(sq, w, n_tiles, 4096, K.sm_count(0))
+    rows, cols = sq[-2], sq[-1]
+    planes = sq[0] if len(sq) == 3 else 1
+    unit_rows = geo.unit_tiles * w
+    pos = []
+    for p in range(planes):
+        for r0 in range(0, rows, unit_rows):
+            r1 = min(r0 + unit_rows, rows) - 1
+            for r, c in ((r0, 0), (r0, cols - 1), (r1, 0), (r1, cols - 1)):
+                pos.append((p * rows + r) * cols + c)
+    return np.unique(np.asarray(pos))
+
+
+@pytest.mark.parametrize("case", ND_KERNEL_CASES)
+def test_nd_outliers_at_unit_and_plane_edges(cuda, case):
+    """Spikes at the first and last codes of every unit's rows in every
+    plane become outliers there (radius 4); both N-D kernels equal their
+    plain versions bit for bit."""
+    shape, tile, noise, _, max_len, _ = FUSED_CASES[case]
+    x = smooth_field(shape, seed=21).reshape(-1)
+    edges = _nd_edges(shape, tile)
+    # random magnitudes and signs, so neighbouring spikes do not cancel in
+    # the Lorenzo residual
+    rng = np.random.default_rng(21)
+    x[edges] += (rng.uniform(50, 150, edges.size) * rng.choice(
+        [-1, 1], edges.size)).astype(np.float32)
+    codec = Codec(CodecConfig(radius=4, max_len=max_len, device=str(cuda)))
+    c = codec.compress(torch.from_numpy(x.reshape(shape)).to(cuda))
+    opos = c.outlier_pos[c.outlier_pos >= 0].cpu().numpy()
+    assert np.isin(edges, opos).mean() > 0.9
+    kernel, plain, args = _fused_call(codec, c, tile)
+    assert kernel.__name__ == "decode_tiles_fused_nd"
+    assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+    ekernel, eplain, eargs = _epilogue_call(codec, c, tile)
+    assert ekernel.__name__ == "dequant_reconstruct_nd"
+    assert torch.equal(_bits(ekernel(*eargs)), _bits(eplain(*eargs)))
+
+
+@pytest.mark.parametrize("case", ND_KERNEL_CASES)
+def test_nd_sums_wrap_int32(cuda, case):
+    """Outliers of +-2**30 scattered over the field make the row, column
+    and plane sums leave the int32 range again and again; the kernels'
+    uint32 sums give the plain version's wrapped int32 cumsum bit for
+    bit."""
+    shape, tile, noise, radius, max_len, _ = FUSED_CASES[case]
+    codec, c = _fused_payload(cuda, shape, 22, noise, torch.float32, radius,
+                              max_len)
+    kernel, plain, args = _fused_call(codec, c, tile)
+    ekernel, eplain, eargs = _epilogue_call(codec, c, tile)
+    n_out = c.n_symbols
+    gen = torch.Generator().manual_seed(22)
+    m = max(64, n_out // 50)
+    pos = torch.sort(torch.randperm(n_out, generator=gen)[:m]).values
+    val = torch.randint(-2**30, 2**30, (m,), generator=gen) * 2
+    opos = pos.to(torch.int32).to(cuda)
+    oval = val.to(torch.int32).to(cuda)
+    # opos, oval, obounds are arguments 12-14 of the fused kernel and 1-3
+    # of the epilogue (ops.fused_tile_inputs, padded_epilogue_inputs)
+    fargs = list(args)
+    block = args[9] * args[10][-1]
+    ob = ops._outlier_bounds(opos, args[14].numel() - 1, block)
+    fargs[12:15] = [opos, oval, ob]
+    want = plain(*fargs)
+    assert torch.equal(_bits(kernel(*fargs)), _bits(want))
+    q = (want.double() / ops._two_eb_f32(c.eb)).round()
+    assert float(q.abs().max()) > 2**29
+    eargs = list(eargs)
+    eob = ops._outlier_bounds(opos, eargs[3].numel() - 1,
+                              eargs[7] * eargs[6][-1])
+    eargs[1:4] = [opos, oval, eob]
+    assert torch.equal(_bits(ekernel(*eargs)), _bits(eplain(*eargs)))
+
+
+
+@pytest.mark.parametrize("change", ["too-few-threads", "depth-past-a-warp",
+                                    "no-depth", "below-a-warp"])
+def test_nd_entries_refuse_what_the_protocol_cannot_run(cuda, monkeypatch,
+                                                         change):
+    """A geometry whose block cannot run the look-back makes both N-D C
+    entries return -1 before launching, and the wrappers raise: fewer
+    threads than ring_gate's 2 x depth + 1 units (a slot could be reused
+    under a reader no thread waited for), a depth past warp 0's lanes or
+    of 0, a block narrower than a warp."""
+    from repro_torch.kernels import fused_decode as fd
+
+    shape, tile, noise, radius, max_len, _ = FUSED_CASES["3d-ring-reuse"]
+    codec, c = _fused_payload(cuda, shape, 23, noise, torch.float32, radius,
+                              max_len)
+    calls = (_fused_call(codec, c, tile), _epilogue_call(codec, c, tile))
+    base = fd.nd_geometry
+
+    def geometry(*args):
+        g = base(*args)
+        return {"too-few-threads": g._replace(depth=32, threads=64),
+                "depth-past-a-warp": g._replace(depth=33, threads=512),
+                "no-depth": g._replace(depth=0),
+                "below-a-warp": g._replace(depth=1, threads=16)}[change]
+
+    monkeypatch.setattr(fd, "nd_geometry", geometry)
+    for kernel, _, args in calls:
+        before = kernel.launches
+        with pytest.raises(RuntimeError, match="CUDA error -1"):
+            kernel(*args)
+        assert kernel.launches == before
 
 
 def test_merged_lut_in_device_memory(cuda):

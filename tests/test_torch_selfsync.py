@@ -191,8 +191,9 @@ def test_wrapper_checks():
 
 
 def _largest_sps(max_len):
-    """The largest subseqs_per_seq a "cuda" codec accepts at max_len: the
-    block kernel's starts, landings and counts beside the LUT."""
+    """The largest subseqs_per_seq whose block kernel stages the LUT at
+    max_len: its starts, landings and counts beside the LUT.  Past it the
+    LUT stays in device memory, up to SMEM_LIMIT // 16 lanes."""
     return (K.SMEM_LIMIT - 3 * (1 << max_len)) // 16
 
 
@@ -216,16 +217,20 @@ def test_launch_geometry(max_len):
     top = _largest_sps(max_len)
     seqs, threads, smem = S.selfsync_geometry(top, lut)
     assert (seqs, threads) == (1, 1024) and smem <= K.SMEM_LIMIT
-    assert S.selfsync_geometry(top + 1, lut)[2] > K.SMEM_LIMIT
+    assert S.selfsync_lut_in_smem(top, lut)
+    assert not S.selfsync_lut_in_smem(top + 1, lut)
+    assert S.selfsync_geometry(top + 1, lut)[2] == 16 * (top + 1)
 
 
 @pytest.mark.parametrize("max_len", [12, 16])
 def test_cuda_selfsync_accepts_the_same_sps(max_len):
-    """CodecConfig(method="selfsync") on "cuda" accepts the subseqs_per_seq
-    it accepted with one block a sequence at every sps (16 B a lane beside
-    the LUT), and each gets a launch geometry the kernel takes."""
-    top = _largest_sps(max_len)
-    for sps in (1, 3, 31, 32, 33, 64, 1024, top):
+    """CodecConfig(method="selfsync") on "cuda" accepts every
+    subseqs_per_seq whose lanes (16 B each) fit a block's shared memory,
+    the LUT staged beside them or, past _largest_sps, read from device
+    memory; each gets a launch geometry the kernel takes."""
+    top = K.SMEM_LIMIT // 16
+    for sps in (1, 3, 31, 32, 33, 64, 1024, _largest_sps(max_len),
+                _largest_sps(max_len) + 1, top):
         CodecConfig(method="selfsync", subseqs_per_seq=sps, max_len=max_len)
         seqs, threads, smem = S.selfsync_geometry(sps, 1 << max_len)
         assert threads % 32 == 0 and 32 <= threads <= 1024

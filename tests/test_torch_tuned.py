@@ -420,14 +420,17 @@ def test_t_high_validation():
     assert CodecConfig(t_high=1).t_high == 1
 
 
-@pytest.mark.parametrize("t_high,ok", [(8, True), (17, True), (18, False)])
+@pytest.mark.parametrize("t_high,ok", [(8, True), (113, True),
+                                       (114, False)])
 def test_shared_memory_bound_covers_class_tiles(t_high, ok):
     """On "cuda" the largest class tile of t_high (1,024 * t_high codes)
-    must fit a decode_tiles block beside the LUT too: at max_len 16,
-    t_high 17 (17,408 codes) fits and 18 does not."""
+    must fit a decode_tiles block's staging tile too (a LUT that does not
+    fit beside it is read from device memory): t_high 113 (115,712 codes)
+    fits and 114 does not, at any max_len."""
     tile = hp.max_class_tile(t_high)
     assert tile == max(1024 * t_high, hp.OVERFLOW_TILE)
-    assert (K.decode_tiles_smem(tile, 1 << 16) <= K.SMEM_LIMIT) == ok
+    assert (K.decode_tiles_smem(tile, 0) <= K.SMEM_LIMIT) == ok
+    assert K.decode_tiles_lut_in_smem(tile, 1 << 16) == (t_high <= 17)
     if ok:
         CodecConfig(max_len=16, t_high=t_high)
     else:
