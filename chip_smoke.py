@@ -106,11 +106,14 @@ The script
     yardstick of ``flash_attention``, timed here and used nowhere in the
     port), and ``gla_time_mix`` at serve's decode shape (BH 160, S 1, the
     state in: back to back through the wrapper, and the kernel's device
-    time) beside its byte bound; the card's name and power limit; and a
-    ``kernels`` JSON line, one row a TPU kernel of the repo (fourteen),
-    with rows 5 and 7 on both N-D fields, rows 8, 10 and 11 also on one KV
-    page, and rows 1, 3 and 12 also through their device-memory LUT.  Each
-    time is read after warm-up, once two readings in a row agree.
+    time) beside its byte bound; a KV page's ``lorenzo_quantize`` and
+    ``pack_tiles`` launch split into the wrapper's host time and the
+    kernel's device time (``launch_split``); the card's name and power
+    limit; and a ``kernels`` JSON line, one row a TPU kernel of the repo
+    (fourteen), with rows 5 and 7 on both N-D fields, rows 8, 10 and 11
+    also on one KV page, and rows 1, 3 and 12 also through their
+    device-memory LUT.  Each time is read after warm-up, once two readings
+    in a row agree.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -277,6 +280,56 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
             break
         prev = ms
     return ms
+
+
+#: GPU clock cycles of the sleep kernel that ``launch_split`` queues ahead
+#: of its launches (~10 ms at the H100's clocks): the host must enqueue
+#: them all before it ends.
+SPLIT_SLEEP_CYCLES = 20_000_000
+
+
+def launch_split(fn, iters: int = 50) -> dict:
+    """Where a launch's time goes: ``wrapper_ms`` back to back through the
+    wrapper (``cuda_ms``); ``host_ms`` the wrapper's own host time a call,
+    ``time.perf_counter`` around ``iters`` calls that queue without
+    waiting (the launch queue holds them all), the least of five
+    readings; and ``device_ms`` the device time a launch, CUDA events
+    around ``iters`` launches queued behind a sleep kernel, so they run
+    back to back with the host's work already done, the least of three
+    readings.  Fails if the host took longer to enqueue than the sleep
+    lasted."""
+    import torch
+
+    wrapper = cuda_ms(fn, iters)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / iters)
+    slept = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    device = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        slept.record()
+        torch.cuda._sleep(SPLIT_SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        torch.cuda.synchronize()
+        sleep_ms = slept.elapsed_time(start)
+        require(enqueue_ms < sleep_ms, f"launch_split: the host took "
+                f"{enqueue_ms:.2f} ms to enqueue, the sleep {sleep_ms:.2f} ms")
+        device.append(start.elapsed_time(stop) / iters)
+    torch.cuda.synchronize()
+    return {"wrapper_ms": wrapper, "host_ms": min(host),
+            "device_ms": min(device)}
 
 
 def kernel_inputs(codec, c):
@@ -905,6 +958,15 @@ def run_encode(seed: int, xs) -> dict:
                 flat, enc_code, enc_len, c.stream.total_bits,
                 c.stream.subseqs_per_seq), 5),
         }
+        if name == "page0":
+            # Where a page launch's time goes, host and device.
+            for kname, fn in (("lorenzo_quantize",
+                               lambda: L.lorenzo_quantize(*qargs)),
+                              ("pack_tiles", lambda: E.pack_tiles(*pargs))):
+                split = launch_split(fn)
+                row[kname].update(device_ms=split["device_ms"],
+                                  host_ms=split["host_ms"])
+                print(f"page launch split {kname}: {json.dumps(split)}")
         rows[name] = row
 
     # -- reconstruct phase: counts zeroed just before, read just after ------
@@ -1318,7 +1380,8 @@ def time_kernels(seed: int, other: bool = False) -> dict:
     the same tensors (cached plans); and on isabel3d the paths that run
     them: the gap decode (phases 1-4), the plan, the tile two-pass and
     padded ``decompress`` (cached plan), the self-sync plan with and
-    without ``early_exit``, and the ori self-sync decode."""
+    without ``early_exit``, and the ori self-sync decode; then the write
+    path (``time_write_path``)."""
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
@@ -1330,7 +1393,8 @@ def time_kernels(seed: int, other: bool = False) -> dict:
 
     _build.build(["count_subseq", "decode_tiles", "decode_padded",
                   "selfsync_intra", "decode_tiles_fused_nd",
-                  "dequant_reconstruct_nd"])
+                  "dequant_reconstruct_nd", "lorenzo_quantize", "histogram",
+                  "pack_tiles"])
     out = {}
     fields = {}
     for name, x in make_fields(seed).items():
@@ -1425,6 +1489,54 @@ def time_kernels(seed: int, other: bool = False) -> dict:
             "batch: merged-LUT decode_tiles differs from its plain version")
     out["decode_tiles_merged_lut_ms"] = cuda_ms(
         lambda: K.decode_tiles(*targs), 20)
+    out.update(time_write_path(seed))
+    return out
+
+
+def time_write_path(seed: int) -> dict:
+    """``--ab``'s write-path rows: ``lorenzo_quantize`` and ``pack_tiles``
+    on the three fields and one KV page, each checked against its plain
+    version first and called at the tree's own defaults (its pack tile),
+    each timed through the wrapper and on the device alone
+    (``launch_split``), and the "cuda" ``compress`` of isabel3d and of the
+    page."""
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.kernels import huffman_encode as E
+    from repro_torch.kernels import lorenzo as L
+    from repro_torch.kernels import ops
+
+    out = {}
+    tensors = dict(make_fields(seed), page0=make_pages(seed)[0])
+    for name, xn in tensors.items():
+        x = torch.from_numpy(xn).cuda()
+        codec = Codec(CodecConfig(encode_backend="cuda"))
+        c = codec.compress(x)
+        qargs = (x, ops._two_eb_f32(c.eb), c.radius)
+        codes = L.lorenzo_quantize(*qargs)
+        require(all(same(a, b) for a, b in zip(
+            codes, L.lorenzo_quantize_plain(*qargs))),
+            f"{name}: lorenzo_quantize differs from its plain version")
+        flat = codes[0].reshape(-1)
+        enc_code = torch.from_numpy(c.codebook.enc_code).cuda()
+        enc_len = torch.from_numpy(c.codebook.enc_len).cuda()
+        pargs = (flat, ops.code_starts(flat, enc_len), enc_code, enc_len,
+                 c.stream.units.numel())
+        units = E.pack_tiles(*pargs)
+        require(same(units, E.pack_tiles_plain(*pargs))
+                and same(units, c.stream.units),
+                f"{name}: pack_tiles differs from its plain version")
+        for kname, fn in (("lorenzo_quantize",
+                           lambda: L.lorenzo_quantize(*qargs)),
+                          ("pack_tiles", lambda: E.pack_tiles(*pargs))):
+            split = launch_split(fn)
+            out[f"{kname}_{name}_ms"] = split["wrapper_ms"]
+            out[f"{kname}_{name}_device_ms"] = split["device_ms"]
+            out[f"{kname}_{name}_host_ms"] = split["host_ms"]
+        if name in ("isabel3d", "page0"):
+            out[f"compress_cuda_{name}_ms"] = cuda_ms(
+                lambda: codec.compress(x), 5)
     return out
 
 
@@ -1454,10 +1566,11 @@ def main() -> int:
                     help="only time count_subseq, decode_tiles, "
                     "decode_padded, selfsync_intra (with their LUT in "
                     "shared and in device memory), decode_tiles_fused_nd, "
-                    "dequant_reconstruct_nd, the paths that run them "
-                    "and the batch phase's decompress ways against those "
-                    "of the checkout at ROOT, in turns "
-                    "(ROOT, this, this, ROOT)")
+                    "dequant_reconstruct_nd, lorenzo_quantize and "
+                    "pack_tiles (through the wrapper and on the device "
+                    "alone), the paths that run them and the batch "
+                    "phase's decompress ways against those of the "
+                    "checkout at ROOT, in turns (ROOT, this, this, ROOT)")
     ap.add_argument("--time-kernels", metavar="ROOT",
                     help="only time those kernels as built from ROOT's "
                     "src (one turn of --ab)")
@@ -1829,7 +1942,8 @@ def main() -> int:
                      (10, "pack_tiles")):
         page = by_field["page0"][kname]
         kernels[i]["page"] = {key: page[key] for key in (
-            "ms", "plain_ms", "bound_ms", "max_abs_err")}
+            "ms", "plain_ms", "bound_ms", "max_abs_err", "device_ms",
+            "host_ms") if key in page}
         kernels[i]["page"]["shape"] = list(PAGE_SHAPE)
     # The device-memory LUT variants (max_len LONG_MAX_LEN) of rows 1, 3
     # and 12 beside their shared-memory times on the same windows.

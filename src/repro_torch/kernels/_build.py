@@ -58,12 +58,12 @@ SIGNATURES = {
                                 _I, _I, _L, _P, _P, _P, _I, _F, _I, _I, _P,
                                 _P, _P, _P, _I, _P, _P]),
     "lorenzo_quantize": ("repro_lorenzo_quantize",
-                         [_P, _L, _P, _I, _F, _I, _P, _P, _P, _P]),
+                         [_P, _L, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P]),
     "reconstruct1d": ("repro_reconstruct1d",
                       [_P, _L, _I, _F, _P, _P, _P, _P]),
     "histogram": ("repro_histogram", [_P, _L, _I, _I, _I, _P, _P]),
     "pack_tiles": ("repro_pack_tiles",
-                   [_P, _P, _L, _P, _P, _I, _L, _I, _P, _P]),
+                   [_P, _P, _L, _P, _P, _I, _L, _I, _I, _I, _P, _P]),
     "selfsync_intra": ("repro_selfsync_intra",
                        [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P, _P, _P]),

@@ -217,7 +217,10 @@ def _check_smem(name, nbytes):
 
 
 def _stream_ptr(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of ``device``'s current stream, read through
+    ``torch._C`` (``torch.cuda.current_stream(device).cuda_stream`` builds
+    a Stream object a call: a share of a small launch's host time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 # ---------------------------------------------------------------------------

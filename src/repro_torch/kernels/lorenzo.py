@@ -7,7 +7,9 @@ Port of ``src/repro/kernels/lorenzo.py``:
     (0 for an outlier) and the outlier mask (``csrc/lorenzo_quantize.cu``).
     The TPU kernel ``quantize1d`` took 1-D inputs only; this kernel takes
     up to ``MAX_AXES`` non-unit axes, so the N-D quantize runs on the card
-    too.  Its plain version is ``core/sz/lorenzo.py:quantize``.
+    too: a row kernel for one axis, a tiled kernel for two or three, the
+    corner sum past that (:func:`quantize_geometry`).  Its plain version is
+    ``core/sz/lorenzo.py:quantize``.
   * :func:`reconstruct1d` -- the inverse 1-D Lorenzo, ``2eb * cumsum(d)``
     with the int32 carry between tiles taken by decoupled look-back
     (``csrc/reconstruct1d.cu``).
@@ -22,6 +24,8 @@ the kernels divide and multiply by it at run time.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -32,6 +36,24 @@ from repro_torch.kernels import launches
 
 #: Most non-unit axes the quantize kernel takes (2**8 corners a value).
 MAX_AXES = 8
+#: The quantize kernels (``csrc/lorenzo_quantize.cu``) by the C entry's
+#: ``tile`` code: 0 the corner sum (more than three non-unit axes), 1 the
+#: row kernel (at most one; ``QUANT_ROW_BLOCK`` values a block a
+#: grid-stride step, at most ``QUANT_ROW_MAX_BLOCKS`` blocks), 2 the tiled
+#: kernel (two or three; ``QUANT_TILE`` rows x columns of the two fastest
+#: axes, a run of planes of the slowest).
+QUANT_THREADS = 256
+QUANT_ROW_BLOCK = 4 * QUANT_THREADS
+QUANT_ROW_MAX_BLOCKS = 1 << 20
+QUANT_TILE = (8, 128)
+#: Blocks of the tiled kernel an SM holds (its ``__launch_bounds__``); the
+#: waves of blocks its runs of planes aim for; and the fewest planes a run
+#: takes when the slowest axis is cut into runs (each run stages one plane
+#: more than it stores).  On the H100 at isabel3d's shape, runs of 4
+#: planes (~8 waves) ran faster than one wave of runs of 25.
+QUANT_BLOCKS_PER_SM = 6
+QUANT_WAVES = 8
+QUANT_MIN_Z_RUN = 4
 #: Values one ``reconstruct1d`` block scans (the reference's block).
 RECONSTRUCT_BLOCK = 4096
 
@@ -51,6 +73,44 @@ def squeezed_dims(shape) -> tuple:
         raise ValueError(f"lorenzo_quantize takes at most {MAX_AXES} "
                          f"non-unit axes, got shape {tuple(shape)}")
     return dims
+
+
+def quantize_geometry(dims, sm_count: int):
+    """Launch geometry of :func:`lorenzo_quantize` over the squeezed shape
+    ``dims`` (slowest first) on a card of ``sm_count`` SMs: ``(tile, z_run,
+    blocks)``, ``tile`` the C entry's kernel code (``QUANT_THREADS``
+    threads a block).
+
+    At most one axis runs the row kernel (``z_run`` 1).  Two or three run
+    the tiled kernel: the shape seen as Z x R x C, tiles of ``QUANT_TILE``
+    over R x C, and Z cut into runs of ``z_run`` planes, a block a tile and
+    run, as many runs as bring the grid to ``QUANT_WAVES`` waves of
+    ``QUANT_BLOCKS_PER_SM`` blocks an SM (at least one) but none shorter
+    than ``QUANT_MIN_Z_RUN`` planes.
+    More axes run the corner-sum kernel (``z_run`` 0): a thread a value,
+    at most 2**20 blocks (a grid stride beyond).
+    """
+    dims = tuple(int(d) for d in dims)
+    n = math.prod(dims)
+    if len(dims) > 3:
+        return 0, 0, min(-(-n // QUANT_THREADS), 1 << 20)
+    if len(dims) <= 1:
+        return 1, 1, min(-(-n // QUANT_ROW_BLOCK), QUANT_ROW_MAX_BLOCKS)
+    z, r, c = (1,) * (3 - len(dims)) + dims
+    rows, cols = QUANT_TILE
+    plane_tiles = -(-c // cols) * -(-r // rows)
+    want = -(-sm_count * QUANT_BLOCKS_PER_SM * QUANT_WAVES // plane_tiles)
+    runs = max(1, min(want, z // QUANT_MIN_Z_RUN))
+    z_run = -(-z // runs)
+    return 2, z_run, plane_tiles * -(-z // z_run)
+
+
+@functools.lru_cache(maxsize=256)
+def _quantize_launch_args(dims: tuple, device_index: int):
+    """The C entry's shape arguments for ``dims`` on a device: the dims as
+    a ctypes array (built once a shape), ``k``, ``tile`` and ``z_run``."""
+    tile, z_run, _ = quantize_geometry(dims, K.sm_count(device_index))
+    return ((ctypes.c_longlong * MAX_AXES)(*dims), len(dims), tile, z_run)
 
 
 def lorenzo_quantize_plain(x, two_eb: float, radius: int):
@@ -86,10 +146,10 @@ def lorenzo_quantize(x, two_eb: float, radius: int):
     if x.numel() == 0:
         return codes, outlier, resid
     launch = _build.load("lorenzo_quantize")
-    rc = launch(x.data_ptr(), x.numel(),
-                (ctypes.c_longlong * MAX_AXES)(*dims), len(dims), two_eb,
-                radius, codes.data_ptr(), outlier.data_ptr(),
-                resid.data_ptr(), K._stream_ptr(x.device))
+    shape_args = _quantize_launch_args(dims, x.device.index)
+    rc = launch(x.data_ptr(), x.numel(), *shape_args, two_eb, radius,
+                codes.data_ptr(), outlier.data_ptr(), resid.data_ptr(),
+                K._stream_ptr(x.device))
     if rc != 0:
         raise RuntimeError(f"lorenzo_quantize kernel launch failed: CUDA "
                            f"error {rc}")

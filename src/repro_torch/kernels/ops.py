@@ -313,11 +313,6 @@ def decode_padded_fused(units, dec_sym, dec_len, start_abs, end_abs,
 # Encode bit-pack (write-path phase 4)
 # ---------------------------------------------------------------------------
 
-#: Output units one ``pack_tiles`` block owns (the reference's 8-unit TPU
-#: tile does not carry over; see ``huffman_encode.DEFAULT_TILE_UNITS``).
-DEFAULT_ENCODE_TILE_UNITS = _enc.DEFAULT_TILE_UNITS
-
-
 def code_starts(symbols, enc_len):
     """int32 exclusive scan of the symbols' code lengths: each codeword's
     first bit, the ``starts`` input of ``pack_tiles``."""
@@ -327,7 +322,7 @@ def code_starts(symbols, enc_len):
 
 def encode_bitpack(symbols, enc_code, enc_len, total_bits: int,
                    subseqs_per_seq: int, min_len: int = 1,
-                   tile_units: int = DEFAULT_ENCODE_TILE_UNITS
+                   tile_units: int | None = None
                    ) -> he.EncodedStream:
     """Kernel-backed Huffman encode: the int32 exclusive scan of the code
     lengths (torch glue), the ``pack_tiles`` kernel and the stream metadata.
@@ -335,7 +330,9 @@ def encode_bitpack(symbols, enc_code, enc_len, total_bits: int,
     ``total_bits`` is the exact payload size (the ``EncoderPlan`` derives it
     from the histogram, so the symbol array never round-trips to host).
     ``min_len`` only sizes the reference's lane budget, which the kernel
-    does not need.  Layout bit-identical to ``core.huffman.encode.encode``.
+    does not need; ``tile_units`` None takes the kernel's tile from
+    ``huffman_encode.pack_tiles_geometry``.  Layout bit-identical to
+    ``core.huffman.encode.encode``.
     """
     del min_len
     device = symbols.device

@@ -1005,9 +1005,16 @@ def _walk(shape, seed, scale=0.1):
 @pytest.mark.parametrize("radius", [512, 4])
 @pytest.mark.parametrize("shape", [
     (20001,), (37, 53), (9, 31, 47), (2, 8, 16, 128), (3, 1, 5, 1, 7),
-    (2, 3, 2, 3, 2, 3, 2, 3), (1,)], ids=str)
+    (2, 3, 2, 3, 2, 3, 2, 3), (1,),
+    # the row kernel's 1,024-value block and the tiled kernel's 8 x 128
+    # tile, one below, at and one past; cesm2d's rows; a slowest axis of 1
+    # after squeezing; runs of planes (13 and 37 planes over few tiles)
+    (1023,), (1024,), (1025,), (7, 127), (8, 128), (9, 129), (17, 129),
+    (4, 3600), (1, 17, 129), (5, 1, 16, 129), (13, 33, 260),
+    (37, 20, 30)], ids=str)
 def test_quantize_matches_plain(cuda, shape, radius):
-    """Sizes that are no multiple of a block, unit axes, 1 to 8 axes, and
+    """Sizes that are no multiple of a block, unit axes, 1 to 8 axes, the
+    tiled kernel's tile and plane-run edges (``quantize_geometry``), and
     outliers at radius 4."""
     x = torch.from_numpy(_walk(shape, seed=len(shape))).to(cuda)
     two_eb = ops._two_eb_f32(1e-3)
@@ -1020,6 +1027,25 @@ def test_quantize_matches_plain(cuda, shape, radius):
         assert g.shape == w.shape and torch.equal(_signed(g), _signed(w))
     if radius == 4 and x.numel() > 1:
         assert bool(got[1].any())
+
+
+@pytest.mark.parametrize("shape", [(4099,), (33, 260), (9, 17, 128)],
+                         ids=str)
+def test_quantize_unaligned_input(cuda, shape):
+    """An input 4 bytes off a 16-byte boundary (a contiguous view into a
+    larger buffer): the tiled kernel loads value by value, and the outputs
+    are the same."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(_walk((n + 1,), seed=n)).to(cuda)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    two_eb = ops._two_eb_f32(1e-3)
+    got = L.lorenzo_quantize(x, two_eb, 512)
+    for g, w in zip(got, L.lorenzo_quantize_plain(x, two_eb, 512)):
+        assert torch.equal(_signed(g), _signed(w))
+    aligned = L.lorenzo_quantize(x.clone(), two_eb, 512)
+    for g, w in zip(got, aligned):
+        assert torch.equal(_signed(g), _signed(w))
 
 
 def test_quantize_tie_field(cuda):
@@ -1088,13 +1114,13 @@ def test_histogram_skewed(cuda):
     assert torch.equal(H.histogram(x, 1024), H.histogram_plain(x, 1024))
 
 
-@pytest.mark.parametrize("tile_units", [1, 7, 1024])
+@pytest.mark.parametrize("tile_units", [1, 7, 1024, None])
 @pytest.mark.parametrize("name,max_len", [("one-bit", 12), ("flat", 16),
                                           ("deep", 16), ("short", 4)])
 def test_pack_tiles_matches_plain(cuda, name, max_len, tile_units):
     """min_len 1 (one-bit, deep), min_len > 1 (flat: 10 bits; short: 4),
     codewords of 16 bits (deep, a geometric distribution cut at max_len
-    16), and tiles of 1, 7 and 1024 units."""
+    16), and tiles of 1, 7 and 1024 units and the geometry's own."""
     freq = {"one-bit": np.array([10**6, 3, 2, 1]),
             "flat": np.full(1024, 5),
             "deep": (2.0 ** -np.arange(40) * 2**30).astype(np.int64) + 1,
@@ -1115,6 +1141,40 @@ def test_pack_tiles_matches_plain(cuda, name, max_len, tile_units):
     want = E.pack_tiles_plain(sym, starts, enc_code, enc_len, n_units)
     assert torch.equal(_signed(got), _signed(want))
     assert torch.equal(_signed(got), _signed(stream.units))
+
+
+@pytest.mark.parametrize("n_syms", [1, 150, 31 * 32 // 6, 32768, 32771])
+@pytest.mark.parametrize("radius", [512, 1 << 13, 1 << 15])
+def test_pack_tiles_stream_sizes(cuda, n_syms, radius):
+    """Streams of 1 unit, ~31 units and a KV page's ~5,760 (and three
+    symbols past it, a run of 8 cut short) at the geometry's tile; tables
+    in shared memory (radius 512, 2**13) and in device memory (2**15);
+    the symbols and starts also 2 and 4 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(n_syms + radius)
+    freq = np.bincount(rng.zipf(1.3, 50000) % 1024, minlength=1024) + 1
+    book = codebook.build_codebook(freq, max_len=16)
+    syms = rng.choice(1024, size=n_syms + 1, p=freq / freq.sum())
+    # the table as long as the radius asks, the entries past 1024 unused
+    enc_code = np.zeros(2 * radius, np.uint32)
+    enc_len = np.zeros(2 * radius, np.uint8)
+    enc_code[:1024] = book.enc_code
+    enc_len[:1024] = book.enc_len
+    enc_code = torch.from_numpy(enc_code).to(cuda)
+    enc_len = torch.from_numpy(enc_len).to(cuda)
+    assert E.pack_tables_in_smem(1024, enc_code.numel()) == (radius
+                                                             < 1 << 15)
+    for off in (0, 1):
+        sym = torch.from_numpy(syms.astype(np.uint16)).to(cuda)[off:]
+        sym = sym[:n_syms]
+        lens = enc_len.to(torch.int32)[sym.to(torch.int32)]
+        starts = torch.cumsum(lens, 0, dtype=torch.int32) - lens
+        if off:
+            starts = torch.cat([starts[:1], starts])[1:]
+            assert sym.data_ptr() % 16 == 2 and starts.data_ptr() % 16 == 4
+        n_units = -(-int(lens.sum()) // 32) + 1
+        got = E.pack_tiles(sym, starts, enc_code, enc_len, n_units)
+        want = E.pack_tiles_plain(sym, starts, enc_code, enc_len, n_units)
+        assert torch.equal(_signed(got), _signed(want))
 
 
 def test_pack_empty_and_one_symbol(cuda):
@@ -1200,6 +1260,52 @@ def test_cuda_encode_lattice_matches_ref(cuda):
     dev = Codec(CodecConfig(eb=eb, mode="abs", encode_backend="cuda"))
     ref = Codec(CodecConfig(eb=eb, mode="abs"))
     _same_payload(dev.compress(x), ref.compress(x))
+
+
+def test_cuda_encode_page_and_field(cuda, monkeypatch):
+    """Codec(encode_backend="cuda") with every write-path plain version made
+    to raise, on a KV page (4 axes: the corner-sum quantize), a 3-D field
+    (the tiled quantize over runs of planes) and a 3-D lattice field with
+    outliers: one launch of each write-path kernel a tensor, each payload
+    decoding to its quantizer's codes, and the lattice field's payload
+    byte-identical to the ref encode."""
+    for name, mod in (("lorenzo_quantize_plain", L),
+                      ("histogram_plain", H), ("pack_tiles_plain", E)):
+        def boom(*a, _name=name, **k):
+            raise AssertionError(f"{_name} ran on the card path")
+        monkeypatch.setattr(mod, name, boom)
+    rng = np.random.default_rng(8)
+    page = smooth_field((2, 8, 16, 128), seed=8)
+    field = smooth_field((37, 96, 130), seed=9)
+    page = page + np.float32(1e-2) * rng.standard_normal(
+        page.shape).astype(np.float32)
+    field = field + np.float32(2e-3) * rng.standard_normal(
+        field.shape).astype(np.float32)
+    eb = 2.0 ** -7
+    k = np.rint(smooth_field((20, 48, 260), seed=10) * 300).astype(np.int32)
+    k.reshape(-1)[rng.choice(k.size, 9, replace=False)] += 5000
+    lattice = k.astype(np.float32) * np.float32(2 * eb)
+    codecs = [Codec(CodecConfig(encode_backend="cuda"))] * 2 + [
+        Codec(CodecConfig(eb=eb, mode="abs", encode_backend="cuda"))]
+    xs = [torch.from_numpy(np.ascontiguousarray(f)).to(cuda)
+          for f in (page, field, lattice)]
+    launches.reset()
+    cs = [codec.compress(x) for codec, x in zip(codecs, xs)]
+    for name, n in launches.counts().items():
+        want = len(xs) if name in ("lorenzo_quantize", "histogram",
+                                   "pack_tiles") else 0
+        assert n == want, (name, n)
+    monkeypatch.undo()
+    for codec, x, c in zip(codecs, xs, cs):
+        assert c.device.type == "cuda"
+        codes = ops.lorenzo_quantize(x, c.eb, c.radius)[0].reshape(-1)
+        got = codec.decode(c.stream, c.codebook, c.n_symbols)
+        assert torch.equal(_signed(got), _signed(codes))
+        y = codec.decompress(c)
+        assert float((y.double() - x.double()).abs().max()) <= c.eb_effective
+    assert int((cs[2].outlier_pos >= 0).sum()) > 0
+    _same_payload(cs[2], Codec(CodecConfig(eb=eb, mode="abs")).compress(
+        xs[2]))
 
 
 def test_cuda_encode_float16_falls_back(cuda):
