@@ -106,14 +106,15 @@ The script
     yardstick of ``flash_attention``, timed here and used nowhere in the
     port), and ``gla_time_mix`` at serve's decode shape (BH 160, S 1, the
     state in: back to back through the wrapper, and the kernel's device
-    time) beside its byte bound; a KV page's ``lorenzo_quantize`` and
-    ``pack_tiles`` launch split into the wrapper's host time and the
-    kernel's device time (``launch_split``); the card's name and power
-    limit; and a ``kernels`` JSON line, one row a TPU kernel of the repo
-    (fourteen), with rows 5 and 7 on both N-D fields, rows 8, 10 and 11
-    also on one KV page, and rows 1, 3 and 12 also through their
-    device-memory LUT.  Each time is read after warm-up, once two readings
-    in a row agree.
+    time) beside its byte bound; a KV page's ``lorenzo_quantize``,
+    ``histogram`` and ``pack_tiles`` launch split into the wrapper's host
+    time and the kernel's device time (``launch_split``, for
+    ``histogram`` on the fields too); the card's name and power limit;
+    and a ``kernels`` JSON line, one row a TPU kernel of the repo
+    (fourteen), with rows 5 and 7 on both N-D fields, row 10 on all three
+    fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
+    also through their device-memory LUT.  Each time is read after
+    warm-up, once two readings in a row agree.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
 script exits non-zero, printing no result, when PyTorch sees no CUDA device
@@ -286,6 +287,10 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
 #: of its launches (~10 ms at the H100's clocks): the host must enqueue
 #: them all before it ends.
 SPLIT_SLEEP_CYCLES = 20_000_000
+
+
+#: Calls of a wrapper's cached geometry lookup timed on the host.
+GEOMETRY_CALLS = 10_000
 
 
 def launch_split(fn, iters: int = 50) -> dict:
@@ -958,8 +963,23 @@ def run_encode(seed: int, xs) -> dict:
                 flat, enc_code, enc_len, c.stream.total_bits,
                 c.stream.subseqs_per_seq), 5),
         }
+        # The histogram's device time beside its wrapper's on every tensor
+        # (a field's wrapper also fills its output with zeros).
+        split = launch_split(lambda: H.histogram(flat, nbins))
+        row["histogram"].update(device_ms=split["device_ms"],
+                                host_ms=split["host_ms"])
         if name == "page0":
-            # Where a page launch's time goes, host and device.
+            # Where a page launch's time goes, host and device, and the
+            # host time of the wrapper's geometry lookup alone.
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            key = (flat.data_ptr() % H.HIST_VEC_BYTES, flat.numel(),
+                   flat.element_size(), nbins, sms)
+            t0 = time.perf_counter()
+            for _ in range(GEOMETRY_CALLS):
+                H._histogram_geometry(*key)
+            split["geometry_host_ms"] = (
+                (time.perf_counter() - t0) * 1e3 / GEOMETRY_CALLS)
+            print(f"page launch split histogram: {json.dumps(split)}")
             for kname, fn in (("lorenzo_quantize",
                                lambda: L.lorenzo_quantize(*qargs)),
                               ("pack_tiles", lambda: E.pack_tiles(*pargs))):
@@ -1363,10 +1383,13 @@ def time_kernels(seed: int, other: bool = False) -> dict:
     """Times of the kernels that ``--ab`` compares across source trees,
     through the wrappers of the ``repro_torch`` on the path, each checked
     against its plain version first, at the smoke run's inputs:
-    ``count_subseq`` and ``decode_padded`` on the three fields; on isabel3d
-    and cesm2d the N-D fused kernel and the N-D epilogue
-    (``decode_tiles_fused_nd``, ``dequant_reconstruct_nd``) and the fused
-    and padded fused ``decompress`` (cached plan) that run them; on
+    ``count_subseq`` and ``decode_padded`` on the three fields; on each
+    field its fused kernel and its epilogue (``decode_tiles_fused`` and
+    ``dequant_reconstruct`` on hacc1d, ``decode_tiles_fused_nd`` and
+    ``dequant_reconstruct_nd`` on isabel3d and cesm2d) and the fused and
+    padded fused ``decompress`` (cached plan) that run them, and each
+    field's outlier count; ``decode_tiles_fused`` on hacc1d compressed at
+    radius 4 and 2 (many outliers); on
     isabel3d ``decode_tiles`` at the default tile and at its most populous
     tuned class's tile, beside its decode-work yardstick (``count_subseq``
     on the same windows), and ``selfsync_intra`` (zero heads with
@@ -1392,12 +1415,14 @@ def time_kernels(seed: int, other: bool = False) -> dict:
     from repro_torch.kernels import ops
 
     _build.build(["count_subseq", "decode_tiles", "decode_padded",
-                  "selfsync_intra", "decode_tiles_fused_nd",
+                  "selfsync_intra", "decode_tiles_fused",
+                  "decode_tiles_fused_nd", "dequant_reconstruct",
                   "dequant_reconstruct_nd", "lorenzo_quantize", "histogram",
                   "pack_tiles"])
     out = {}
     fields = {}
-    for name, x in make_fields(seed).items():
+    raw = make_fields(seed)
+    for name, x in raw.items():
         codec = Codec(CodecConfig())
         fields[name] = (codec, codec.compress(torch.from_numpy(x).cuda()))
     base = Codec()
@@ -1412,28 +1437,42 @@ def time_kernels(seed: int, other: bool = False) -> dict:
     out["batch_decompress_each_cached_plan_ms"] = cuda_ms(
         lambda: [base.decompress(c) for c in cs], 3)
     for name, (codec, c) in fields.items():
-        if len(c.shape) > 1:
-            fcodec = Codec(CodecConfig(fused=True))
-            pfcodec = Codec(CodecConfig(strategy="padded", fused=True))
-            fkernel, fplain, fargs = fused_inputs(fcodec, c)
-            require(same(fkernel(*fargs), fplain(*fargs)),
-                    f"{name}: {fkernel.__name__} differs from its plain "
-                    f"version")
-            out[f"{fkernel.__name__}_{name}_ms"] = cuda_ms(
-                lambda: fkernel(*fargs), 20)
-            ekernel, eplain, eargs = ops.padded_epilogue_inputs(
-                codec.decode(c.stream, c.codebook, c.n_symbols), c.n_symbols,
-                c.outlier_pos, c.outlier_val, c.eb, c.radius, c.shape,
-                c.dtype)
-            require(same(ekernel(*eargs), eplain(*eargs)),
-                    f"{name}: {ekernel.__name__} differs from its plain "
-                    f"version")
-            out[f"{ekernel.__name__}_{name}_ms"] = cuda_ms(
-                lambda: ekernel(*eargs), 20)
-            out[f"decompress_fused_cached_plan_{name}_ms"] = cuda_ms(
-                lambda: fcodec.decompress(c), 10)
-            out[f"decompress_padded_fused_cached_plan_{name}_ms"] = cuda_ms(
-                lambda: pfcodec.decompress(c), 10)
+        fcodec = Codec(CodecConfig(fused=True))
+        pfcodec = Codec(CodecConfig(strategy="padded", fused=True))
+        fkernel, fplain, fargs = fused_inputs(fcodec, c)
+        require(same(fkernel(*fargs), fplain(*fargs)),
+                f"{name}: {fkernel.__name__} differs from its plain "
+                f"version")
+        out[f"{fkernel.__name__}_{name}_ms"] = cuda_ms(
+            lambda: fkernel(*fargs), 20)
+        ekernel, eplain, eargs = ops.padded_epilogue_inputs(
+            codec.decode(c.stream, c.codebook, c.n_symbols), c.n_symbols,
+            c.outlier_pos, c.outlier_val, c.eb, c.radius, c.shape,
+            c.dtype)
+        require(same(ekernel(*eargs), eplain(*eargs)),
+                f"{name}: {ekernel.__name__} differs from its plain "
+                f"version")
+        out[f"{ekernel.__name__}_{name}_ms"] = cuda_ms(
+            lambda: ekernel(*eargs), 20)
+        out[f"decompress_fused_cached_plan_{name}_ms"] = cuda_ms(
+            lambda: fcodec.decompress(c), 10)
+        out[f"decompress_padded_fused_cached_plan_{name}_ms"] = cuda_ms(
+            lambda: pfcodec.decompress(c), 10)
+        out[f"outliers_{name}"] = int((c.outlier_pos >= 0).sum())
+        if name == "hacc1d":
+            # Many outliers: radius 4 and 2 leave a small codebook and make
+            # a large share of hacc1d's codes outliers.
+            for radius in (4, 2):
+                rcodec = Codec(CodecConfig(radius=radius, fused=True))
+                rc = rcodec.compress(torch.from_numpy(raw[name]).cuda())
+                rkernel, rplain, rargs = fused_inputs(rcodec, rc)
+                require(same(rkernel(*rargs), rplain(*rargs)),
+                        f"hacc1d radius {radius}: {rkernel.__name__} "
+                        f"differs from its plain version")
+                out[f"outliers_hacc1d_radius{radius}"] = int(
+                    (rc.outlier_pos >= 0).sum())
+                out[f"{rkernel.__name__}_hacc1d_radius{radius}_ms"] = \
+                    cuda_ms(lambda: rkernel(*rargs), 20)
         count_args, tile_args = kernel_inputs(codec, c)
         require(all(same(a, b) for a, b in zip(
             K.count_subseq(*count_args), K.count_subseq_plain(*count_args))),
@@ -1494,15 +1533,16 @@ def time_kernels(seed: int, other: bool = False) -> dict:
 
 
 def time_write_path(seed: int) -> dict:
-    """``--ab``'s write-path rows: ``lorenzo_quantize`` and ``pack_tiles``
-    on the three fields and one KV page, each checked against its plain
-    version first and called at the tree's own defaults (its pack tile),
+    """``--ab``'s write-path rows: ``lorenzo_quantize``, ``histogram`` and
+    ``pack_tiles`` on the three fields and one KV page, each checked against
+    its plain version first and called at the tree's own defaults,
     each timed through the wrapper and on the device alone
-    (``launch_split``), and the "cuda" ``compress`` of isabel3d and of the
-    page."""
+    (``launch_split``), the "cuda" ``compress`` of isabel3d and of the
+    page, and ``reconstruct1d`` on hacc1d's residuals."""
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.kernels import histogram as H
     from repro_torch.kernels import huffman_encode as E
     from repro_torch.kernels import lorenzo as L
     from repro_torch.kernels import ops
@@ -1527,8 +1567,12 @@ def time_write_path(seed: int) -> dict:
         require(same(units, E.pack_tiles_plain(*pargs))
                 and same(units, c.stream.units),
                 f"{name}: pack_tiles differs from its plain version")
+        nbins = 2 * c.radius
+        require(same(H.histogram(flat, nbins), H.histogram_plain(flat, nbins)),
+                f"{name}: histogram differs from its plain version")
         for kname, fn in (("lorenzo_quantize",
                            lambda: L.lorenzo_quantize(*qargs)),
+                          ("histogram", lambda: H.histogram(flat, nbins)),
                           ("pack_tiles", lambda: E.pack_tiles(*pargs))):
             split = launch_split(fn)
             out[f"{kname}_{name}_ms"] = split["wrapper_ms"]
@@ -1537,16 +1581,25 @@ def time_write_path(seed: int) -> dict:
         if name in ("isabel3d", "page0"):
             out[f"compress_cuda_{name}_ms"] = cuda_ms(
                 lambda: codec.compress(x), 5)
+        if name == "hacc1d":
+            resid = codes[2].reshape(-1)
+            two_eb = ops._two_eb_f32(c.eb)
+            require(same(L.reconstruct1d(resid, two_eb),
+                         L.reconstruct1d_plain(resid, two_eb)),
+                    "hacc1d: reconstruct1d differs from its plain version")
+            out["reconstruct1d_hacc1d_ms"] = cuda_ms(
+                lambda: L.reconstruct1d(resid, two_eb), 20)
     return out
 
 
 def run_ab(other: str, seed: int) -> list:
-    """``time_kernels`` of the tree at ``other`` and of this one in turns
-    (other, this, this, other), one process each: two builds of one kernel
-    library cannot run in one process."""
+    """``time_kernels`` of the tree at ``other`` and of this one in turns,
+    (other, this, this, other) twice, one process each: two builds of one
+    kernel library cannot run in one process, and a host-bound row (a KV
+    page's launch) differs more between processes than within one."""
     turns = []
     for tree, root in (("other", other), ("this", ROOT), ("this", ROOT),
-                       ("other", other)):
+                       ("other", other)) * 2:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
              "--time-kernels", root], capture_output=True, text=True)
@@ -1565,12 +1618,13 @@ def main() -> int:
     ap.add_argument("--ab", metavar="ROOT",
                     help="only time count_subseq, decode_tiles, "
                     "decode_padded, selfsync_intra (with their LUT in "
-                    "shared and in device memory), decode_tiles_fused_nd, "
-                    "dequant_reconstruct_nd, lorenzo_quantize and "
+                    "shared and in device memory), the fused kernels and "
+                    "epilogues, lorenzo_quantize, histogram and "
                     "pack_tiles (through the wrapper and on the device "
                     "alone), the paths that run them and the batch "
                     "phase's decompress ways against those of the "
-                    "checkout at ROOT, in turns (ROOT, this, this, ROOT)")
+                    "checkout at ROOT, in turns (ROOT, this, this, ROOT; "
+                    "twice)")
     ap.add_argument("--time-kernels", metavar="ROOT",
                     help="only time those kernels as built from ROOT's "
                     "src (one turn of --ab)")
@@ -1873,7 +1927,7 @@ def main() -> int:
     selfsync = run_selfsync(results)
     batch = run_batch(args.seed, results, xs)
     encode = run_encode(args.seed, xs)
-    del xs, fields, results, fused, padded, padded_fused, tuned
+    del xs, results, fused, padded, padded_fused, tuned
     torch.cuda.empty_cache()
     model = run_model(args.seed)
 
@@ -1938,6 +1992,12 @@ def main() -> int:
                                    if kname in r}
         kernels[i]["fields_bound_ms"] = {
             r["field"]: r[kname]["bound_ms"] for r in rows if kname in r}
+    hist = {f: by_field[f]["histogram"] for f in fields}
+    kernels[9].update(fields_ms={f: h["ms"] for f, h in hist.items()},
+                      fields_device_ms={f: h["device_ms"]
+                                        for f, h in hist.items()},
+                      fields_bound_ms={f: h["bound_ms"]
+                                       for f, h in hist.items()})
     for i, kname in ((7, "lorenzo_quantize"), (9, "histogram"),
                      (10, "pack_tiles")):
         page = by_field["page0"][kname]

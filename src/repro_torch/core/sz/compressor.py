@@ -315,8 +315,13 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
     nd = fused_squeeze(c.shape)
     tile = PADDED_EPILOGUE_BLOCK if padded else tile_syms
     block = tile if nd is None else fused_tile_rows(nd, tile) * nd[-1]
-    smem = (fd.dequant_reconstruct_smem(block) if padded else
-            fd.decode_tiles_fused_smem(block, 1 << c.codebook.max_len))
+    lut = 1 << c.codebook.max_len
+    if padded:
+        smem = fd.dequant_reconstruct_smem(block)
+    elif nd is None:
+        smem = fd.fused_unit_smem(block, lut)
+    else:
+        smem = fd.decode_tiles_fused_nd_smem(block, lut)
     if smem > K.SMEM_LIMIT:
         return (f"a fused tile of {block} codes needs {smem} B of shared "
                 f"memory per block; Hopper allows {K.SMEM_LIMIT}")

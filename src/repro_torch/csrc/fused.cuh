@@ -13,11 +13,13 @@
 //
 // Work order.  CUDA blocks start and finish in no fixed order.  Each block
 // therefore takes a ticket from an atomic counter (take_ticket) before it
-// does anything else, and the ticket names its work (a 1-D kernel's tile
-// t; an N-D kernel maps tickets to units by anti-diagonal), so work is
-// claimed in ticket order by blocks that are already running.  A block
-// only ever waits for work of a lower ticket, whose block holds it and is
-// running too, so the wait always ends, whatever the schedule.
+// works on anything, and the ticket names its work (a 1-D epilogue's tile
+// t; decode_tiles_fused's unit u, a ticket each time its persistent block
+// comes round; an N-D kernel maps tickets to units by anti-diagonal), so
+// work is claimed in ticket order by blocks that are already running.  A
+// block only ever waits for work of a lower ticket, whose block holds it
+// and is running too, and publishes what others wait for before it waits
+// itself, so the wait always ends, whatever the schedule.
 //
 // Integer arithmetic.  The residuals and their prefix sums are uint32_t
 // (addition mod 2^32, which is associative), cast to int32_t only at the
@@ -28,6 +30,7 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "common.cuh"
@@ -44,15 +47,23 @@ constexpr int kCarryWord = 65;
 constexpr int kLaneWords = 66;   // 8 words: the lanes of a unit's tiles
 constexpr int kBoundWords = 0;   // 16 words: its tiles' outlier slices
 
-// Threads of a fused block: one per lane of the decode stage, at least 256
-// for the scan and the epilogue, at most 1024 (lanes above loop).
-inline int fused_threads(int ss_max) {
-  const int lanes = (ss_max + 31) / 32 * 32;
-  return lanes < 256 ? 256 : (lanes > 1024 ? 1024 : lanes);
-}
-
 inline size_t fused_smem(long long block, int lut_size) {
   return 4 * static_cast<size_t>(block) + 4 * kFusedScratchWords +
+         3 * static_cast<size_t>(lut_size);
+}
+
+// A 1-D block's unit slot: what the write of a staged unit needs once the
+// block has gone on to decode the next one: its chunk offsets (one a warp,
+// at most 16), its outlier slice and its aggregate.
+constexpr int kSlotWords = 20;
+constexpr int kSlotLo = 16, kSlotHi = 17, kSlotAggregate = 18;
+
+// Shared memory of a 1-D block (decode_tiles_fused.cu): two stages of a unit
+// of `unit` codes as uint16, each to a 16-byte boundary, the scratch words,
+// two unit slots and the LUT (fused_decode.fused_unit_smem).
+inline size_t fused_unit_smem(long long unit, int lut_size) {
+  return 2 * ((2 * static_cast<size_t>(unit) + 15) / 16 * 16) +
+         4 * (kFusedScratchWords + 2 * kSlotWords) +
          3 * static_cast<size_t>(lut_size);
 }
 
@@ -131,6 +142,23 @@ __device__ __forceinline__ void load_unit_bounds(
     scratch[kBoundWords + 8 + threadIdx.x] =
         static_cast<uint32_t>(obounds[t + 1]);
   }
+}
+
+// What a tile stage holds at a position: the residual d = code - radius
+// (uint32_t, the N-D kernels and the epilogues), with each outlier's exact
+// residual scattered in, or the code itself (uint16_t, the 1-D kernel,
+// which reads residuals through UnitResiduals and patches its outliers in
+// there).
+__device__ __forceinline__ uint32_t stage_zero(uint32_t*, int radius) {
+  return static_cast<uint32_t>(-radius);
+}
+__device__ __forceinline__ uint16_t stage_zero(uint16_t*, int) { return 0; }
+__device__ __forceinline__ void put_code(uint32_t* d, int i, int sym,
+                                         int radius) {
+  d[i] = static_cast<uint32_t>(sym - radius);
+}
+__device__ __forceinline__ void put_code(uint16_t* d, int i, int sym, int) {
+  d[i] = static_cast<uint16_t>(sym);
 }
 
 // scatter_outliers for a unit's n_here tiles, tile i's into d + i * block,
@@ -238,18 +266,20 @@ __device__ __forceinline__ int tile_span(const int* __restrict__ s0,
 
 // Lane j of output tile `tile` decodes its subsequence through common.cuh's
 // bit-buffer lane decoder (decode_lane_buf) and writes d = code - radius
-// into the tile's residuals at local = offset - tile_base + min(k, 127)
-// inside [0, block).  Exits, as in decode_tiles.cu: a lane past the last
-// subsequence does no work; a lane whose output starts past the tile leaves
-// at once; a lane stops as soon as its next symbol would land past the tile
-// end.  Each drops only writes the reference drops.
+// (or the code: put_code) into the tile's stage at local = offset -
+// tile_base + min(k, 127) inside [0, block).  Exits, as in
+// decode_tiles.cu: a lane past the last subsequence does no work; a lane
+// whose output starts past the tile leaves at once; a lane stops as soon
+// as its next symbol would land past the tile end.  Each drops only writes
+// the reference drops.
+template <typename D>
 __device__ __forceinline__ void decode_lane_residuals(
     const uint32_t* __restrict__ units, long long n_units,
     const int* __restrict__ start_abs, const int* __restrict__ end_abs,
     const int* __restrict__ offsets, const int* __restrict__ s0,
     const int* __restrict__ lut_base, int n_subseq, int total_bits,
     const uint16_t* s_sym, const uint8_t* s_len, int lut_size, int max_len,
-    int tile, int block, int j, int radius, uint32_t* d) {
+    int tile, int block, int j, int radius, D* d) {
   const int s = s0[tile] + j;
   if (s >= n_subseq) return;                 // clipped lane: no work
   const long long off_ll =
@@ -266,9 +296,7 @@ __device__ __forceinline__ void decode_lane_residuals(
                   &land, [&](int k, int sym) {
                     const int local = off + min(k, kMaxSyms - 1);
                     if (local >= block) return false;
-                    if (local >= 0) {
-                      d[local] = static_cast<uint32_t>(sym - radius);
-                    }
+                    if (local >= 0) put_code(d, local, sym, radius);
                     return true;
                   });
 }
@@ -277,12 +305,13 @@ __device__ __forceinline__ void decode_lane_residuals(
 // codes each, decoded from the stream (the fused decode kernels) into
 // d + i * block: d = code - radius at every position (a position no lane
 // writes holds code 0, as in the reference's zero-initialised tile), then
-// each tile's outliers.  The lanes of all n_here tiles (at most 8) are
+// each tile's outliers (with D = uint16_t: the codes alone, the outliers
+// left to UnitResiduals).  The lanes of all n_here tiles (at most 8) are
 // spread over the block's threads at once.  The caller has staged the LUT
 // (stage_lut); the first barrier here publishes it.  Threads 0 .. n_here-1
 // find one tile's lanes and outlier slice each.  Uses scratch words
 // [0, 16) and [66, 74).  Ends with __syncthreads().
-template <typename TileOf>
+template <typename TileOf, typename D>
 __device__ __forceinline__ void stage_unit_residuals(
     const uint32_t* __restrict__ units, long long n_units,
     const int* __restrict__ start_abs, const int* __restrict__ end_abs,
@@ -291,10 +320,9 @@ __device__ __forceinline__ void stage_unit_residuals(
     int lut_size, int max_len, int n_tiles, int n_here, TileOf tile_of,
     int block, int ss_max, int radius, const int* __restrict__ opos,
     const int* __restrict__ oval, const int* __restrict__ obounds,
-    const uint16_t* s_sym, const uint8_t* s_len, uint32_t* d,
-    uint32_t* scratch) {
+    const uint16_t* s_sym, const uint8_t* s_len, D* d, uint32_t* scratch) {
   uint32_t* span = scratch + kLaneWords;     // span[i]: tile i's lanes
-  const uint32_t zero_code = static_cast<uint32_t>(-radius);
+  const D zero_code = stage_zero(d, radius);
   const int n = n_here * block;
   for (int i = threadIdx.x; i < n; i += blockDim.x) d[i] = zero_code;
   load_unit_bounds(n_here, tile_of, obounds, scratch);
@@ -314,7 +342,9 @@ __device__ __forceinline__ void stage_unit_residuals(
                           d + static_cast<size_t>(i) * block);
   }
   __syncthreads();
-  scatter_unit_outliers(n_here, tile_of, block, opos, oval, scratch, d);
+  if constexpr (sizeof(D) == sizeof(uint32_t)) {
+    scatter_unit_outliers(n_here, tile_of, block, opos, oval, scratch, d);
+  }
 }
 
 // Inclusive prefix sums of v[0, n) in place, restarting at every multiple
@@ -455,6 +485,308 @@ __device__ __forceinline__ uint32_t lookback_prefix(
   }
   __syncthreads();
   return scratch[kCarryWord];
+}
+
+// ---------------------------------------------------------------------------
+// 1-D units: warp-chunk scan and a warp-wide look-back
+// ---------------------------------------------------------------------------
+//
+// A 1-D unit (decode_tiles_fused.cu) is k consecutive tiles, n codes staged
+// in shared memory as uint16 (stage_unit_residuals with D = uint16_t: half
+// the bytes of int32 residuals, so more blocks fit an SM), read as
+// residuals through UnitResiduals.  Warp w owns the chunk [w * chunk, (w + 1) *
+// chunk) of them (chunk a multiple of 128, unit_chunk), read a row of 128
+// at a time, 4 consecutive codes a lane through one 8-byte load: the lanes
+// of a warp read 256 consecutive bytes, no bank conflict (scan_rows' runs
+// of `ipt` values a thread put 16 lanes on one bank).  A uint16 cannot
+// hold an outlier's residual, so the outliers are not scattered into the
+// stage: pass 1 adds each outlier's difference to its chunk's total, and in
+// pass 2 each warp walks its chunk's part of the unit's slice of the side
+// list in step with its rows (UnitResiduals::row4).  Either reads each
+// outlier once.  The scan takes two passes over the stage and stores
+// nothing back to it:
+//   1. unit_chunk_totals: each warp sums its chunk, and warp 0 turns the
+//      totals into each chunk's exclusive offset and the unit's aggregate
+//      (unit_chunk_offsets);
+//   2. write_unit, after the carry: each row's inclusive sums (4 in a lane,
+//      then a warp scan of the lanes' totals), plus the chunk's running
+//      offset and the unit's exclusive prefix, cast and stored, 4 values a
+//      lane, with one vector store where the output's alignment allows.
+
+// The unit's codes per warp: ceil(n / warps), rounded up to a row of 128.
+__device__ __forceinline__ int unit_chunk(int n) {
+  const int warps = blockDim.x >> 5;
+  return ((n + warps - 1) / warps + 127) / 128 * 128;
+}
+
+// A warp's place in its unit's outlier slice: `o` the next outlier it has
+// not patched in, `at` that outlier's unit position (INT_MAX past the
+// slice).
+struct OutlierWalk {
+  int o, at;
+};
+
+// The residuals of a unit's staged codes, code - radius, and the outliers
+// of the unit's slice [lo, hi) of the side list (ascending positions), each
+// of which replaces the residual at its place.  `base` is the unit's first
+// position.
+struct UnitResiduals {
+  const uint16_t* codes;
+  const int* __restrict__ opos;
+  const int* __restrict__ oval;
+  long long base;
+  int lo, hi, radius;
+
+  // The residuals at e .. e + 3 (e a multiple of 4, so one 8-byte load) of
+  // the codes alone, 0 at or past `end`.
+  __device__ __forceinline__ void load4(int e, int end, uint32_t (&r)[4])
+      const {
+    uint2 c = make_uint2(0u, 0u);
+    if (e < end) c = *reinterpret_cast<const uint2*>(codes + e);
+    const uint32_t code[4] = {c.x & 0xffffu, c.x >> 16, c.y & 0xffffu,
+                              c.y >> 16};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = e + i < end ? code[i] - static_cast<uint32_t>(radius) : 0u;
+    }
+  }
+
+  // Outlier o's unit position, INT_MAX past the slice.
+  __device__ __forceinline__ int place(int o) const {
+    return o < hi ? static_cast<int>(min(opos[o] - base,
+                                         static_cast<long long>(INT_MAX)))
+                  : INT_MAX;
+  }
+
+  // The walk from the first outlier at or past unit position e (a binary
+  // search, once a warp).
+  __device__ __forceinline__ OutlierWalk walk_from(int e) const {
+    const long long pos = base + e;
+    int a = lo, b = hi;
+    while (a < b) {
+      const int m = (a + b) >> 1;
+      if (opos[m] < pos) {
+        a = m + 1;
+      } else {
+        b = m;
+      }
+    }
+    return OutlierWalk{a, place(a)};
+  }
+
+  // The residuals at row + 4 * lane .. + 3 of the row [row, row + 128) of a
+  // warp's chunk [.., end), 0 at or past `end`: load4, then the row's
+  // outliers, which `w` reaches first.  Called by the whole warp.  A row
+  // without outliers costs one comparison.  Otherwise the warp reads the
+  // positions and values of the next 32 outliers, one a lane; those inside
+  // the row are a prefix of the lanes.  Up to kBroadcastMax of them are
+  // broadcast one at a time, each lane patching its own places; more, and
+  // each lane finds the first at or past its places by a binary search
+  // over the lanes (5 shuffles) and fetches the next 4 (its places hold at
+  // most 4, positions being distinct).
+  static constexpr int kBroadcastMax = 4;
+
+  __device__ __forceinline__ void row4(int row, int end, OutlierWalk& w,
+                                       uint32_t (&r)[4]) const {
+    const int lane = threadIdx.x & 31;
+    const int e = row + 4 * lane;
+    load4(e, end, r);
+    const int stop = min(row + 128, end);
+    while (w.at < stop) {                    // the same on every lane
+      const int o = w.o + lane;
+      const int p = place(o);
+      const bool in = p < stop;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      const int v = in ? oval[o] : 0;
+      const int count = __popc(m);
+      if (count <= kBroadcastMax) {
+        for (unsigned bits = m; bits != 0; bits &= bits - 1) {
+          const int j = __ffs(bits) - 1;
+          const int k = __shfl_sync(0xffffffffu, p, j) - e;
+          const int vj = __shfl_sync(0xffffffffu, v, j);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (k == i) r[i] = static_cast<uint32_t>(vj);
+          }
+        }
+      } else {
+        int j = 0;                           // lanes below j: before e
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1) {
+          if (__shfl_sync(0xffffffffu, p, j + step - 1) < e) j += step;
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int src = j + t;
+          const int k = __shfl_sync(0xffffffffu, p, src & 31) - e;
+          const int vt = __shfl_sync(0xffffffffu, v, src & 31);
+          if (src < 32 && (m >> (src & 31) & 1u)) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              if (k == i) r[i] = static_cast<uint32_t>(vt);
+            }
+          }
+        }
+      }
+      w.o += count;
+      w.at = place(w.o);
+    }
+  }
+};
+
+// Pass 1: each warp's chunk total, in scratch words [32, 32 + warps), then
+// published to the block.  The chunks sum the codes' residuals; then the
+// block's threads take the unit's outliers, one a thread at a time, and
+// add to the chunk of each the difference between its residual and its
+// code's (uint32 sums, so the order of the additions does not matter).
+// Ends with __syncthreads().
+__device__ __forceinline__ void unit_chunk_totals(const UnitResiduals& d,
+                                                  int n, int chunk,
+                                                  uint32_t* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = warp * chunk, hi = min(lo + chunk, n);
+  uint32_t acc = 0;
+  for (int base = lo; base < hi; base += 128) {
+    uint32_t r[4];
+    d.load4(base + 4 * lane, hi, r);
+    acc += r[0] + r[1] + r[2] + r[3];
+  }
+  acc = __reduce_add_sync(0xffffffffu, acc);
+  if (lane == 0) scratch[32 + warp] = acc;
+  __syncthreads();
+  for (int o = d.lo + static_cast<int>(threadIdx.x); o < d.hi;
+       o += blockDim.x) {
+    const long long p = d.opos[o] - d.base;
+    if (p >= 0 && p < n) {
+      const uint32_t code_r =
+          static_cast<uint32_t>(d.codes[p]) - static_cast<uint32_t>(d.radius);
+      atomicAdd(scratch + 32 + static_cast<int>(p) / chunk,
+                static_cast<uint32_t>(d.oval[o]) - code_r);
+    }
+  }
+  __syncthreads();
+}
+
+// Warp 0, after unit_chunk_totals: each chunk's exclusive offset, in
+// offs[0 .. warps); returns the unit's aggregate to every lane of warp 0.
+__device__ __forceinline__ uint32_t unit_chunk_offsets(
+    const uint32_t* scratch, uint32_t* offs) {
+  const int lane = threadIdx.x;
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const uint32_t t = lane < warps ? scratch[32 + lane] : 0u;
+  uint32_t incl = t;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane < warps) offs[lane] = incl - t;
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// Lane 0 of the calling warp publishes unit u's aggregate (unit 0: its
+// inclusive prefix, the same value).
+__device__ __forceinline__ void publish_aggregate(
+    int u, uint32_t aggregate, unsigned long long* status) {
+  if ((threadIdx.x & 31) == 0) {
+    st_release(status + u, (u == 0 ? kPrefix : kAggregate) | aggregate);
+  }
+}
+
+// The sum of every unit before unit u, by decoupled look-back (Merrill &
+// Garland 2016) a warp at a time; called by warp 0 alone once u's
+// aggregate is published (publish_aggregate), returns it to every lane.
+// Lane l reads the status of unit hi - l, for the `window` (1 to 32) units
+// below hi = u - 1: as soon as the nearest unit of the window that has
+// published its inclusive prefix has only aggregates between it and u, the
+// warp adds that prefix and those aggregates (one warp reduction) and is
+// done; if every unit of the window holds its aggregate and none its
+// prefix, it adds them all and slides the window down by `window` units;
+// otherwise (a unit of the window has published nothing yet) it reads
+// again.  Lane 0 then publishes the unit's inclusive prefix.  The thread-0
+// walk this replaced (lookback_prefix) read one predecessor a round trip.
+__device__ __forceinline__ uint32_t unit_lookback(int u, uint32_t aggregate,
+                                                  int window,
+                                                  unsigned long long* status) {
+  const int lane = threadIdx.x;
+  if (u == 0) return 0u;
+  uint32_t prefix = 0;
+  long long polls = 0;
+  for (int hi = u - 1;;) {
+    const int j = hi - lane;
+    // Past the window: an aggregate of 0; below unit 0: a prefix of 0
+    // (unit 0 always publishes a prefix, so the walk stops there first).
+    unsigned long long w = kAggregate;
+    if (lane < window) w = j >= 0 ? ld_acquire(status + j) : kPrefix;
+    const unsigned long long flag = w & ~0xffffffffull;
+    const unsigned none = __ballot_sync(0xffffffffu, flag == 0);
+    const unsigned pre = __ballot_sync(0xffffffffu, flag == kPrefix);
+    const uint32_t v = static_cast<uint32_t>(w);
+    if (pre != 0 && (none == 0 || __ffs(pre) < __ffs(none))) {
+      const int p = __ffs(pre) - 1;
+      prefix += __reduce_add_sync(0xffffffffu, lane <= p ? v : 0u);
+      break;
+    }
+    if (none == 0) {
+      prefix += __reduce_add_sync(0xffffffffu, v);
+      hi -= window;
+    } else {
+      count_poll(&polls);
+    }
+  }
+  if (lane == 0) st_release(status + u, kPrefix | (prefix + aggregate));
+  return prefix;
+}
+
+template <typename T>
+struct alignas(4 * sizeof(T)) Out4 {
+  T v[4];
+};
+
+// Pass 2: out[i] = cast(float(int32(add + q[i])) * two_eb) for i < n_valid,
+// q the unit's inclusive sums, from the staged codes and the chunk offsets
+// `offs` that unit_chunk_offsets left; `out` is the unit's first output.
+template <typename T>
+__device__ __forceinline__ void write_unit(const UnitResiduals& d, int n,
+                                           int chunk, uint32_t add,
+                                           int n_valid, float two_eb,
+                                           const uint32_t* offs,
+                                           T* __restrict__ out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lo = warp * chunk, hi = min(lo + chunk, n);
+  const bool vec = (reinterpret_cast<uintptr_t>(out) & (sizeof(Out4<T>) - 1))
+                   == 0;
+  uint32_t carry = add + offs[warp];
+  OutlierWalk w = d.walk_from(lo);
+  for (int base = lo; base < hi; base += 128) {
+    const int e = base + 4 * lane;
+    uint32_t x[4];
+    d.row4(base, hi, w, x);
+    const uint32_t s[4] = {x[0], x[0] + x[1], x[0] + x[1] + x[2],
+                           x[0] + x[1] + x[2] + x[3]};
+    uint32_t incl = s[3];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    const uint32_t ex = carry + incl - s[3];
+    carry += __shfl_sync(0xffffffffu, incl, 31);
+    Out4<T> o;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      o.v[i] = to_out<T>(
+          __fmul_rn(__int2float_rn(static_cast<int>(ex + s[i])), two_eb));
+    }
+    if (vec && e + 3 < n_valid) {
+      *reinterpret_cast<Out4<T>*>(out + e) = o;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (e + i < n_valid) out[e + i] = o.v[i];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -43,8 +43,8 @@ SIGNATURES = {
                        _P]),
     "decode_tiles_fused": ("repro_decode_tiles_fused",
                            [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I,
-                            _I, _I, _I, _L, _I, _P, _P, _P, _I, _F, _P, _P,
-                            _I, _P, _P]),
+                            _I, _I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P,
+                            _I, _F, _P, _P, _I, _P, _P]),
     "decode_tiles_fused_nd": ("repro_decode_tiles_fused_nd",
                               [_P, _L, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -61,7 +61,8 @@ SIGNATURES = {
                          [_P, _L, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P]),
     "reconstruct1d": ("repro_reconstruct1d",
                       [_P, _L, _I, _F, _P, _P, _P, _P]),
-    "histogram": ("repro_histogram", [_P, _L, _I, _I, _I, _P, _P]),
+    "histogram": ("repro_histogram",
+                  [_P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _P, _P]),
     "pack_tiles": ("repro_pack_tiles",
                    [_P, _P, _L, _P, _P, _I, _L, _I, _I, _I, _P, _P]),
     "selfsync_intra": ("repro_selfsync_intra",

@@ -6,8 +6,10 @@ Port of ``src/repro/kernels/fused_decode.py``:
   * :func:`decode_tiles_fused` -- phase 4 for flat fields: the tile decode
     of ``decode_tiles``, ``d = code - radius`` with the outlier side list
     scattered in, the 1-D inverse Lorenzo (an int32 cumsum carried across
-    tiles by decoupled look-back) and ``cast(float(q) * 2eb)``
-    (``csrc/decode_tiles_fused.cu``).
+    units of consecutive tiles by a warp-wide decoupled look-back) and
+    ``cast(float(q) * 2eb)``, over a persistent grid
+    (``csrc/decode_tiles_fused.cu``; the geometry from
+    :func:`fused_geometry`).
   * :func:`decode_tiles_fused_nd` -- the same for 2-D/3-D fields, with
     whole-row tiles taken a unit of tiles a block, and the ``(cols,)`` row
     carry and the plane carry found by decoupled look-back over a ring of
@@ -54,8 +56,17 @@ OUT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: Shared scratch bytes of a fused block beside its tile and LUT (80 words:
 #: warp partials of the block scan, the ticket, the carry).
 SCRATCH_BYTES = 320
-#: Most whole tiles one unit (block) of an N-D kernel takes.
+#: Most whole tiles one unit (block) of a fused kernel takes.
 MAX_GROUP = 8
+#: The 1-D kernel's block width, the blocks an SM holds at that width and
+#: the register bound that follows (its __launch_bounds__(512, 3):
+#: csrc/decode_tiles_fused.cu, kFusedMaxThreads, kFusedMinBlocks), and the
+#: units its look-back reads at once (a warp's lanes).  On the H100 at
+#: hacc1d's shape, blocks of 512 ran faster than of 256 or 384.
+FUSED_MAX_THREADS = 512
+FUSED_MIN_BLOCKS = 3
+FUSED_REGS = 40
+LOOKBACK_WINDOW = 32
 #: Most chain predecessors an N-D unit's look-back reads before it waits
 #: for the last of them to publish its inclusive prefix (at most 32, the
 #: lanes of the warp that reads their flags): deep for 2-D, whose one row
@@ -72,22 +83,35 @@ ND_REGS = 64
 ND_WIDE_UNIT = 16384
 
 
-def decode_tiles_fused_smem(tile_syms: int, lut: int) -> int:
-    """Shared memory of one ``decode_tiles_fused`` block: the int32
-    residual tile, the scan scratch and the LUT (u16 symbol + u8 length)."""
-    return 4 * tile_syms + SCRATCH_BYTES + 3 * lut
+def _residual_tile_smem(block: int, lut: int) -> int:
+    """Shared memory of a block of ``block`` codes staged as int32
+    residuals (the N-D kernels and the epilogues), the scan scratch and the
+    LUT (u16 symbol + u8 length)."""
+    return 4 * block + SCRATCH_BYTES + 3 * lut
+
+
+#: Bytes of a 1-D block's two unit slots (csrc/fused.cuh: kSlotWords).
+UNIT_SLOT_BYTES = 2 * 20 * 4
+
+
+def fused_unit_smem(unit_syms: int, lut: int) -> int:
+    """Shared memory of one ``decode_tiles_fused`` block: two stages of a
+    unit of ``unit_syms`` uint16 codes, each to a 16-byte boundary, the
+    scan scratch, two unit slots and the LUT (u16 symbol + u8 length)."""
+    return (2 * K._round16(2 * unit_syms) + SCRATCH_BYTES + UNIT_SLOT_BYTES
+            + 3 * lut)
 
 
 def decode_tiles_fused_nd_smem(block: int, lut: int) -> int:
     """Shared memory of one ``decode_tiles_fused_nd`` block of ``block``
     codes (a unit's tiles; the carries live in global memory)."""
-    return decode_tiles_fused_smem(block, lut)
+    return _residual_tile_smem(block, lut)
 
 
 def dequant_reconstruct_smem(block: int) -> int:
     """Shared memory of one epilogue block (either geometry) of ``block``
     codes: the int32 residual tile and the scan scratch; no LUT."""
-    return decode_tiles_fused_smem(block, 0)
+    return _residual_tile_smem(block, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -295,6 +319,67 @@ def _check_tiles(units, start_abs, end_abs, offsets, s0, lut_base, n_tiles,
 # ---------------------------------------------------------------------------
 
 
+class FusedGeometry(typing.NamedTuple):
+    """Launch geometry of :func:`decode_tiles_fused`
+    (:func:`fused_geometry`): units of ``unit_tiles`` consecutive tiles,
+    ``units`` of them, taken by ``blocks`` persistent blocks of
+    ``FUSED_MAX_THREADS`` threads and ``smem`` bytes of shared memory; the
+    look-back reads ``window`` statuses at once."""
+    unit_tiles: int
+    units: int
+    blocks: int
+    smem: int
+    window: int
+
+    @property
+    def scratch_words(self) -> int:
+        """int32 words of the zeroed scratch: the ticket, padded to 8 B,
+        then one uint64 status a unit."""
+        return 2 + 2 * self.units
+
+
+def fused_unit_geometry(k: int, n_tiles: int, tile_syms: int, lut: int,
+                        sm_count: int) -> FusedGeometry:
+    """:func:`fused_geometry`'s grid at ``k`` tiles a unit."""
+    smem = fused_unit_smem(k * tile_syms, lut)
+    units = -(-n_tiles // k)
+    blocks = min(units, sm_count * max(
+        K.resident_blocks(FUSED_MAX_THREADS, smem, FUSED_REGS), 1))
+    return FusedGeometry(unit_tiles=k, units=units, blocks=blocks,
+                         smem=smem, window=LOOKBACK_WINDOW)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_geometry(n_tiles: int, n_subseq: int, tile_syms: int, ss_max: int,
+                   lut: int, sm_count: int) -> FusedGeometry:
+    """Launch geometry of :func:`decode_tiles_fused` for ``n_tiles`` tiles of
+    ``tile_syms`` codes over ``n_subseq`` subsequences, a lane budget of
+    ``ss_max`` and a ``lut``-entry LUT, on a card of ``sm_count`` SMs.
+
+    A block is ``FUSED_MAX_THREADS`` wide: its scan and its write use every
+    warp, and its lanes decode on as many threads.  A tile's lanes are the
+    subsequences its output can come from, about ``span = n_subseq /
+    n_tiles + 2`` of them (capped at ``ss_max``), as
+    ``huffman_decode.decode_tiles_geometry`` counts them.  A unit takes the
+    most tiles (up to ``MAX_GROUP``) such that its lanes, ``k * span``, fit
+    the block, the block's two stages still let ``FUSED_MIN_BLOCKS``
+    blocks share an SM (the blocks its register bound allows), and the
+    units still fill those blocks on every SM; at least one tile.  The grid
+    is the blocks the SMs hold at once, or one a unit if there are fewer
+    units.  On the H100 at hacc1d's shape (82 lanes a tile) that is 3
+    tiles a unit, which ran faster than 1-2 or 4-8 tiles.
+    """
+    span = min(-(-n_subseq // max(n_tiles, 1)) + 2, ss_max)
+    most = min(MAX_GROUP, -(-n_tiles // (sm_count * FUSED_MIN_BLOCKS)))
+    k = 1
+    while (k < most and (k + 1) * span <= FUSED_MAX_THREADS
+           and K.resident_blocks(FUSED_MAX_THREADS,
+                                 fused_unit_smem((k + 1) * tile_syms, lut),
+                                 FUSED_REGS) >= FUSED_MIN_BLOCKS):
+        k += 1
+    return fused_unit_geometry(k, n_tiles, tile_syms, lut, sm_count)
+
+
 def decode_tiles_fused_plain(units, start_abs, end_abs, offsets, s0,
                              total_bits: int, dec_sym, dec_len, max_len: int,
                              tile_syms: int, ss_max: int, n_out: int, opos,
@@ -337,13 +422,13 @@ def decode_tiles_fused(units, start_abs, end_abs, offsets, s0,
             dec_len, max_len, tile_syms, ss_max, n_out, opos, oval, obounds,
             two_eb, radius, out_dtype, lut_base)
     lut = dec_sym.numel()
-    K._check_smem("decode_tiles_fused", decode_tiles_fused_smem(tile_syms,
-                                                                lut))
+    K._check_smem("decode_tiles_fused", fused_unit_smem(tile_syms, lut))
     out = torch.empty(n_out, dtype=out_dtype, device=units.device)
     if n_tiles == 0:
         return out
-    # ticket (uint32, padded to 8 B), then one uint64 status word per tile
-    scratch = torch.zeros(2 + 2 * n_tiles, dtype=torch.int32,
+    geo = fused_geometry(n_tiles, start_abs.shape[0], tile_syms, ss_max, lut,
+                         K.sm_count(units.device.index))
+    scratch = torch.zeros(geo.scratch_words, dtype=torch.int32,
                           device=units.device)
     launch = _build.load("decode_tiles_fused")
     rc = launch(units.data_ptr(), units.numel(), start_abs.data_ptr(),
@@ -351,9 +436,10 @@ def decode_tiles_fused(units, start_abs, end_abs, offsets, s0,
                 None if lut_base is None else lut_base.data_ptr(),
                 start_abs.shape[0], int(total_bits), dec_sym.data_ptr(),
                 dec_len.data_ptr(), lut, max_len, tile_syms, ss_max, n_out,
-                n_tiles, opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(),
-                radius, two_eb, scratch.data_ptr(), scratch.data_ptr() + 8,
-                OUT_KINDS[out_dtype], out.data_ptr(),
+                n_tiles, geo.unit_tiles, geo.window, geo.blocks, geo.smem,
+                opos.data_ptr(), oval.data_ptr(), obounds.data_ptr(), radius,
+                two_eb, scratch.data_ptr(),
+                scratch.data_ptr() + 8, OUT_KINDS[out_dtype], out.data_ptr(),
                 K._stream_ptr(units.device))
     if rc != 0:
         raise RuntimeError(f"decode_tiles_fused kernel launch failed: CUDA "

@@ -513,6 +513,12 @@ FUSED_CASES = {
     # most codes are outliers
     "outlier-dense": ((300, 500), 4096, 5e-2, 4, 12,
                       "decode_tiles_fused_nd"),
+    # the same for a flat field: rows of 128 codes with more than a warp's
+    # 32 outliers, in units of 4,096- and of 64-code tiles
+    "1d-outlier-dense": ((1_000_000,), 4096, 5e-2, 4, 12,
+                         "decode_tiles_fused"),
+    "1d-outlier-dense-64": ((300_001,), 64, 5e-2, 4, 12,
+                            "decode_tiles_fused"),
     # one unit: no carry at all
     "2d-one-unit": ((7, 9), 4096, 1e-3, 512, 12, "decode_tiles_fused_nd"),
     # 2,501 units of 8 one-row tiles, the last one partial, more than the
@@ -548,7 +554,7 @@ def test_fused_kernels_match_plain(cuda, case, dtype):
     assert kernel.launches == before + 1
     want = plain(*args)
     assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
-    if case == "outlier-dense":
+    if "outlier-dense" in case:
         assert int((c.outlier_pos >= 0).sum()) > c.n_symbols // 4
     # the codec's fused path gives the two-pass bytes
     fused = Codec(codec.config.replace(fused=True, tile_syms=tile))
@@ -593,6 +599,115 @@ def test_fused_repeated_launches_identical(cuda, case):
     want = plain(*args)
     for out in outs:
         assert torch.equal(_bits(out), _bits(want))
+
+
+def _fused_1d(cuda, n, tile, seed=5):
+    codec, c = _fused_payload(cuda, (n,), seed, 1e-3, torch.float32)
+    kernel, plain, args = _fused_call(codec, c, tile)
+    assert kernel.__name__ == "decode_tiles_fused"
+    return kernel, plain, args
+
+
+def test_fused_1d_more_units_than_resident_blocks(cuda, no_plain_versions,
+                                                  monkeypatch):
+    """5,000,000 values in 64-code tiles: more units than 4 x the resident
+    blocks, so every block takes many tickets; 5 launches, all the plain
+    version's bits (which ran after the kernels, with no plain version
+    refused)."""
+    from repro_torch.kernels import fused_decode as fd
+
+    kernel, _, args = _fused_1d(cuda, 5_000_000, 64)
+    geo = fd.fused_geometry(-(-args[11] // 64), args[1].shape[0], 64,
+                            args[10], args[6].numel(), K.sm_count(0))
+    assert geo.units > 4 * geo.blocks
+    before = kernel.launches
+    outs = [kernel(*args) for _ in range(5)]
+    assert kernel.launches == before + 5
+    monkeypatch.undo()
+    want = fd.decode_tiles_fused_plain(*args)
+    for out in outs:
+        assert torch.equal(_bits(out), _bits(want))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096])
+def test_fused_1d_single_tile(cuda, n):
+    """One tile: one unit, which publishes its prefix at once."""
+    kernel, plain, args = _fused_1d(cuda, n, 4096)
+    assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+
+
+@pytest.mark.parametrize("window", [1, 2, 31, 32])
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_fused_1d_window_slides(cuda, monkeypatch, window, k):
+    """A look-back window of 1 or 2 units slides on nearly every unit, one
+    of 31 or 32 whenever 32 predecessors hold only aggregates; with 1, 3 or
+    8 tiles a unit and a last unit that is partial.  Every output is the
+    plain version's, for float32, bf16 and f16."""
+    from repro_torch.kernels import fused_decode as fd
+
+    def geometry(n_tiles, n_subseq, tile, ss_max, lut, sm):
+        return fd.fused_unit_geometry(k, n_tiles, tile, lut, sm)._replace(
+            window=window)
+
+    monkeypatch.setattr(fd, "fused_geometry", geometry)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        codec, c = _fused_payload(cuda, (300_001,), 6, 1e-3, dtype)
+        kernel, plain, args = _fused_call(codec, c, 256)
+        assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+
+
+@pytest.mark.parametrize("tile", [64, 1001, 4096])
+def test_fused_1d_outliers_at_row_and_unit_edges(cuda, tile):
+    """Spikes at the first and last codes of every row of 128, of every
+    tile and of every warp's chunk, and one run where every code is an
+    outlier, become outliers there (radius 4); the 1-D kernel, whose warps
+    walk the outlier list beside their rows, equals its plain version bit
+    for bit."""
+    n = 400_000
+    x = smooth_field((n,), seed=23)
+    edges = np.concatenate([np.arange(0, n, 128), np.arange(127, n, 128),
+                            np.arange(0, n, tile), np.arange(tile - 1, n, tile),
+                            np.arange(5000, 5600)])
+    edges = np.unique(edges[edges < n])
+    rng = np.random.default_rng(23)
+    x[edges] += (rng.uniform(50, 150, edges.size) * rng.choice(
+        [-1, 1], edges.size)).astype(np.float32)
+    codec = Codec(CodecConfig(radius=4, device=str(cuda)))
+    c = codec.compress(torch.from_numpy(x).to(cuda))
+    opos = c.outlier_pos[c.outlier_pos >= 0].cpu().numpy()
+    assert np.isin(edges, opos).mean() > 0.9
+    kernel, plain, args = _fused_call(codec, c, tile)
+    assert kernel.__name__ == "decode_tiles_fused"
+    assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+
+
+def test_fused_1d_unaligned_tiles(cuda):
+    """A tile of 1,001 codes: no unit but the first starts on a 16-byte
+    boundary of the output, so the scalar stores run."""
+    for dtype in (torch.float32, torch.float16):
+        codec, c = _fused_payload(cuda, (250_000,), 8, 1e-3, dtype)
+        kernel, plain, args = _fused_call(codec, c, 1001)
+        assert torch.equal(_bits(kernel(*args)), _bits(plain(*args)))
+
+
+def test_fused_1d_entry_refuses_bad_geometry(cuda, monkeypatch):
+    """The C entry refuses (-1) a unit of 9 tiles, a window of 0 or 33 and
+    too little shared memory, before it launches anything."""
+    from repro_torch.kernels import fused_decode as fd
+
+    kernel, _, args = _fused_1d(cuda, 20_000, 4096)
+    for bad in (dict(unit_tiles=9), dict(window=0), dict(window=33),
+                dict(smem=100)):
+        def geometry(n_tiles, n_subseq, tile, ss_max, lut, sm, bad=bad):
+            geo = fd.fused_unit_geometry(1, n_tiles, tile, lut, sm)
+            if "unit_tiles" in bad:
+                geo = geo._replace(smem=fd.fused_unit_smem(
+                    9 * 4096, args[6].numel()))
+            return geo._replace(**bad)
+
+        monkeypatch.setattr(fd, "fused_geometry", geometry)
+        with pytest.raises(RuntimeError, match="CUDA error -1"):
+            kernel(*args)
 
 
 def test_fused_default_codec(cuda):
@@ -1112,6 +1227,92 @@ def test_histogram_skewed(cuda):
     x = torch.full((5000000,), 512, dtype=torch.uint16, device=cuda)
     x[::7] = 511
     assert torch.equal(H.histogram(x, 1024), H.histogram_plain(x, 1024))
+
+
+def _hist_case(cuda, dist, n, nbins, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dist == "one-bin":
+        v = np.full(n, nbins // 2)
+    elif dist == "uniform":
+        v = rng.integers(-3 if dtype == torch.int32 else 0, nbins + 3, n)
+    else:                              # the codes of a smooth field
+        v = nbins // 2 + np.rint(rng.standard_normal(n) * 1.5).astype(int)
+    return torch.from_numpy(v).to(dtype).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("n", [1, 7, 9, 4097, 32768, H.HIST_SINGLE_MAX + 1,
+                               3_000_001])
+def test_histogram_unaligned_views(cuda, n, offset, dtype):
+    """A view that starts past a 16-byte boundary (x[1:], x[3:]): the head
+    and the tail are read one value at a time, the body 16 bytes a load."""
+    base = _hist_case(cuda, "skewed", n + offset, 1024, dtype, n + offset)
+    x = base[offset:]
+    assert x.data_ptr() % 16 != 0
+    geo = H.histogram_geometry(x.data_ptr(), n, x.element_size(), 1024,
+                               K.sm_count(0))
+    assert geo.head + geo.vectors * 16 // x.element_size() + geo.tail == n
+    got = H.histogram(x, 1024)
+    assert torch.equal(got, H.histogram_plain(x, 1024))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.int32])
+@pytest.mark.parametrize("n", [H.HIST_SINGLE_MAX - 1, H.HIST_SINGLE_MAX,
+                               H.HIST_SINGLE_MAX + 1, 32768])
+def test_histogram_single_block_threshold(cuda, n, dtype):
+    """Up to HIST_SINGLE_MAX values one block stores every bin into an
+    output from torch.empty: a recycled allocation full of garbage must
+    not show through."""
+    single = H.histogram_geometry(0, n, 2, 1024, K.sm_count(0)).single
+    assert single == (n <= H.HIST_SINGLE_MAX)
+    x = _hist_case(cuda, "skewed", n, 1024, dtype, n)
+    for _ in range(3):
+        junk = torch.full((1024,), 0x5A5A5A5A, dtype=torch.int32,
+                          device=cuda)
+        del junk
+        got = H.histogram(x, 1024)
+        assert torch.equal(got, H.histogram_plain(x, 1024))
+
+
+@pytest.mark.parametrize("nbins", [1024, 80000])
+@pytest.mark.parametrize("dist", ["one-bin", "uniform", "skewed"])
+@pytest.mark.parametrize("n", [32768, 5_000_000])
+def test_histogram_distributions(cuda, n, dist, nbins):
+    """Every code in one bin, uniform codes (with values to clip) and a
+    smooth field's codes, in the shared-memory and the global-atomics
+    variants (nbins 80000 is past shared memory)."""
+    x = _hist_case(cuda, dist, n, nbins, torch.int32, 7)
+    assert H.histogram_in_smem(nbins) == (nbins == 1024)
+    before = H.histogram.launches
+    got = H.histogram(x, nbins)
+    assert H.histogram.launches == before + 1
+    assert torch.equal(got, H.histogram_plain(x, nbins))
+    assert int(got.sum()) == n
+
+
+def test_histogram_widths(cuda, monkeypatch):
+    """Geometries other than the rule's (block widths, grids of 1 to 264
+    blocks, a grid where the rule takes one block, one block where it
+    takes a grid): every one counts exactly."""
+    rule = H._histogram_geometry
+    x = _hist_case(cuda, "skewed", 2_000_003, 1024, torch.uint16, 3)[1:]
+    want = H.histogram_plain(x, 1024)
+    for threads, blocks in ((32, 1), (256, 528), (512, 264), (1024, 1),
+                            (1024, 264)):
+        def geometry(*key, threads=threads, blocks=blocks):
+            return rule(*key)._replace(threads=threads, blocks=blocks,
+                                       single=blocks == 1)
+
+        monkeypatch.setattr(H, "_histogram_geometry", geometry)
+        assert torch.equal(H.histogram(x, 1024), want)
+    for n in (4097, 32768):              # a grid below the single bound
+        def geometry(*key):
+            return rule(*key)._replace(blocks=3, single=False)
+
+        monkeypatch.setattr(H, "_histogram_geometry", geometry)
+        assert torch.equal(H.histogram(x[:n], 1024),
+                           H.histogram_plain(x[:n], 1024))
 
 
 @pytest.mark.parametrize("tile_units", [1, 7, 1024, None])

@@ -11,6 +11,7 @@ kernels themselves are held against their plain versions on the card
 (``tests/test_torch_cuda.py``).
 """
 
+import bisect
 import ctypes
 import math
 import random
@@ -507,3 +508,308 @@ def test_nd_entries_check_the_launch_first(name):
     body = src[src.index(f'extern "C" int {symbol}('):]
     check = body.index("if (!nd_launch_ok(grid, threads)) return -1;")
     assert check < body.index("REPRO_LAUNCH(float)")
+
+
+# ---------------------------------------------------------------------------
+# decode_tiles_fused: persistent units of tiles, a warp-wide look-back
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sm", SM_COUNTS)
+@pytest.mark.parametrize("ss_max", [1, 2, 31, 32, 33, 100, 411, 1024])
+@pytest.mark.parametrize("codes_per_subseq", [1, 8, 52, 128])
+@pytest.mark.parametrize("tile,n_tiles", [(64, 15625), (1001, 250),
+                                          (4096, 1), (4096, 7),
+                                          (4096, 4096), (20000, 50)])
+def test_fused_geometry(tile, n_tiles, codes_per_subseq, ss_max, sm):
+    """Units of 1 to MAX_GROUP tiles, every tile in one unit; blocks of
+    FUSED_MAX_THREADS; a unit's lanes fit its block, FUSED_MIN_BLOCKS
+    blocks fit an SM and the units fill them, unless the unit is one tile,
+    and one tile more would break one of the three; a grid of the resident
+    blocks or one a unit."""
+    lut = 4096
+    n_subseq = max(1, n_tiles * tile // codes_per_subseq)
+    geo = fd.fused_geometry(n_tiles, n_subseq, tile, ss_max, lut, sm)
+    k = geo.unit_tiles
+    assert 1 <= k <= min(fd.MAX_GROUP, n_tiles)
+    assert (geo.units - 1) * k < n_tiles <= geo.units * k
+    assert geo.smem == fd.fused_unit_smem(k * tile, lut) <= K.SMEM_LIMIT
+    span = min(-(-n_subseq // n_tiles) + 2, ss_max)
+
+    def fits(j):
+        return (j * span <= fd.FUSED_MAX_THREADS
+                and K.resident_blocks(fd.FUSED_MAX_THREADS,
+                                      fd.fused_unit_smem(j * tile, lut),
+                                      fd.FUSED_REGS) >= fd.FUSED_MIN_BLOCKS
+                and (j - 1) * sm * fd.FUSED_MIN_BLOCKS < n_tiles)
+
+    assert k == 1 or fits(k)
+    assert k == min(fd.MAX_GROUP, n_tiles) or not fits(k + 1)
+    resident = sm * K.resident_blocks(fd.FUSED_MAX_THREADS, geo.smem,
+                                      fd.FUSED_REGS)
+    assert 1 <= geo.blocks == min(geo.units, resident)
+    assert geo.window == fd.LOOKBACK_WINDOW == 32
+    assert geo.scratch_words == 2 + 2 * geo.units
+
+
+def test_fused_geometry_at_hacc1d():
+    """hacc1d (2**24 codes at 2.452 bits, 4,096 tiles of 4,096, max_len 12)
+    on 132 SMs: units of 3 tiles, ~246 lanes, in blocks of 512 threads, 3 an
+    SM (4 tiles' two stages let only 2 fit): 1,366 units over 396 blocks."""
+    n_subseq = -(-int(2.452 * (1 << 24)) // 128)
+    ss_max = hp.ss_max_for_tile(4096, 12)
+    geo = fd.fused_geometry(4096, n_subseq, 4096, ss_max, 4096, 132)
+    assert geo == fd.FusedGeometry(unit_tiles=3, units=1366, blocks=396,
+                                   smem=61920, window=32)
+    assert K.resident_blocks(512, fd.fused_unit_smem(4 * 4096, 4096),
+                             fd.FUSED_REGS) == 2
+
+
+def test_fused_1d_tile_bound_is_the_kernels():
+    """The codec takes a flat field's fused path for the widest tile whose
+    block (fused_unit_smem: two uint16 stages) fits shared memory beside
+    the LUT, and falls back, with a reason, one tile wider, so the wrapper
+    never refuses a tile the codec hands it."""
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.sz import compressor
+
+    c = Codec(CodecConfig(device="cpu")).compress(
+        torch.linspace(0, 1, 5000, dtype=torch.float32))
+    lut = 1 << c.codebook.max_len
+    widest = max(t for t in range(54000, 56000)
+                 if fd.fused_unit_smem(t, lut) <= K.SMEM_LIMIT)
+    assert compressor.fused_unsupported_reason(
+        c, "ref", "gap", "tile", tile_syms=widest) is None
+    why = compressor.fused_unsupported_reason(c, "ref", "gap", "tile",
+                                              tile_syms=widest + 1)
+    assert "shared memory" in why
+
+
+def _play_lookback(aggs, window, resident, rng):
+    """csrc/decode_tiles_fused.cu's units and csrc/fused.cuh:unit_lookback
+    on a random schedule.  ``resident`` blocks each loop: take a ticket u;
+    publish u's aggregate (unit 0: its prefix); then look back for the
+    unit it took before (its warp's lanes read the window in a random
+    order, other blocks acting between the reads; then it is done, slides
+    or reads again) and publish that unit's inclusive prefix; stop when the
+    tickets run out.  Each step one random block does one thing.  Returns
+    each unit's exclusive prefix and the slides."""
+    mask = (1 << 32) - 1
+    status = [(0, 0)] * len(aggs)
+    result, slides, ticket = [None] * len(aggs), [0], [0]
+
+    def lookback(u):
+        prefix, hi = 0, u - 1
+        while u > 0:
+            seen = [(1, 0)] * 32            # lanes past the window
+            order = list(range(window))
+            rng.shuffle(order)
+            for lane in order:
+                j = hi - lane
+                seen[lane] = status[j] if j >= 0 else (2, 0)
+                yield
+            none = [lane for lane in range(32) if seen[lane][0] == 0]
+            pre = [lane for lane in range(32) if seen[lane][0] == 2]
+            if pre and (not none or pre[0] < none[0]):
+                prefix += sum(v for _, v in seen[:pre[0] + 1])
+                break
+            if not none:
+                prefix += sum(v for _, v in seen)
+                hi -= window
+                slides[0] += 1
+        prefix &= mask
+        result[u] = prefix
+        if u > 0:
+            status[u] = (2, (prefix + aggs[u]) & mask)
+        yield
+
+    def block():
+        prev = None
+        while True:
+            u = ticket[0]
+            ticket[0] += 1
+            yield
+            if u < len(aggs):
+                status[u] = (2 if u == 0 else 1, aggs[u])
+                yield
+            if prev is not None:
+                yield from lookback(prev)
+            if u >= len(aggs):
+                return
+            prev = u
+
+    running = [block() for _ in range(resident)]
+    steps = 0
+    while running:
+        steps += 1
+        assert steps < 10_000_000, "the look-back did not finish"
+        i = rng.randrange(len(running))
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+    return result, slides[0]
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("n_units,window,resident", [
+    (1, 32, 4), (7, 32, 3), (200, 32, 16), (200, 1, 8), (300, 2, 50),
+    (400, 32, 400), (150, 5, 150)])
+def test_fused_lookback_model_is_a_cumsum(n_units, window, resident, seed):
+    """Units publishing in random orders, each block two units in flight,
+    windows that slide: every unit's exclusive prefix is np.cumsum's, mod
+    2**32."""
+    rng = random.Random(seed)
+    aggs = [rng.randrange(1 << 20) for _ in range(n_units)]
+    got, slides = _play_lookback(aggs, window, resident, rng)
+    want = np.concatenate([[0], np.cumsum(aggs)[:-1]]) & ((1 << 32) - 1)
+    assert got == [int(w) for w in want]
+    if window <= 2 and n_units > 100:
+        assert slides > 0
+
+
+@pytest.mark.parametrize("window", [1, 3, 32])
+def test_fused_lookback_model_wraps_as_int32(window):
+    """Aggregates near 2**31 (negative residual sums as uint32 too): the
+    prefixes, cast to int32, are np.cumsum's in int32, which wraps."""
+    rng = random.Random(window)
+    signed = [rng.choice([1, -1]) * rng.randrange(1 << 30, 1 << 31)
+              for _ in range(120)]
+    aggs = [v & ((1 << 32) - 1) for v in signed]
+    got, _ = _play_lookback(aggs, window, 40, rng)
+    with np.errstate(over="ignore"):
+        want = np.concatenate([[0], np.cumsum(np.array(signed, np.int32),
+                                              dtype=np.int32)[:-1]])
+    assert np.array_equal(np.array(got, np.uint32).view(np.int32), want)
+
+
+def _unit_chunks(n, warps):
+    """fused.cuh:unit_chunk: a warp's codes, ceil(n / warps) rounded up to a
+    row of 128."""
+    return (-(-n // warps) + 127) // 128 * 128
+
+
+def _walk_residuals(codes, opos, oval, base, lo, hi, radius, warps):
+    """Pass 2 of csrc/fused.cuh's 1-D units in Python (write_unit through
+    UnitResiduals::row4): each warp's chunk a row of 128 codes at a time,
+    code - radius, and the outliers of the slice [lo, hi) patched in by the
+    warp's walk (walk_from; then, while the walk is inside the row, the
+    positions of the next 32 outliers, one a lane, of which those inside
+    the row are a prefix: up to kBroadcastMax broadcast one at a time,
+    more found by each lane's binary search over the lanes and its next 4
+    fetched).  Returns the residuals and how often each outlier of the
+    slice was patched in."""
+    n = len(codes)
+    chunk = _unit_chunks(n, warps)
+    big = (1 << 31) - 1
+
+    def place(o):
+        return opos[o] - base if o < hi else big
+
+    out = np.zeros(n, np.int64)
+    used = np.zeros(len(opos), np.int64)
+    for w in range(warps):
+        c0, c1 = w * chunk, min((w + 1) * chunk, n)
+        o = bisect.bisect_left(opos, base + c0, lo, hi)
+        at = place(o)
+        for row in range(c0, c1, 128):
+            stop = min(row + 128, c1)
+            r = [int(codes[e]) - radius if e < stop else 0
+                 for e in range(row, row + 128)]
+            while at < stop:
+                p = [place(o + lane) for lane in range(32)]
+                ins = [q < stop for q in p]
+                m = sum(ins)
+                assert ins == [True] * m + [False] * (32 - m)
+                for lane in range(32):
+                    e = row + 4 * lane
+                    if m <= 4:                   # broadcast
+                        srcs = range(m)
+                    else:                        # lower bound, then 4
+                        j = 0
+                        for step in (16, 8, 4, 2, 1):
+                            if p[j + step - 1] < e:
+                                j += step
+                        srcs = [t for t in range(j, j + 4) if t < m]
+                    for t in srcs:
+                        if 0 <= p[t] - e < 4:
+                            r[p[t] - row] = oval[o + t]
+                            used[o + t] += 1
+                o += m
+                at = place(o)
+            out[row:stop] = r[:stop - row]
+    return out, used[lo:hi]
+
+
+def _chunk_totals(codes, opos, oval, base, lo, hi, radius, warps):
+    """Pass 1 (unit_chunk_totals) in Python: each chunk's sum of code -
+    radius, then each outlier of the slice adds the difference between its
+    residual and its code's to the chunk of its place."""
+    n = len(codes)
+    chunk = _unit_chunks(n, warps)
+    tot = [int((codes[w * chunk:(w + 1) * chunk].astype(np.int64)
+                - radius).sum()) for w in range(warps)]
+    for o in range(lo, hi):
+        p = opos[o] - base
+        if 0 <= p < n:
+            tot[p // chunk] += oval[o] - (int(codes[p]) - radius)
+    return tot
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1001, 3 * 4096])
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.05, 0.3, 1.0])
+def test_fused_outlier_walk_matches_a_scatter(n, density):
+    """Both passes see the residuals a scatter of the unit's outliers
+    gives: the walk gives each unit position its residual and patches
+    each outlier of the slice exactly once, and the chunk totals with the
+    outliers' differences are the scattered residuals' sums; the
+    neighbouring units' outliers around the slice are ignored; for 16
+    warps and for 1, at densities up to every code an outlier, with runs
+    of outliers longer than a warp's 32 lanes."""
+    rng = np.random.default_rng(n * 7 + int(density * 100))
+    base, radius = 40_000, 4
+    codes = rng.integers(0, 2 * radius, n)
+    mine = np.flatnonzero(rng.random(n) < density)
+    if density:                                 # a run past 32 lanes
+        mine = np.union1d(mine, np.arange(min(n, 40)))
+    opos = np.concatenate([[base - 3, base - 1], base + mine,
+                           [base + n, base + n + 5]]).tolist()
+    oval = rng.integers(-(1 << 31), 1 << 31, len(opos)).tolist()
+    lo, hi = 2, 2 + len(mine)
+    want = codes.astype(np.int64) - radius
+    want[mine] = oval[lo:hi]
+    for warps in (16, 1):
+        got, used = _walk_residuals(codes, opos, oval, base, lo, hi, radius,
+                                    warps)
+        assert np.array_equal(got, want)
+        assert (used == 1).all()
+        chunk = _unit_chunks(n, warps)
+        assert _chunk_totals(codes, opos, oval, base, lo, hi, radius,
+                             warps) == [int(want[w * chunk:(w + 1) * chunk]
+                                            .sum()) for w in range(warps)]
+
+
+def test_fused_entry_checks_the_geometry_first():
+    """The 1-D C entry refuses (-1) a unit past stage_unit_residuals' 8
+    slots, a window past a warp's lanes and too little shared memory,
+    before it launches anything, and launches blocks of the width its
+    register bound assumes (the card test
+    test_fused_1d_entry_refuses_bad_geometry drives the refusals)."""
+    src = (_build.CSRC / "decode_tiles_fused.cu").read_text()
+    body = src[src.index('extern "C" int repro_decode_tiles_fused('):]
+    check = body[:body.index("return -1;")]
+    for term in ("unit_tiles < 1", "unit_tiles > 8", "window < 1",
+                 "window > 32", "blocks < 1", "fused_unit_smem("):
+        assert term in check
+    assert body.index("return -1;") < body.index("REPRO_LAUNCH(float)")
+    assert "kernel<<<blocks, kFusedMaxThreads, smem," in src
+    assert re.search(r"kFusedMaxThreads = (\d+);", src).group(1) == str(
+        fd.FUSED_MAX_THREADS)
+    assert "__launch_bounds__(kFusedMaxThreads, kFusedMinBlocks)" in src
+    min_blocks = int(re.search(r"kFusedMinBlocks = (\d+);", src).group(1))
+    # registers go 8 a thread at a time
+    regs = 65536 // (min_blocks * fd.FUSED_MAX_THREADS) // 8 * 8
+    assert fd.FUSED_REGS == regs
+    assert fd.FUSED_MIN_BLOCKS == min_blocks

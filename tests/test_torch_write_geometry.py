@@ -18,6 +18,7 @@ versions on the card (``tests/test_torch_cuda.py``).
 
 import bisect
 import math
+import re
 
 import numpy as np
 import pytest
@@ -25,6 +26,8 @@ import torch
 
 from repro_torch.core.huffman import codebook
 from repro_torch.core.sz import lorenzo
+from repro_torch.kernels import _build
+from repro_torch.kernels import histogram as H
 from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import huffman_encode as E
 from repro_torch.kernels import lorenzo as L
@@ -424,3 +427,163 @@ def test_pack_model_matches_plain(name, tile):
         torch.from_numpy(starts.astype(np.int32)),
         torch.from_numpy(enc_code), torch.from_numpy(enc_len), n_units)
     assert np.array_equal(got, want.numpy())
+
+
+# ---------------------------------------------------------------------------
+# histogram: geometry, and a model of the kernel's counting
+# ---------------------------------------------------------------------------
+
+#: Input sizes: the edges of a load (8 uint16, 4 int32) and of a block, the
+#: single-block threshold, a KV page and the smoke fields.
+HIST_SIZES = (1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 1023, 1024, 1025, 8191,
+              8192, 8193, 32768, H.HIST_SINGLE_MAX, H.HIST_SINGLE_MAX + 1,
+              6_480_000, 1 << 24, 25_000_000)
+
+
+def _hist_unroll():
+    src = (_build.CSRC / "histogram.cu").read_text()
+    return int(re.search(r"constexpr int kUnroll = (\d+);", src).group(1))
+
+
+def _hist_order(geo, n, per, gtid, step, unroll):
+    """The elements thread ``gtid`` of the grid reads, in its order: its
+    vectors over the grid stride, ``unroll`` at a time, then its head and
+    tail values (csrc/histogram.cu)."""
+    order = []
+    v0 = gtid
+    while v0 < geo.vectors:
+        for u in range(unroll):
+            v = v0 + u * step
+            if v < geo.vectors:
+                order += range(geo.head + v * per, geo.head + (v + 1) * per)
+        v0 += unroll * step
+    tail0 = geo.head + geo.vectors * per
+    if gtid < geo.head:
+        order.append(gtid)
+    if gtid < n - tail0:
+        order.append(tail0 + gtid)
+    return order
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("offset", range(16))
+@pytest.mark.parametrize("n", HIST_SIZES)
+def test_histogram_geometry_covers_every_value_once(n, offset, itemsize):
+    """The head, the 16-byte body and the tail cover every value once, for
+    every offset of x from a 16-byte boundary; the body starts on one."""
+    ptr = (1 << 40) + offset
+    if offset % itemsize:
+        with pytest.raises(ValueError, match="aligned"):
+            H.histogram_geometry(ptr, n, itemsize, 1024, 132)
+        return
+    geo = H.histogram_geometry(ptr, n, itemsize, 1024, 132)
+    per = H.HIST_VEC_BYTES // itemsize
+    assert 0 <= geo.head < per and 0 <= geo.tail < per
+    assert geo.head + geo.vectors * per + geo.tail == n
+    if geo.vectors:
+        assert (ptr + geo.head * itemsize) % H.HIST_VEC_BYTES == 0
+    if geo.head < n:
+        assert geo.head == (-ptr % H.HIST_VEC_BYTES) // itemsize
+    assert geo.threads % 32 == 0 and 32 <= geo.threads <= H.HIST_THREADS
+    assert geo.head < geo.threads and geo.tail < geo.threads
+    if n <= 20_000:
+        # the grid's threads read each value exactly once
+        step = geo.blocks * geo.threads
+        seen = np.zeros(n, np.int64)
+        for gtid in range(step):
+            np.add.at(seen, _hist_order(geo, n, per, gtid, step,
+                                        _hist_unroll()), 1)
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("nbins", [1, 16, 1024, 1 << 15, 58112, 58113,
+                                   80000])
+@pytest.mark.parametrize("n", [1, 32768, H.HIST_SINGLE_MAX,
+                               H.HIST_SINGLE_MAX + 1, 25_000_000])
+def test_histogram_geometry_grid(n, nbins):
+    """One block stores every bin up to HIST_SINGLE_MAX values (if the
+    counters fit shared memory); past it a wave of blocks, each a share of
+    at least HIST_SHARE_PER_BIN x nbins values; past shared memory global
+    atomics, one wave, never a single block."""
+    geo = H.histogram_geometry(1 << 40, n, 2, nbins, 132)
+    assert geo.shared == H.histogram_in_smem(nbins) == (
+        4 * nbins <= K.SMEM_LIMIT)
+    assert geo.single == (geo.shared and geo.blocks == 1)
+    wave = 132 * H.HIST_BLOCKS_PER_SM
+    if not geo.shared:
+        assert 1 <= geo.blocks <= wave
+    elif n <= H.HIST_SINGLE_MAX:
+        assert geo.blocks == 1 and geo.single
+        assert geo.threads == min(H.HIST_THREADS,
+                                  max(32, -(-max(geo.vectors, 1) // 32) * 32))
+    else:
+        assert geo.blocks == max(1, min(wave,
+                                        n // (H.HIST_SHARE_PER_BIN * nbins)))
+        assert geo.blocks == 1 or n // geo.blocks >= (
+            H.HIST_SHARE_PER_BIN * nbins)
+
+
+def test_histogram_geometry_at_the_smoke_shapes():
+    """A KV page (32,768 codes) is one block of 1,024 threads, 4 loads a
+    thread; the fields one wave of 132 blocks on 132 SMs."""
+    page = H.histogram_geometry(1 << 40, 32768, 2, 1024, 132)
+    assert (page.blocks, page.threads, page.vectors, page.single) == (
+        1, 1024, 4096, True)
+    for n in (25_000_000, 6_480_000, 1 << 24):
+        geo = H.histogram_geometry(1 << 40, n, 2, 1024, 132)
+        assert (geo.blocks, geo.threads, geo.single) == (132, 1024, False)
+
+
+def _model_histogram(x, nbins, geo):
+    """csrc/histogram.cu in numpy and Python: each thread's values in its
+    order, clipped, added into its block's sub-histogram (or into the
+    output); one block's bins stored, several blocks' added."""
+    n, per = x.size, H.HIST_VEC_BYTES // x.itemsize
+    vals = np.clip(x.astype(np.int64), 0, nbins - 1)
+    sub = np.zeros((geo.blocks, nbins), np.int64)
+    out = np.zeros(nbins, np.int64)
+    step = geo.blocks * geo.threads
+    for b in range(geo.blocks):
+        for t in range(geo.threads):
+            dst = sub[b] if geo.shared else out
+            for i in _hist_order(geo, n, per, b * geo.threads + t, step,
+                                 _hist_unroll()):
+                dst[vals[i]] += 1
+    if geo.shared:
+        out = sub[0] if geo.single else out + sub.sum(axis=0)
+    return out
+
+
+def _hist_input(dist, n, nbins, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dist == "one-bin":
+        v = np.full(n, nbins // 2)
+    elif dist == "uniform":
+        v = rng.integers(-3 if dtype == np.int32 else 0, nbins + 3, n)
+    else:                               # a smooth field's codes
+        v = nbins // 2 + np.rint(rng.standard_normal(n) * 1.5).astype(int)
+    return v.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+@pytest.mark.parametrize("dist", ["skewed", "uniform", "one-bin"])
+@pytest.mark.parametrize("n,nbins,sm,knobs", [
+    (20_000, 64, 2, dict(threads=64)),               # one block
+    (20_000, 16, 2, dict(threads=32)),               # one narrow block
+    (9_000, 16, 3, dict(threads=32, blocks=3, single=False)),  # a grid
+    (5_003, 60000, 2, dict(threads=64)),             # global atomics
+])
+def test_histogram_model_matches_plain(n, nbins, sm, knobs, dist, dtype):
+    """The model of the kernel's plan (its head, vectors and tail, the
+    sub-histograms and the flush) equals histogram_plain on skewed,
+    uniform and all-one-bin inputs, at an unaligned start, with the
+    geometry's blocks narrowed (``knobs``) so that the model stays small
+    and a small input also runs as a grid of blocks."""
+    x = _hist_input(dist, n, nbins, dtype, n + nbins)
+    ptr = (1 << 40) + (2 if dtype == np.uint16 else 4)
+    geo = H.histogram_geometry(ptr, n, x.itemsize, nbins, sm)._replace(
+        **knobs)
+    assert geo.head > 0
+    assert geo.shared == (nbins != 60000)
+    want = H.histogram_plain(torch.from_numpy(x.astype(np.int64)), nbins)
+    assert np.array_equal(_model_histogram(x, nbins, geo), want.numpy())
