@@ -104,9 +104,11 @@ The script
     tokens/s and peak memory a config, the model kernels' times beside
     their plain versions' and ``scaled_dot_product_attention``'s (the
     yardstick of ``flash_attention``, timed here and used nowhere in the
-    port), and ``gla_time_mix`` at serve's decode shape (BH 160, S 1, the
-    state in: back to back through the wrapper, and the kernel's device
-    time) beside its byte bound; a KV page's ``lorenzo_quantize``,
+    port), ``torch.cumsum`` of hacc1d's int32 residuals (the yardstick of
+    ``dequant_reconstruct`` and ``reconstruct1d``, whose device times
+    ``launch_split`` also reads), and ``gla_time_mix`` at serve's decode
+    shape (BH 160, S 1, the state in: back to back through the wrapper,
+    and the kernel's device time) beside its byte bound; a KV page's ``lorenzo_quantize``,
     ``histogram`` and ``pack_tiles`` launch split into the wrapper's host
     time and the kernel's device time (``launch_split``, for
     ``histogram`` on the fields too); the card's name and power limit;
@@ -1006,8 +1008,14 @@ def run_encode(seed: int, xs) -> dict:
     require(rerr <= bound, f"reconstruct: max|x - x'| = {rerr} > {bound}")
     rows["hacc1d"]["reconstruct1d"] = {
         "ms": cuda_ms(lambda: L.reconstruct1d(resid, two_eb), 20),
+        "device_ms": launch_split(
+            lambda: L.reconstruct1d(resid, two_eb))["device_ms"],
         "plain_ms": cuda_ms(lambda: L.reconstruct1d_plain(resid, two_eb), 5),
         "bound_ms": 8 * resid.numel() / HBM_BYTES_PER_S * 1e3,
+        # one PyTorch scan of the same residuals (the yardstick of rows 6
+        # and 9; the port never calls it)
+        "library_ms": cuda_ms(
+            lambda: torch.cumsum(resid, 0, dtype=torch.int32), 20),
         "max_abs_err": max_abs_err(rk, rp), "roundtrip_max_abs_err": rerr}
     for row in rows.values():
         print(f"encode {json.dumps(row)}")
@@ -1388,7 +1396,9 @@ def time_kernels(seed: int, other: bool = False) -> dict:
     ``dequant_reconstruct`` on hacc1d, ``decode_tiles_fused_nd`` and
     ``dequant_reconstruct_nd`` on isabel3d and cesm2d) and the fused and
     padded fused ``decompress`` (cached plan) that run them, and each
-    field's outlier count; ``decode_tiles_fused`` on hacc1d compressed at
+    field's outlier count; ``dequant_reconstruct`` on hacc1d also on the
+    device alone (``launch_split``); ``decode_tiles_fused`` and
+    ``dequant_reconstruct`` (wrapper and device) on hacc1d compressed at
     radius 4 and 2 (many outliers); on
     isabel3d ``decode_tiles`` at the default tile and at its most populous
     tuned class's tile, beside its decode-work yardstick (``count_subseq``
@@ -1454,6 +1464,10 @@ def time_kernels(seed: int, other: bool = False) -> dict:
                 f"version")
         out[f"{ekernel.__name__}_{name}_ms"] = cuda_ms(
             lambda: ekernel(*eargs), 20)
+        if name == "hacc1d":
+            split = launch_split(lambda: ekernel(*eargs))
+            out[f"{ekernel.__name__}_{name}_device_ms"] = split["device_ms"]
+            out[f"{ekernel.__name__}_{name}_host_ms"] = split["host_ms"]
         out[f"decompress_fused_cached_plan_{name}_ms"] = cuda_ms(
             lambda: fcodec.decompress(c), 10)
         out[f"decompress_padded_fused_cached_plan_{name}_ms"] = cuda_ms(
@@ -1473,6 +1487,18 @@ def time_kernels(seed: int, other: bool = False) -> dict:
                     (rc.outlier_pos >= 0).sum())
                 out[f"{rkernel.__name__}_hacc1d_radius{radius}_ms"] = \
                     cuda_ms(lambda: rkernel(*rargs), 20)
+                # The padded path's epilogue on the same stream.
+                pkernel, pplain, pargs = ops.padded_epilogue_inputs(
+                    rcodec.decode(rc.stream, rc.codebook, rc.n_symbols),
+                    rc.n_symbols, rc.outlier_pos, rc.outlier_val, rc.eb,
+                    rc.radius, rc.shape, rc.dtype)
+                require(same(pkernel(*pargs), pplain(*pargs)),
+                        f"hacc1d radius {radius}: {pkernel.__name__} "
+                        f"differs from its plain version")
+                split = launch_split(lambda: pkernel(*pargs))
+                key = f"{pkernel.__name__}_hacc1d_radius{radius}"
+                out[f"{key}_ms"] = split["wrapper_ms"]
+                out[f"{key}_device_ms"] = split["device_ms"]
         count_args, tile_args = kernel_inputs(codec, c)
         require(all(same(a, b) for a, b in zip(
             K.count_subseq(*count_args), K.count_subseq_plain(*count_args))),
@@ -1538,7 +1564,9 @@ def time_write_path(seed: int) -> dict:
     its plain version first and called at the tree's own defaults,
     each timed through the wrapper and on the device alone
     (``launch_split``), the "cuda" ``compress`` of isabel3d and of the
-    page, and ``reconstruct1d`` on hacc1d's residuals."""
+    page, and ``reconstruct1d`` on hacc1d's residuals (wrapper and device)
+    beside ``torch.cumsum`` of the same residuals (device), the library
+    yardstick of rows 6 and 9."""
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
@@ -1587,8 +1615,15 @@ def time_write_path(seed: int) -> dict:
             require(same(L.reconstruct1d(resid, two_eb),
                          L.reconstruct1d_plain(resid, two_eb)),
                     "hacc1d: reconstruct1d differs from its plain version")
-            out["reconstruct1d_hacc1d_ms"] = cuda_ms(
-                lambda: L.reconstruct1d(resid, two_eb), 20)
+            split = launch_split(lambda: L.reconstruct1d(resid, two_eb))
+            out["reconstruct1d_hacc1d_ms"] = split["wrapper_ms"]
+            out["reconstruct1d_hacc1d_device_ms"] = split["device_ms"]
+            out["reconstruct1d_hacc1d_host_ms"] = split["host_ms"]
+            # The library yardstick of rows 6 and 9: one PyTorch scan of
+            # the same int32 residuals.
+            out["cumsum_hacc1d_device_ms"] = launch_split(
+                lambda: torch.cumsum(resid, 0, dtype=torch.int32))[
+                    "device_ms"]
     return out
 
 
@@ -1619,8 +1654,9 @@ def main() -> int:
                     help="only time count_subseq, decode_tiles, "
                     "decode_padded, selfsync_intra (with their LUT in "
                     "shared and in device memory), the fused kernels and "
-                    "epilogues, lorenzo_quantize, histogram and "
-                    "pack_tiles (through the wrapper and on the device "
+                    "epilogues (the 1-D epilogue also at radius 4 and 2), "
+                    "lorenzo_quantize, histogram, pack_tiles and "
+                    "reconstruct1d (through the wrapper and on the device "
                     "alone), the paths that run them and the batch "
                     "phase's decompress ways against those of the "
                     "checkout at ROOT, in turns (ROOT, this, this, ROOT; "
@@ -1898,9 +1934,11 @@ def main() -> int:
             lambda: pcodec.decode(c.stream, c.codebook, c.n_symbols), 5)
         row["decode_ms_tuned"] = cuda_ms(
             lambda: tcodec.decode(c.stream, c.codebook, c.n_symbols), 5)
-        # The torch-ops dequantize beside the epilogue kernel: no single
-        # PyTorch call computes this function.
+        # The torch-ops dequantize beside the epilogue kernel.
         row[ename]["torch_ops_ms"] = row["dequantize_ms"]
+        if ename == "dequant_reconstruct":
+            row[ename]["device_ms"] = launch_split(
+                lambda: ekernel(*eargs))["device_ms"]
         row["decompress_with_plan_ms"] = cuda_ms(
             lambda: compressor.decompress(c, backend=codec.backend), 5)
         row["decompress_fused_with_plan_ms"] = cuda_ms(
@@ -1965,9 +2003,17 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": k.get("library_ms")}
-        if "torch_ops_ms" in k:
-            entry["torch_ops_ms"] = k["torch_ops_ms"]
+        for key in ("torch_ops_ms", "device_ms"):
+            if key in k:
+                entry[key] = k[key]
         kernels.append(entry)
+    # Row 6's library yardstick is row 9's: torch.cumsum of hacc1d's int32
+    # residuals, the same scan, which reads 4 B a value where row 6 reads
+    # 2 B a code.
+    kernels[5]["library_ms"] = kernels[8]["library_ms"]
+    kernels[5]["library_call"] = ("torch.cumsum(resid, 0, dtype=torch.int32)"
+                                  " on hacc1d's int32 residuals (4 B read a "
+                                  "value; the kernel reads 2 B a code)")
     quantize_1d = by_field["hacc1d"]["lorenzo_quantize"]
     kernels[7]["hacc1d"] = {key: quantize_1d[key] for key in (
         "ms", "plain_ms", "bound_ms", "max_abs_err")}

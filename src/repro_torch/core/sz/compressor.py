@@ -317,7 +317,8 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
     block = tile if nd is None else fused_tile_rows(nd, tile) * nd[-1]
     lut = 1 << c.codebook.max_len
     if padded:
-        smem = fd.dequant_reconstruct_smem(block)
+        smem = (fd.epilogue_smem(2 * block) if nd is None
+                else fd.dequant_reconstruct_smem(block))
     elif nd is None:
         smem = fd.fused_unit_smem(block, lut)
     else:

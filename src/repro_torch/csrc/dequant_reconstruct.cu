@@ -3,28 +3,38 @@
 //
 // Replaces the TPU kernel src/repro/kernels/fused_decode.py:
 // dequant_reconstruct (body dequant_recon_kernel_body ->
-// _dequant_recon_block; entry ops.decode_padded_fused).  It is
-// decode_tiles_fused.cu with the decode stage replaced by a read of the
-// codes: one block per tile of `block` codes (4,096 on the padded path, as
-// in the reference).  The block
-//   1. takes its tile index t from the launch's ticket counter;
-//   2. reads the tile's codes as int32 residuals d = code - radius into
-//      shared memory, coalesced, and scatters the tile's outliers
-//      (fused.cuh: load_residuals);
-//   3. scans d in place (the tile's inclusive cumsum);
-//   4. finds the sum of every earlier tile by decoupled look-back
-//      (fused.cuh: lookback_prefix), one 64-bit status word per tile;
-//   5. writes out[i] = cast(float(int32(prefix + d[i])) * two_eb).
-// On the TPU the carry was one int32 in VMEM scratch across an ordered
-// grid; here the status words, zeroed by the wrapper for every launch,
-// carry it between blocks that run in no fixed order.
+// _dequant_recon_block; entry ops.decode_padded_fused).  On the TPU the
+// carry was one int32 in VMEM scratch across an ordered grid.  Here it is
+// decode_tiles_fused.cu's unit path with the decode replaced by a read of
+// the codes (fused.cuh, "1-D epilogues"): persistent blocks of
+// kEpilogueThreads threads, at most the blocks the card holds at once
+// (fused_decode.epilogue_geometry).  Each block loops:
+//   1. it takes a ticket, the next unit u of unit_tiles consecutive tiles
+//      of `tile` codes, and starts the unit's read: one bulk copy of its
+//      codes into one of three stages in shared memory, and its slice of
+//      the outlier side list (fused.cuh: stage_unit, EpilogueCodes);
+//   2. it waits for the unit it took before, sums each warp's chunk of its
+//      residuals d = code - radius, the outliers' differences added in, and
+//      publishes the unit's aggregate (unit_chunk_totals,
+//      unit_chunk_offsets, publish_aggregate);
+//   3. for the unit taken before that one, warp 0 finds the sum of every
+//      earlier unit by a decoupled look-back over a window of 32 statuses,
+//      one a lane (unit_lookback), and the block writes out[i] =
+//      cast(float(int32(prefix + cumsum(d)[i])) * two_eb), 4 values a lane,
+//      each warp walking the unit's outliers beside its rows, with a
+//      16-byte (8-byte for bf16 and f16) store where the unit's first output
+//      allows (write_unit).
+// Step 1's copy runs while the block does steps 2 and 3, and step 3's
+// look-back comes a round after its unit's aggregate went out, so it
+// rarely waits.  The carry is one 64-bit status word a unit, zeroed by the
+// wrapper for every launch.
 //
-// What bounds it on the H100: the byte floor is 2 B read per code, the
-// output, and 8 B per outlier: 0.03 ms for hacc1d's 2^24 float32 values.
-// The scan is a few operations per code, so the kernel should sit near its
-// byte floor unless the look-back waits; a tile waits only for the
-// aggregates of earlier tiles, which those publish as soon as their own
-// scans are done.
+// What bounds it on the H100: the byte floor is 2 B read a code, the
+// output, and 8 B an outlier: 0.030 ms for hacc1d's 2^24 float32 values at
+// 3.35 TB/s.  The scan is a few operations a code, so the floor is reached
+// only if the reads stay in flight: a unit's read overlaps the block's
+// look-back and write, and the look-back waits only for units whose
+// aggregates their blocks published before they looked back themselves.
 #include <cuda_runtime.h>
 
 #include "fused.cuh"
@@ -32,38 +42,35 @@
 namespace repro_torch {
 
 template <typename T>
-__global__ void __launch_bounds__(1024) dequant_reconstruct_kernel(
-    const uint16_t* __restrict__ codes, int block,
-    const int* __restrict__ opos, const int* __restrict__ oval,
-    const int* __restrict__ obounds, int radius, float two_eb,
-    unsigned* ticket, unsigned long long* status, T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* d = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* scratch = d + block;
-
-  const int t = take_ticket(ticket, scratch);
-  load_residuals(codes, t, block, radius, opos, oval, obounds, d);
-  scan_rows(d, block, block, scratch);
-  const uint32_t prefix = lookback_prefix(t, d[block - 1], status, scratch);
-  write_out(d, prefix, block, two_eb,
-            out + static_cast<long long>(t) * block);
+__global__ void __launch_bounds__(kEpilogueThreads, kEpilogueMinBlocks)
+    dequant_reconstruct_kernel(const uint16_t* __restrict__ codes, int tile,
+                               int n_tiles, int unit_tiles, int window,
+                               const int* __restrict__ opos,
+                               const int* __restrict__ oval,
+                               const int* __restrict__ obounds, int radius,
+                               float two_eb, unsigned* ticket,
+                               unsigned long long* status,
+                               T* __restrict__ out) {
+  const EpilogueCodes src{codes, opos,    oval,       obounds,
+                          tile,  n_tiles, unit_tiles, radius};
+  epilogue_units(src, static_cast<long long>(n_tiles) * tile,
+                 unit_tiles * tile, window, two_eb, ticket, status, out);
 }
 
 template <typename T>
-int launch(const void* codes, int block, int n_tiles, const void* opos,
+int launch(const void* codes, int tile, int n_tiles, int unit_tiles,
+           int window, int blocks, int smem, const void* opos,
            const void* oval, const void* obounds, int radius, float two_eb,
            void* ticket, void* status, void* out, void* stream) {
-  const int threads = 512;
-  const size_t smem = fused_smem(block, 0);
   auto kernel = dequant_reconstruct_kernel<T>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(codes), block,
+  kernel<<<blocks, kEpilogueThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(codes), tile, n_tiles, unit_tiles, window,
       static_cast<const int*>(opos), static_cast<const int*>(oval),
       static_cast<const int*>(obounds), radius, two_eb,
       static_cast<unsigned*>(ticket),
@@ -73,22 +80,30 @@ int launch(const void* codes, int block, int n_tiles, const void* opos,
 
 }  // namespace repro_torch
 
-// C entry point.  Launches on `stream`, allocates nothing, does not
+// C entry point.  Launches `blocks` blocks of kEpilogueThreads threads
+// with `smem` bytes of shared memory on `stream`
+// (fused_decode.epilogue_geometry), allocates nothing, does not
 // synchronize; returns cudaGetLastError() (0 on success), or -1 for an
-// unknown out_kind (0 float32, 1 bfloat16, 2 float16).  `codes` and `out`
-// hold n_tiles * block values.  `ticket` (one uint32) and `status`
-// (n_tiles uint64) must be zero.
-extern "C" int repro_dequant_reconstruct(const void* codes, int block,
-                                         int n_tiles, const void* opos,
-                                         const void* oval,
-                                         const void* obounds, int radius,
-                                         float two_eb, void* ticket,
-                                         void* status, int out_kind,
-                                         void* out, void* stream) {
+// unknown out_kind (0 float32, 1 bfloat16, 2 float16) or a geometry the
+// kernel cannot run: no tile, unit_tiles outside 1-8, a look-back window
+// outside 1-32 (a warp's lanes), no blocks, or smem short of the stages,
+// the scratch words and the slots.  The wrapper's window is always 32; a
+// card test passes narrower ones, which make the look-back slide.  `codes`
+// and `out` hold n_tiles * tile values.  `ticket` (one uint32) and
+// `status` (one uint64 a unit of unit_tiles tiles) must be zero.
+extern "C" int repro_dequant_reconstruct(
+    const void* codes, int tile, int n_tiles, int unit_tiles, int window,
+    int blocks, int smem, const void* opos, const void* oval,
+    const void* obounds, int radius, float two_eb, void* ticket,
+    void* status, int out_kind, void* out, void* stream) {
   using namespace repro_torch;
-#define REPRO_LAUNCH(T)                                                    \
-  launch<T>(codes, block, n_tiles, opos, oval, obounds, radius, two_eb,   \
-            ticket, status, out, stream)
+  if (tile < 1 || n_tiles < 1 || unit_tiles < 1 || unit_tiles > 8 ||
+      window < 1 || window > 32 || blocks < 1 ||
+      static_cast<size_t>(smem) < epilogue_smem(2ll * unit_tiles * tile))
+    return -1;
+#define REPRO_LAUNCH(T)                                                     \
+  launch<T>(codes, tile, n_tiles, unit_tiles, window, blocks, smem, opos,  \
+            oval, obounds, radius, two_eb, ticket, status, out, stream)
   switch (out_kind) {
     case 0: return REPRO_LAUNCH(float);
     case 1: return REPRO_LAUNCH(__nv_bfloat16);

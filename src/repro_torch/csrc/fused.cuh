@@ -1,10 +1,11 @@
 // Device functions shared by the fused kernels: the fused decode kernels
 // (decode_tiles_fused.cu, decode_tiles_fused_nd.cu) and the epilogues alone
 // that follow the padded decoder (dequant_reconstruct.cu,
-// dequant_reconstruct_nd.cu).  A fused kernel and its epilogue differ only
-// in where a tile's residuals come from (decoded from the stream, or read
-// from a code array); the scan, the carries and the float epilogue are the
-// functions below.
+// dequant_reconstruct_nd.cu), and the 1-D inverse Lorenzo
+// (reconstruct1d.cu).  A fused kernel and its epilogue differ only in where
+// a tile's residuals come from (decoded from the stream, or read from a
+// code or residual array); the scan, the carries and the float epilogue
+// are the functions below.
 //
 // CUDA counterparts of src/repro/kernels/fused_decode.py's _dequant_block
 // (code - radius, outlier scatter) and of the cumsums and float epilogue of
@@ -13,13 +14,13 @@
 //
 // Work order.  CUDA blocks start and finish in no fixed order.  Each block
 // therefore takes a ticket from an atomic counter (take_ticket) before it
-// works on anything, and the ticket names its work (a 1-D epilogue's tile
-// t; decode_tiles_fused's unit u, a ticket each time its persistent block
-// comes round; an N-D kernel maps tickets to units by anti-diagonal), so
-// work is claimed in ticket order by blocks that are already running.  A
-// block only ever waits for work of a lower ticket, whose block holds it
-// and is running too, and publishes what others wait for before it waits
-// itself, so the wait always ends, whatever the schedule.
+// works on anything, and the ticket names its work (a 1-D kernel's unit u,
+// a ticket each time its persistent block comes round; an N-D kernel maps
+// tickets to units by anti-diagonal), so work is claimed in ticket order by
+// blocks that are already running.  A block only ever waits for work of a
+// lower ticket, whose block holds it and is running too, and publishes
+// what others wait for before it waits itself, so the wait always ends,
+// whatever the schedule.
 //
 // Integer arithmetic.  The residuals and their prefix sums are uint32_t
 // (addition mod 2^32, which is associative), cast to int32_t only at the
@@ -47,13 +48,8 @@ constexpr int kCarryWord = 65;
 constexpr int kLaneWords = 66;   // 8 words: the lanes of a unit's tiles
 constexpr int kBoundWords = 0;   // 16 words: its tiles' outlier slices
 
-inline size_t fused_smem(long long block, int lut_size) {
-  return 4 * static_cast<size_t>(block) + 4 * kFusedScratchWords +
-         3 * static_cast<size_t>(lut_size);
-}
-
 // A 1-D block's unit slot: what the write of a staged unit needs once the
-// block has gone on to decode the next one: its chunk offsets (one a warp,
+// block has gone on to the next one: its chunk offsets (one a warp,
 // at most 16), its outlier slice and its aggregate.
 constexpr int kSlotWords = 20;
 constexpr int kSlotLo = 16, kSlotHi = 17, kSlotAggregate = 18;
@@ -67,16 +63,20 @@ inline size_t fused_unit_smem(long long unit, int lut_size) {
          3 * static_cast<size_t>(lut_size);
 }
 
-__device__ __forceinline__ unsigned long long ld_acquire(
+// A 1-D unit's status word carries its flag and its value together, so a
+// reader needs no other store ordered before it: relaxed loads and stores
+// at GPU scope (coherent in L2, never reordered into a stale read), with
+// none of a release's wait for the thread's earlier stores to land.
+__device__ __forceinline__ unsigned long long ld_relaxed(
     const unsigned long long* p) {
   unsigned long long v;
-  asm volatile("ld.acquire.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  asm volatile("ld.relaxed.gpu.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
   return v;
 }
 
-__device__ __forceinline__ void st_release(unsigned long long* p,
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
                                            unsigned long long v) {
-  asm volatile("st.release.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+  asm volatile("st.relaxed.gpu.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
 // The block's tile index: the next value of the launch's ticket counter.
@@ -94,39 +94,6 @@ constexpr long long kMaxPolls = 1ll << 26;
 
 __device__ __forceinline__ void count_poll(long long* polls) {
   if (++*polls > kMaxPolls) __trap();
-}
-
-// The outlier half of _dequant_block: the exact residuals of the outliers
-// [obounds[tile], obounds[tile + 1]) of the side list, scattered into the
-// tile's d.  The caller's ops layer finds each tile's range by
-// searchsorted, which assumes the side list's positions ascend with the -1
-// padding at the tail, as both packages' compress write them.  Ends with
-// __syncthreads().
-__device__ __forceinline__ void scatter_outliers(
-    int tile, int block, const int* __restrict__ opos,
-    const int* __restrict__ oval, const int* __restrict__ obounds,
-    uint32_t* d) {
-  const long long base = static_cast<long long>(tile) * block;
-  for (int i = obounds[tile] + threadIdx.x; i < obounds[tile + 1];
-       i += blockDim.x) {
-    const long long loc = opos[i] - base;
-    if (loc >= 0 && loc < block) d[loc] = static_cast<uint32_t>(oval[i]);
-  }
-  __syncthreads();
-}
-
-// _dequant_block for tile `tile` of `block` codes read from a code array
-// (the epilogue kernels): d = code - radius, then the tile's outliers.
-__device__ __forceinline__ void load_residuals(
-    const uint16_t* __restrict__ codes, int tile, int block, int radius,
-    const int* __restrict__ opos, const int* __restrict__ oval,
-    const int* __restrict__ obounds, uint32_t* d) {
-  const uint16_t* src = codes + static_cast<long long>(tile) * block;
-  for (int i = threadIdx.x; i < block; i += blockDim.x) {
-    d[i] = static_cast<uint32_t>(static_cast<int>(src[i]) - radius);
-  }
-  __syncthreads();
-  scatter_outliers(tile, block, opos, oval, obounds, d);
 }
 
 // The slice [lo, hi) of the outlier side list of each of a unit's n_here
@@ -161,8 +128,12 @@ __device__ __forceinline__ void put_code(uint16_t* d, int i, int sym, int) {
   d[i] = static_cast<uint16_t>(sym);
 }
 
-// scatter_outliers for a unit's n_here tiles, tile i's into d + i * block,
-// from the slices load_unit_bounds left.  Ends with __syncthreads().
+// The outlier half of _dequant_block for a unit's n_here tiles: the exact
+// residuals of each tile's slice of the outlier side list (the slices
+// load_unit_bounds left), tile i's scattered into d + i * block.  The
+// caller's ops layer finds each tile's slice by searchsorted, which assumes
+// the side list's positions ascend with the -1 padding at the tail, as both
+// packages' compress write them.  Ends with __syncthreads().
 template <typename TileOf>
 __device__ __forceinline__ void scatter_unit_outliers(
     int n_here, TileOf tile_of, int block, const int* __restrict__ opos,
@@ -419,6 +390,9 @@ __device__ __forceinline__ void scan_rows(uint32_t* v, int n, int seg,
   __syncthreads();
 }
 
+// The float epilogue, out = cast(float(int32(q)) * two_eb): the product in
+// f32 (round to nearest, never contracted: __fmul_rn) and one cast, as
+// lorenzo.dequantize computes it.
 template <typename T>
 __device__ __forceinline__ T to_out(float x);
 template <>
@@ -434,77 +408,29 @@ __device__ __forceinline__ __half to_out<__half>(float x) {
   return __float2half_rn(x);
 }
 
-// The float epilogue: out[i] = cast(float(int32(q[i] + add)) * two_eb), the
-// product in f32 (round to nearest, never contracted) and one cast, as
-// lorenzo.dequantize computes it.
-template <typename T>
-__device__ __forceinline__ void write_out(const uint32_t* q, uint32_t add,
-                                          int n_here, float two_eb,
-                                          T* __restrict__ out) {
-  for (int i = threadIdx.x; i < n_here; i += blockDim.x) {
-    const int qi = static_cast<int>(q[i] + add);
-    out[i] = to_out<T>(__fmul_rn(__int2float_rn(qi), two_eb));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1-D carry: decoupled look-back
-// ---------------------------------------------------------------------------
-
-// Status word of a 1-D tile: (flag << 32) | value, flag 1 = the tile's
+// Status word of a 1-D unit: (flag << 32) | value, flag 1 = the unit's
 // aggregate, 2 = its inclusive prefix, 0 = nothing published yet.
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kPrefix = 2ull << 32;
-
-// The sum of every tile before tile t, by decoupled look-back (Merrill &
-// Garland 2016, the design of CUB's DeviceScan): thread 0 publishes the
-// tile's aggregate in status[t], walks t-1, t-2, ... adding aggregates
-// until it meets a tile that has published its inclusive prefix, and
-// publishes its own inclusive prefix.  A tile waits only for its
-// predecessors, which publish their aggregates as soon as their own scans
-// are done.  Called by every thread; returns the exclusive prefix to all.
-__device__ __forceinline__ uint32_t lookback_prefix(
-    int t, uint32_t aggregate, unsigned long long* status,
-    uint32_t* scratch) {
-  if (threadIdx.x == 0) {
-    uint32_t prefix = 0;
-    if (t == 0) {
-      st_release(status, kPrefix | aggregate);
-    } else {
-      st_release(status + t, kAggregate | aggregate);
-      long long polls = 0;
-      for (int j = t - 1;; --j) {
-        unsigned long long w;
-        while (((w = ld_acquire(status + j)) >> 32) == 0) count_poll(&polls);
-        prefix += static_cast<uint32_t>(w);
-        if ((w & ~0xffffffffull) == kPrefix) break;
-      }
-      st_release(status + t, kPrefix | (prefix + aggregate));
-    }
-    scratch[kCarryWord] = prefix;
-  }
-  __syncthreads();
-  return scratch[kCarryWord];
-}
 
 // ---------------------------------------------------------------------------
 // 1-D units: warp-chunk scan and a warp-wide look-back
 // ---------------------------------------------------------------------------
 //
-// A 1-D unit (decode_tiles_fused.cu) is k consecutive tiles, n codes staged
-// in shared memory as uint16 (stage_unit_residuals with D = uint16_t: half
-// the bytes of int32 residuals, so more blocks fit an SM), read as
-// residuals through UnitResiduals.  Warp w owns the chunk [w * chunk, (w + 1) *
-// chunk) of them (chunk a multiple of 128, unit_chunk), read a row of 128
-// at a time, 4 consecutive codes a lane through one 8-byte load: the lanes
-// of a warp read 256 consecutive bytes, no bank conflict (scan_rows' runs
-// of `ipt` values a thread put 16 lanes on one bank).  A uint16 cannot
-// hold an outlier's residual, so the outliers are not scattered into the
-// stage: pass 1 adds each outlier's difference to its chunk's total, and in
-// pass 2 each warp walks its chunk's part of the unit's slice of the side
-// list in step with its rows (UnitResiduals::row4).  Either reads each
-// outlier once.  The scan takes two passes over the stage and stores
-// nothing back to it:
+// A 1-D unit is a run of consecutive values staged in shared memory: k
+// tiles of uint16 codes (decode_tiles_fused.cu decodes them there,
+// dequant_reconstruct.cu copies them in), read as residuals through
+// UnitResiduals, or int32 residuals (reconstruct1d.cu), read through
+// UnitValues.  Warp w owns the chunk [w * chunk, (w + 1) * chunk) of them
+// (chunk a multiple of 128, unit_chunk), read a row of 128 at a time, 4
+// consecutive values a lane through one 8-byte (codes) or 16-byte (int32)
+// load: the lanes of a warp read consecutive bytes, no bank conflict.  A
+// uint16 cannot hold an outlier's residual, so the outliers are not
+// scattered into the stage: pass 1 adds each outlier's difference to its
+// chunk's total (UnitResiduals::patch_totals), and in pass 2 each warp
+// walks its chunk's part of the unit's slice of the side list in step with
+// its rows (UnitResiduals::row4).  Either reads each outlier once.  The
+// scan takes two passes over the stage and stores nothing back to it:
 //   1. unit_chunk_totals: each warp sums its chunk, and warp 0 turns the
 //      totals into each chunk's exclusive offset and the unit's aggregate
 //      (unit_chunk_offsets);
@@ -512,6 +438,9 @@ __device__ __forceinline__ uint32_t lookback_prefix(
 //      then a warp scan of the lanes' totals), plus the chunk's running
 //      offset and the unit's exclusive prefix, cast and stored, 4 values a
 //      lane, with one vector store where the output's alignment allows.
+// Both passes take the source (UnitResiduals, UnitValues) as a template
+// parameter: load4 (the values alone), patch_totals (pass 1's outliers),
+// walk_from and row4 (pass 2's rows with their outliers).
 
 // The unit's codes per warp: ceil(n / warps), rounded up to a row of 128.
 __device__ __forceinline__ int unit_chunk(int n) {
@@ -632,16 +561,64 @@ struct UnitResiduals {
       w.at = place(w.o);
     }
   }
+
+  // Pass 1's outliers: the block's threads take the unit's outliers, one a
+  // thread at a time, and add to the chunk total of each (scratch words
+  // [32, 32 + warps)) the difference between its residual and its code's
+  // (uint32 sums, so the order of the additions does not matter).  Ends
+  // with __syncthreads().
+  __device__ __forceinline__ void patch_totals(int n, int chunk,
+                                               uint32_t* scratch) const {
+    for (int o = lo + static_cast<int>(threadIdx.x); o < hi;
+         o += blockDim.x) {
+      const long long p = opos[o] - base;
+      if (p >= 0 && p < n) {
+        const uint32_t code_r =
+            static_cast<uint32_t>(codes[p]) - static_cast<uint32_t>(radius);
+        atomicAdd(scratch + 32 + static_cast<int>(p) / chunk,
+                  static_cast<uint32_t>(oval[o]) - code_r);
+      }
+    }
+    __syncthreads();
+  }
+};
+
+// The residuals of a unit of staged int32 values, as they are: no
+// outliers, so pass 1 has nothing to patch and pass 2 nothing to walk.
+struct UnitValues {
+  const int32_t* vals;
+
+  // The values at e .. e + 3 (e a multiple of 4, so one 16-byte load), 0 at
+  // or past `end`.
+  __device__ __forceinline__ void load4(int e, int end, uint32_t (&r)[4])
+      const {
+    int4 v = make_int4(0, 0, 0, 0);
+    if (e < end) v = *reinterpret_cast<const int4*>(vals + e);
+    const int x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = e + i < end ? static_cast<uint32_t>(x[i]) : 0u;
+    }
+  }
+
+  __device__ __forceinline__ void patch_totals(int, int, uint32_t*) const {}
+
+  __device__ __forceinline__ OutlierWalk walk_from(int) const {
+    return OutlierWalk{0, INT_MAX};
+  }
+
+  __device__ __forceinline__ void row4(int row, int end, OutlierWalk&,
+                                       uint32_t (&r)[4]) const {
+    load4(row + 4 * static_cast<int>(threadIdx.x & 31), end, r);
+  }
 };
 
 // Pass 1: each warp's chunk total, in scratch words [32, 32 + warps), then
-// published to the block.  The chunks sum the codes' residuals; then the
-// block's threads take the unit's outliers, one a thread at a time, and
-// add to the chunk of each the difference between its residual and its
-// code's (uint32 sums, so the order of the additions does not matter).
-// Ends with __syncthreads().
-__device__ __forceinline__ void unit_chunk_totals(const UnitResiduals& d,
-                                                  int n, int chunk,
+// published to the block: the chunks sum the source's values, then the
+// source patches in its outliers.  Ends with __syncthreads().
+template <typename Src>
+__device__ __forceinline__ void unit_chunk_totals(const Src& d, int n,
+                                                  int chunk,
                                                   uint32_t* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lo = warp * chunk, hi = min(lo + chunk, n);
@@ -654,17 +631,7 @@ __device__ __forceinline__ void unit_chunk_totals(const UnitResiduals& d,
   acc = __reduce_add_sync(0xffffffffu, acc);
   if (lane == 0) scratch[32 + warp] = acc;
   __syncthreads();
-  for (int o = d.lo + static_cast<int>(threadIdx.x); o < d.hi;
-       o += blockDim.x) {
-    const long long p = d.opos[o] - d.base;
-    if (p >= 0 && p < n) {
-      const uint32_t code_r =
-          static_cast<uint32_t>(d.codes[p]) - static_cast<uint32_t>(d.radius);
-      atomicAdd(scratch + 32 + static_cast<int>(p) / chunk,
-                static_cast<uint32_t>(d.oval[o]) - code_r);
-    }
-  }
-  __syncthreads();
+  d.patch_totals(n, chunk, scratch);
 }
 
 // Warp 0, after unit_chunk_totals: each chunk's exclusive offset, in
@@ -689,7 +656,7 @@ __device__ __forceinline__ uint32_t unit_chunk_offsets(
 __device__ __forceinline__ void publish_aggregate(
     int u, uint32_t aggregate, unsigned long long* status) {
   if ((threadIdx.x & 31) == 0) {
-    st_release(status + u, (u == 0 ? kPrefix : kAggregate) | aggregate);
+    st_relaxed(status + u, (u == 0 ? kPrefix : kAggregate) | aggregate);
   }
 }
 
@@ -703,8 +670,9 @@ __device__ __forceinline__ void publish_aggregate(
 // done; if every unit of the window holds its aggregate and none its
 // prefix, it adds them all and slides the window down by `window` units;
 // otherwise (a unit of the window has published nothing yet) it reads
-// again.  Lane 0 then publishes the unit's inclusive prefix.  The thread-0
-// walk this replaced (lookback_prefix) read one predecessor a round trip.
+// again.  Lane 0 then publishes the unit's inclusive prefix.  A window of
+// statuses a read, where a walk by one thread would read one predecessor a
+// round trip to L2.
 __device__ __forceinline__ uint32_t unit_lookback(int u, uint32_t aggregate,
                                                   int window,
                                                   unsigned long long* status) {
@@ -717,7 +685,7 @@ __device__ __forceinline__ uint32_t unit_lookback(int u, uint32_t aggregate,
     // Past the window: an aggregate of 0; below unit 0: a prefix of 0
     // (unit 0 always publishes a prefix, so the walk stops there first).
     unsigned long long w = kAggregate;
-    if (lane < window) w = j >= 0 ? ld_acquire(status + j) : kPrefix;
+    if (lane < window) w = j >= 0 ? ld_relaxed(status + j) : kPrefix;
     const unsigned long long flag = w & ~0xffffffffull;
     const unsigned none = __ballot_sync(0xffffffffu, flag == 0);
     const unsigned pre = __ballot_sync(0xffffffffu, flag == kPrefix);
@@ -734,7 +702,7 @@ __device__ __forceinline__ uint32_t unit_lookback(int u, uint32_t aggregate,
       count_poll(&polls);
     }
   }
-  if (lane == 0) st_release(status + u, kPrefix | (prefix + aggregate));
+  if (lane == 0) st_relaxed(status + u, kPrefix | (prefix + aggregate));
   return prefix;
 }
 
@@ -744,12 +712,13 @@ struct alignas(4 * sizeof(T)) Out4 {
 };
 
 // Pass 2: out[i] = cast(float(int32(add + q[i])) * two_eb) for i < n_valid,
-// q the unit's inclusive sums, from the staged codes and the chunk offsets
-// `offs` that unit_chunk_offsets left; `out` is the unit's first output.
-template <typename T>
-__device__ __forceinline__ void write_unit(const UnitResiduals& d, int n,
-                                           int chunk, uint32_t add,
-                                           int n_valid, float two_eb,
+// q the unit's inclusive sums, from the source's values and the chunk
+// offsets `offs` that unit_chunk_offsets left; `out` is the unit's first
+// output.
+template <typename Src, typename T>
+__device__ __forceinline__ void write_unit(const Src& d, int n, int chunk,
+                                           uint32_t add, int n_valid,
+                                           float two_eb,
                                            const uint32_t* offs,
                                            T* __restrict__ out) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -790,6 +759,240 @@ __device__ __forceinline__ void write_unit(const UnitResiduals& d, int n,
 }
 
 // ---------------------------------------------------------------------------
+// 1-D epilogues: persistent units, the next unit's read beside the write
+// ---------------------------------------------------------------------------
+//
+// dequant_reconstruct.cu and reconstruct1d.cu run the 1-D units above over
+// an array in device memory.  They have no decode to hide their reads
+// behind, so a block keeps kEpilogueStages stages of a unit in shared
+// memory and reads the next unit while it scans, looks back for and writes
+// the ones it holds (epilogue_units).  The read is a bulk copy (cp.async.bulk, the
+// TMA's 1-D form): thread 0 asks for the unit's bytes with one instruction
+// and the copy completes on the stage's mbarrier, so no thread spends
+// registers or issue slots on it.  A bulk copy moves 16-byte-aligned runs
+// of a multiple of 16 bytes, so the block's threads load the rest
+// themselves: a ragged last unit's tail, or a whole unit whose first value
+// is not on a 16-byte boundary (a tile whose bytes are no multiple of 16);
+// the barrier after the wait publishes those loads.
+//
+// Order.  A block takes ticket u + 1 and starts its read, waits for unit
+// u's read, sums u and publishes its aggregate, and only then looks back
+// for and writes the unit it took before u (decode_tiles_fused's order): a
+// round after that unit's aggregate went out, when its predecessors have
+// mostly published theirs.  So a block holds three units, one a stage: the
+// one it reads, the one it sums, the one it writes.  It publishes a unit's
+// aggregate before it waits on any other block, and waits only for lower
+// tickets (see "Work order" above).
+
+// The epilogues' block width, the blocks an SM must hold at it, which
+// bound their registers to 40 (fused_decode.EPILOGUE_THREADS,
+// EPILOGUE_MIN_BLOCKS, EPILOGUE_REGS), and the stages of a unit a block
+// keeps (fused_decode.EPILOGUE_STAGES).
+constexpr int kEpilogueThreads = 512;
+constexpr int kEpilogueMinBlocks = 3;
+constexpr int kEpilogueStages = 3;
+
+// Shared memory of an epilogue block (fused_decode.epilogue_smem): the
+// stages of a unit of `unit_bytes`, each to a 16-byte boundary, an
+// mbarrier a stage, the scratch words and a unit slot a stage.
+inline size_t epilogue_smem(long long unit_bytes) {
+  return kEpilogueStages *
+             ((static_cast<size_t>(unit_bytes) + 15) / 16 * 16 + 8 +
+              4 * kSlotWords) +
+         4 * kFusedScratchWords;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Start the read of the `len` values at src into `stage`: thread 0 arrives
+// on `bar`, expecting the bytes of one bulk copy of the values' 16-byte
+// run (none if src is not on a 16-byte boundary), and issues it; every
+// thread loads some of the values past the run.  Called by every thread
+// after a barrier that ends every read of the stage.
+template <typename E>
+__device__ __forceinline__ void stage_unit(const E* __restrict__ src,
+                                           int len, E* stage,
+                                           unsigned long long* bar) {
+  const int run =
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0
+          ? len * static_cast<int>(sizeof(E)) / 16 * 16 /
+                static_cast<int>(sizeof(E))
+          : 0;
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = static_cast<uint32_t>(run) * sizeof(E);
+    // The stage's last reads were the generic proxy's; the copy writes
+    // through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 ::"r"(smem_u32(bar)), "r"(bytes)
+                 : "memory");
+    if (bytes != 0) {
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];" ::"r"(smem_u32(stage)),
+          "l"(src), "r"(bytes), "r"(smem_u32(bar))
+          : "memory");
+    }
+  }
+  for (int i = run + threadIdx.x; i < len; i += blockDim.x) stage[i] = src[i];
+}
+
+// Wait until the read into a stage has landed: its mbarrier's phase of
+// parity `parity` completes (the bulk copy's bytes have arrived), then the
+// block meets (every thread's own loads are in).  Called by every thread.
+__device__ __forceinline__ void stage_wait(unsigned long long* bar,
+                                           uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  long long polls = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) break;
+    count_poll(&polls);
+  }
+  __syncthreads();
+}
+
+// Row 6's units: unit_tiles tiles of `tile` uint16 codes, residuals code -
+// radius with the outliers of the tiles' slices of the side list.
+struct EpilogueCodes {
+  using Elem = uint16_t;
+  const uint16_t* __restrict__ data;
+  const int* __restrict__ opos;
+  const int* __restrict__ oval;
+  const int* __restrict__ obounds;
+  int tile, n_tiles, unit_tiles, radius;
+
+  // The unit's slice of the side list, into its slot (the slices of its
+  // tiles are consecutive): one thread of the last warp, which has no
+  // look-back to run.
+  __device__ __forceinline__ void issue(int u, uint32_t* slot) const {
+    if (threadIdx.x == blockDim.x - 1) {
+      const int t0 = u * unit_tiles;
+      slot[kSlotLo] = static_cast<uint32_t>(obounds[t0]);
+      slot[kSlotHi] =
+          static_cast<uint32_t>(obounds[min(t0 + unit_tiles, n_tiles)]);
+    }
+  }
+
+  __device__ __forceinline__ UnitResiduals view(const uint16_t* stage, int u,
+                                                const uint32_t* slot) const {
+    return UnitResiduals{stage, opos, oval,
+                         static_cast<long long>(u) * unit_tiles * tile,
+                         static_cast<int>(slot[kSlotLo]),
+                         static_cast<int>(slot[kSlotHi]), radius};
+  }
+};
+
+// Row 9's units: int32 residuals as they are.
+struct EpilogueValues {
+  using Elem = int32_t;
+  const int32_t* __restrict__ data;
+
+  __device__ __forceinline__ void issue(int, uint32_t*) const {}
+
+  __device__ __forceinline__ UnitValues view(const int32_t* stage, int,
+                                             const uint32_t*) const {
+    return UnitValues{stage};
+  }
+};
+
+// The 1-D epilogue over the n values of `src`, units of unit_len values,
+// on a persistent block (see above).  `status` holds one zeroed uint64 a
+// unit, `ticket` one zeroed uint32.  Called by every thread.
+template <typename Source, typename T>
+__device__ __forceinline__ void epilogue_units(const Source& src,
+                                               long long n, int unit_len,
+                                               int window, float two_eb,
+                                               unsigned* ticket,
+                                               unsigned long long* status,
+                                               T* __restrict__ out) {
+  using E = typename Source::Elem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Shared memory (epilogue_smem): the stages, their mbarriers, the
+  // scratch words, the stages' unit slots.
+  const size_t stage_bytes =
+      (static_cast<size_t>(unit_len) * sizeof(E) + 15) / 16 * 16;
+  auto stage = [&](int i) {
+    return reinterpret_cast<E*>(smem + i * stage_bytes);
+  };
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(
+      smem + kEpilogueStages * stage_bytes);
+  uint32_t* scratch = reinterpret_cast<uint32_t*>(bars + kEpilogueStages);
+  auto slot = [&](int i) {
+    return scratch + kFusedScratchWords + i * kSlotWords;
+  };
+  const int n_units = static_cast<int>((n + unit_len - 1) / unit_len);
+  auto len_of = [&](int u) {
+    return static_cast<int>(min(static_cast<long long>(unit_len),
+                                n - static_cast<long long>(u) * unit_len));
+  };
+  auto issue = [&](int u, int i) {
+    stage_unit(src.data + static_cast<long long>(u) * unit_len, len_of(u),
+               stage(i), bars + i);
+    src.issue(u, slot(i));
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kEpilogueStages; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                       smem_u32(bars + i)),
+                   "r"(1u)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t parity = 0;          // bit i: the phase stage i's next wait ends
+  int u = take_ticket(ticket, scratch);
+  if (u < n_units) issue(u, 0);
+  int s = 0, prev = -1, ps = 0;  // the unit a round behind, and its stage
+  while (true) {
+    // The stage after u's held the unit written last round: read the next
+    // unit into it.
+    const int next = take_ticket(ticket, scratch);
+    const int ns = s + 1 < kEpilogueStages ? s + 1 : 0;
+    if (next < n_units) issue(next, ns);
+    if (u < n_units) {
+      stage_wait(bars + s, parity >> s & 1u);
+      parity ^= 1u << s;
+      const int len = len_of(u);
+      unit_chunk_totals(src.view(stage(s), u, slot(s)), len, unit_chunk(len),
+                        scratch);
+      if (threadIdx.x < 32) {
+        const uint32_t aggregate = unit_chunk_offsets(scratch, slot(s));
+        publish_aggregate(u, aggregate, status);
+        if (threadIdx.x == 0) slot(s)[kSlotAggregate] = aggregate;
+      }
+    }
+    if (prev >= 0) {
+      if (threadIdx.x < 32) {
+        const uint32_t prefix =
+            unit_lookback(prev, slot(ps)[kSlotAggregate], window, status);
+        if (threadIdx.x == 0) scratch[kCarryWord] = prefix;
+      }
+      __syncthreads();
+      const int len = len_of(prev);
+      write_unit(src.view(stage(ps), prev, slot(ps)), len, unit_chunk(len),
+                 scratch[kCarryWord], len, two_eb, slot(ps),
+                 out + static_cast<long long>(prev) * unit_len);
+    }
+    if (u >= n_units) break;
+    prev = u;
+    ps = s;
+    u = next;
+    s = ns;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // N-D carries: decoupled look-back along both axes of a grid of units
 // ---------------------------------------------------------------------------
 //
@@ -816,8 +1019,8 @@ __device__ __forceinline__ void write_unit(const UnitResiduals& d, int n,
 //   * plane aggregate: the sum over its planes of f, one value an element
 //     of its rows, known once its row carry is.
 //
-// Decoupled look-back (Merrill & Garland 2016; lookback_prefix above for
-// the 1-D kernels), a vector at a time.  A unit publishes its aggregate at
+// Decoupled look-back (Merrill & Garland 2016; unit_lookback above for the
+// 1-D kernels), a vector at a time.  A unit publishes its aggregate at
 // once, without waiting for anyone: every thread stores its elements'
 // values, the block meets, and thread 0 releases the chain's flag,
 // "aggregate" (publish_status).  Then warp 0 reads the flags
@@ -1246,8 +1449,12 @@ __device__ __forceinline__ void nd_write_out(const uint32_t* d,
                            block;
     const int n_here =
         static_cast<int>(min(static_cast<long long>(m), n_out - base));
-    write_out(d + static_cast<size_t>(i) * m, 0u, n_here, two_eb,
-              out + base);
+    const uint32_t* q = d + static_cast<size_t>(i) * m;
+    T* o = out + base;
+    for (int e = threadIdx.x; e < n_here; e += blockDim.x) {
+      o[e] = to_out<T>(
+          __fmul_rn(__int2float_rn(static_cast<int>(q[e])), two_eb));
+    }
   }
 }
 

@@ -51,8 +51,8 @@ SIGNATURES = {
                                _I, _I, _I, _I, _L, _I, _P, _P, _P, _I, _F,
                                _I, _I, _P, _P, _P, _P, _I, _P, _P]),
     "dequant_reconstruct": ("repro_dequant_reconstruct",
-                            [_P, _I, _I, _P, _P, _P, _I, _F, _P, _P, _I, _P,
-                             _P]),
+                            [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _F,
+                             _P, _P, _I, _P, _P]),
     "dequant_reconstruct_nd": ("repro_dequant_reconstruct_nd",
                                [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _L, _P, _P, _P, _I, _F, _I, _I, _P,
@@ -60,7 +60,7 @@ SIGNATURES = {
     "lorenzo_quantize": ("repro_lorenzo_quantize",
                          [_P, _L, _P, _I, _I, _I, _F, _I, _P, _P, _P, _P]),
     "reconstruct1d": ("repro_reconstruct1d",
-                      [_P, _L, _I, _F, _P, _P, _P, _P]),
+                      [_P, _L, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P]),
     "histogram": ("repro_histogram",
                   [_P, _L, _I, _I, _I, _L, _I, _I, _I, _I, _P, _P]),
     "pack_tiles": ("repro_pack_tiles",

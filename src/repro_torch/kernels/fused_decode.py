@@ -17,7 +17,9 @@ Port of ``src/repro/kernels/fused_decode.py``:
     the geometry from :func:`nd_geometry`).
   * :func:`dequant_reconstruct` / :func:`dequant_reconstruct_nd` -- the
     same epilogues alone, over a uint16 code array: the fused form of the
-    padded decoder (``csrc/dequant_reconstruct.cu``,
+    padded decoder (``csrc/dequant_reconstruct.cu``, on persistent blocks
+    that read the next unit of codes by bulk copy while they write the
+    last, the geometry from :func:`epilogue_geometry`;
     ``csrc/dequant_reconstruct_nd.cu``; carries as above, shared through
     ``csrc/fused.cuh``).
 
@@ -67,6 +69,18 @@ FUSED_MAX_THREADS = 512
 FUSED_MIN_BLOCKS = 3
 FUSED_REGS = 40
 LOOKBACK_WINDOW = 32
+#: The 1-D epilogues' block width and the register bound that their
+#: __launch_bounds__(512, 3) sets (csrc/fused.cuh, kEpilogueThreads,
+#: kEpilogueMinBlocks); the stages of a unit a block keeps in shared memory
+#: (kEpilogueStages: the unit it reads, the one it sums, the one it
+#: writes); and the input bytes a unit aims for.  On the H100 at hacc1d's
+#: shape, units of 32 KiB (2 blocks an SM) ran faster than of 16 KiB (3)
+#: or 64 KiB (1).
+EPILOGUE_THREADS = 512
+EPILOGUE_MIN_BLOCKS = 3
+EPILOGUE_REGS = 40
+EPILOGUE_STAGES = 3
+EPILOGUE_UNIT_BYTES = 32768
 #: Most chain predecessors an N-D unit's look-back reads before it waits
 #: for the last of them to publish its inclusive prefix (at most 32, the
 #: lanes of the warp that reads their flags): deep for 2-D, whose one row
@@ -90,8 +104,10 @@ def _residual_tile_smem(block: int, lut: int) -> int:
     return 4 * block + SCRATCH_BYTES + 3 * lut
 
 
-#: Bytes of a 1-D block's two unit slots (csrc/fused.cuh: kSlotWords).
-UNIT_SLOT_BYTES = 2 * 20 * 4
+#: Bytes of a 1-D block's unit slot (csrc/fused.cuh: kSlotWords), and of
+#: the fused kernel's two.
+SLOT_BYTES = 20 * 4
+UNIT_SLOT_BYTES = 2 * SLOT_BYTES
 
 
 def fused_unit_smem(unit_syms: int, lut: int) -> int:
@@ -109,9 +125,18 @@ def decode_tiles_fused_nd_smem(block: int, lut: int) -> int:
 
 
 def dequant_reconstruct_smem(block: int) -> int:
-    """Shared memory of one epilogue block (either geometry) of ``block``
+    """Shared memory of one ``dequant_reconstruct_nd`` block of ``block``
     codes: the int32 residual tile and the scan scratch; no LUT."""
     return _residual_tile_smem(block, 0)
+
+
+def epilogue_smem(unit_bytes: int) -> int:
+    """Shared memory of one 1-D epilogue block (``dequant_reconstruct``,
+    ``lorenzo.reconstruct1d``): ``EPILOGUE_STAGES`` stages of a unit of
+    ``unit_bytes``, each to a 16-byte boundary, an 8-byte mbarrier a
+    stage, the scan scratch and a unit slot a stage."""
+    return (EPILOGUE_STAGES * (K._round16(unit_bytes) + 8 + SLOT_BYTES)
+            + SCRATCH_BYTES)
 
 
 # ---------------------------------------------------------------------------
@@ -321,10 +346,11 @@ def _check_tiles(units, start_abs, end_abs, offsets, s0, lut_base, n_tiles,
 
 class FusedGeometry(typing.NamedTuple):
     """Launch geometry of :func:`decode_tiles_fused`
-    (:func:`fused_geometry`): units of ``unit_tiles`` consecutive tiles,
+    (:func:`fused_geometry`) or of a 1-D epilogue
+    (:func:`epilogue_geometry`): units of ``unit_tiles`` consecutive tiles,
     ``units`` of them, taken by ``blocks`` persistent blocks of
-    ``FUSED_MAX_THREADS`` threads and ``smem`` bytes of shared memory; the
-    look-back reads ``window`` statuses at once."""
+    ``FUSED_MAX_THREADS`` (``EPILOGUE_THREADS``) threads and ``smem`` bytes
+    of shared memory; the look-back reads ``window`` statuses at once."""
     unit_tiles: int
     units: int
     blocks: int
@@ -345,6 +371,30 @@ def fused_unit_geometry(k: int, n_tiles: int, tile_syms: int, lut: int,
     units = -(-n_tiles // k)
     blocks = min(units, sm_count * max(
         K.resident_blocks(FUSED_MAX_THREADS, smem, FUSED_REGS), 1))
+    return FusedGeometry(unit_tiles=k, units=units, blocks=blocks,
+                         smem=smem, window=LOOKBACK_WINDOW)
+
+
+@functools.lru_cache(maxsize=256)
+def epilogue_geometry(n_tiles: int, tile: int, itemsize: int,
+                      sm_count: int) -> FusedGeometry:
+    """Launch geometry of a 1-D epilogue (``dequant_reconstruct`` over
+    uint16 codes, ``itemsize`` 2; ``lorenzo.reconstruct1d`` over int32
+    residuals, ``itemsize`` 4) for ``n_tiles`` tiles of ``tile`` values, on
+    a card of ``sm_count`` SMs.
+
+    A unit is the most whole tiles (1 to ``MAX_GROUP``, at most the tiles
+    there are) whose values fill no more than ``EPILOGUE_UNIT_BYTES``; a
+    block of ``EPILOGUE_THREADS`` threads keeps ``EPILOGUE_STAGES`` stages
+    of it.  The grid is the blocks the SMs hold at once, or one a unit if
+    there are fewer units.
+    """
+    k = max(1, min(MAX_GROUP, n_tiles,
+                   EPILOGUE_UNIT_BYTES // (tile * itemsize)))
+    smem = epilogue_smem(k * tile * itemsize)
+    units = -(-n_tiles // k)
+    blocks = min(units, sm_count * max(
+        K.resident_blocks(EPILOGUE_THREADS, smem, EPILOGUE_REGS), 1))
     return FusedGeometry(unit_tiles=k, units=units, blocks=blocks,
                          smem=smem, window=LOOKBACK_WINDOW)
 
@@ -604,15 +654,16 @@ def dequant_reconstruct(codes, opos, oval, obounds, two_eb: float,
     if codes.device.type == "cpu":
         return dequant_reconstruct_plain(codes, opos, oval, obounds, two_eb,
                                          radius, block, out_dtype)
-    K._check_smem("dequant_reconstruct", dequant_reconstruct_smem(block))
+    K._check_smem("dequant_reconstruct", epilogue_smem(2 * block))
     out = torch.empty(codes.numel(), dtype=out_dtype, device=codes.device)
     if n_tiles == 0:
         return out
-    # ticket (uint32, padded to 8 B), then one uint64 status word per tile
-    scratch = torch.zeros(2 + 2 * n_tiles, dtype=torch.int32,
+    geo = epilogue_geometry(n_tiles, block, 2, K.sm_count(codes.device.index))
+    scratch = torch.zeros(geo.scratch_words, dtype=torch.int32,
                           device=codes.device)
     launch = _build.load("dequant_reconstruct")
-    rc = launch(codes.data_ptr(), block, n_tiles, opos.data_ptr(),
+    rc = launch(codes.data_ptr(), block, n_tiles, geo.unit_tiles, geo.window,
+                geo.blocks, geo.smem, opos.data_ptr(),
                 oval.data_ptr(), obounds.data_ptr(), radius, two_eb,
                 scratch.data_ptr(), scratch.data_ptr() + 8,
                 OUT_KINDS[out_dtype], out.data_ptr(),

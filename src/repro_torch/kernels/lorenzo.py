@@ -11,8 +11,9 @@ Port of ``src/repro/kernels/lorenzo.py``:
     corner sum past that (:func:`quantize_geometry`).  Its plain version is
     ``core/sz/lorenzo.py:quantize``.
   * :func:`reconstruct1d` -- the inverse 1-D Lorenzo, ``2eb * cumsum(d)``
-    with the int32 carry between tiles taken by decoupled look-back
-    (``csrc/reconstruct1d.cu``).
+    over units of tiles on persistent blocks, the int32 carry between units
+    taken by decoupled look-back (``csrc/reconstruct1d.cu``; the geometry
+    from ``fused_decode.epilogue_geometry``).
 
 The wrappers follow ``huffman_decode``'s rules: input checks, the kernel for
 CUDA tensors, the plain version (``*_plain``, beside it) for CPU tensors,
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.core.sz import lorenzo as _lor
 from repro_torch.kernels import _build
+from repro_torch.kernels import fused_decode as _fd
 from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import launches
 
@@ -54,7 +56,7 @@ QUANT_TILE = (8, 128)
 QUANT_BLOCKS_PER_SM = 6
 QUANT_WAVES = 8
 QUANT_MIN_Z_RUN = 4
-#: Values one ``reconstruct1d`` block scans (the reference's block).
+#: ``reconstruct1d``'s tile (the reference's block): a unit is whole tiles.
 RECONSTRUCT_BLOCK = 4096
 
 
@@ -171,7 +173,9 @@ def reconstruct1d(resid, two_eb: float, block: int = RECONSTRUCT_BLOCK):
 
     ``resid``: int32[n], contiguous.  Returns float32[n], bit-identical to
     ``kernels/ref.lorenzo_reconstruct`` of the reference.  ``block`` is the
-    kernel's tile (any length works: the last tile is ragged).
+    kernel's tile (any length works: the last tile is ragged); a unit, one
+    block's work between two look-backs, is up to ``fused_decode.MAX_GROUP``
+    tiles, so a small ``block`` makes many units and long look-backs.
     """
     K._expect("resid", resid, torch.int32)
     if resid.ndim != 1:
@@ -186,13 +190,14 @@ def reconstruct1d(resid, two_eb: float, block: int = RECONSTRUCT_BLOCK):
     out = torch.empty(n, dtype=torch.float32, device=resid.device)
     if n == 0:
         return out
-    n_tiles = -(-n // block)
-    # ticket (uint32, padded to 8 B), then one uint64 status word per tile
-    scratch = torch.zeros(2 + 2 * n_tiles, dtype=torch.int32,
+    geo = _fd.epilogue_geometry(-(-n // block), block, 4,
+                                K.sm_count(resid.device.index))
+    scratch = torch.zeros(geo.scratch_words, dtype=torch.int32,
                           device=resid.device)
     launch = _build.load("reconstruct1d")
-    rc = launch(resid.data_ptr(), n, block, two_eb, scratch.data_ptr(),
-                scratch.data_ptr() + 8, out.data_ptr(),
+    rc = launch(resid.data_ptr(), n, block, geo.unit_tiles, geo.window,
+                geo.blocks, geo.smem, two_eb,
+                scratch.data_ptr(), scratch.data_ptr() + 8, out.data_ptr(),
                 K._stream_ptr(resid.device))
     if rc != 0:
         raise RuntimeError(f"reconstruct1d kernel launch failed: CUDA error "

@@ -144,9 +144,10 @@ def test_shared_memory_bound(cuda):
 
 @pytest.fixture
 def no_plain_versions(monkeypatch):
-    """Every decode kernel's plain version raises if called: a wrapper
-    handed a CUDA tensor must launch its kernel (the shared-memory variant
-    or the device-memory one), never fall back to torch ops."""
+    """Every decode kernel's plain version, and reconstruct1d's, raises if
+    called: a wrapper handed a CUDA tensor must launch its kernel (the
+    shared-memory variant or the device-memory one), never fall back to
+    torch ops."""
     from repro_torch.kernels import fused_decode as fd
 
     def refuse(*args, **kwargs):
@@ -158,7 +159,8 @@ def no_plain_versions(monkeypatch):
                       (fd, "decode_tiles_fused_plain"),
                       (fd, "decode_tiles_fused_nd_plain"),
                       (fd, "dequant_reconstruct_plain"),
-                      (fd, "dequant_reconstruct_nd_plain")):
+                      (fd, "dequant_reconstruct_nd_plain"),
+                      (L, "reconstruct1d_plain")):
         monkeypatch.setattr(mod, name, refuse)
 
 
@@ -828,6 +830,8 @@ EPILOGUE_CASES = {
                          "dequant_reconstruct"),
     # the padded path's 4,096-code tiles
     "1d-4096": ((300_001,), 4096, 1e-3, 512, "dequant_reconstruct"),
+    # a flat field with most codes outliers (radius 2), at those tiles
+    "1d-outlier-dense": ((300_001,), 4096, 5e-2, 2, "dequant_reconstruct"),
     # one row per tile: one row chain (2,500 units of 8)
     "2d-row-per-tile": ((20000, 64), 64, 1e-3, 512,
                         "dequant_reconstruct_nd"),
@@ -868,7 +872,7 @@ def test_epilogues_match_plain(cuda, case, dtype):
     assert kernel.launches == before + 1
     want = plain(*args)
     assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
-    if case == "outlier-dense":
+    if case in ("outlier-dense", "1d-outlier-dense"):
         assert int((c.outlier_pos >= 0).sum()) > c.n_symbols // 4
     # the codec's fused padded path gives the tile two-pass bytes
     fused = Codec(codec.config.replace(strategy="padded", fused=True))
@@ -909,6 +913,73 @@ def test_epilogue_row_at_the_shared_memory_bound(cuda):
     wide = dataclasses.replace(c, shape=(3, cols + 1))
     assert "per-tile row bound" in compressor.fused_unsupported_reason(
         wide, "cuda", "gap", "padded")
+
+
+#: The 1-D epilogue on the card, each case against its plain version with
+#: every plain version made to raise while the kernel runs: (shape, tile,
+#: noise, radius, look-back window).
+EPILOGUE_1D_KERNEL_CASES = {
+    # a window of 1 or 2 units slides on nearly every unit (64-code tiles)
+    "window-1": ((300_001,), 64, 1e-3, 512, 1),
+    "window-2": ((300_001,), 64, 1e-3, 512, 2),
+    # units of 2 tiles of 3,001 codes: most units start off a 16-byte
+    # boundary, so they are read by the threads and stored a value at a
+    # time
+    "unaligned-units": ((250_000,), 3001, 1e-3, 512, 32),
+    # most codes outliers, in slices that span units
+    "outlier-dense": ((300_001,), 4096, 5e-2, 2, 32),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", list(EPILOGUE_1D_KERNEL_CASES))
+def test_epilogue_1d_kernel_cases(cuda, no_plain_versions, monkeypatch,
+                                  case, dtype):
+    """dequant_reconstruct launches its kernel (no plain version may run)
+    and equals its plain version bit for bit, in float32, bf16 and f16."""
+    from repro_torch.kernels import fused_decode as fd
+
+    shape, tile, noise, radius, window = EPILOGUE_1D_KERNEL_CASES[case]
+    geometry = fd.epilogue_geometry
+    monkeypatch.setattr(fd, "epilogue_geometry",
+                        lambda *a: geometry(*a)._replace(window=window))
+    codec, c = _fused_payload(cuda, shape, 17, noise, dtype, radius)
+    kernel, _, args = _epilogue_call(codec, c, tile)
+    assert kernel.__name__ == "dequant_reconstruct"
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1
+    monkeypatch.undo()
+    want = fd.dequant_reconstruct_plain(*args)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    if case == "outlier-dense":
+        assert int((c.outlier_pos >= 0).sum()) > c.n_symbols // 4
+
+
+def test_epilogue_entries_refuse_bad_geometry(cuda, monkeypatch):
+    """Both 1-D epilogue C entries refuse (-1) a unit of 9 tiles, a window
+    of 0 or 33, no blocks and too little shared memory, before they launch
+    anything."""
+    from repro_torch.kernels import fused_decode as fd
+
+    codec, c = _fused_payload(cuda, (20_000,), 4, 1e-3, torch.float32)
+    kernel, _, args = _epilogue_call(codec, c, ops.PADDED_EPILOGUE_BLOCK)
+    resid = torch.zeros(20_000, dtype=torch.int32, device=cuda)
+    geometry = fd.epilogue_geometry
+    for bad in (dict(unit_tiles=9), dict(window=0), dict(window=33),
+                dict(blocks=0), dict(smem=100)):
+        def patched(*a, bad=bad):
+            geo = geometry(*a)
+            if "unit_tiles" in bad:
+                geo = geo._replace(smem=fd.epilogue_smem(9 * 4 * a[1]))
+            return geo._replace(**bad)
+
+        monkeypatch.setattr(fd, "epilogue_geometry", patched)
+        with pytest.raises(RuntimeError, match="CUDA error -1"):
+            kernel(*args)
+        with pytest.raises(RuntimeError, match="CUDA error -1"):
+            L.reconstruct1d(resid, ops._two_eb_f32(1e-3))
 
 
 ND_KERNEL_CASES = ["2d-partial-group", "3d-ring-reuse",
@@ -1193,6 +1264,53 @@ def test_reconstruct1d_matches_plain(cuda, n, block):
     got = L.reconstruct1d(d, two_eb, block)
     assert torch.equal(_signed(got.view(torch.int32)),
                        L.reconstruct1d_plain(d, two_eb).view(torch.int32))
+
+
+#: reconstruct1d on the card: (n, tile, residuals, look-back window, where
+#: the residuals start in their buffer, in values).
+RECONSTRUCT_KERNEL_CASES = {
+    # past 2**24: 4,097 units, the last of 3 values
+    "2**24+3": ((1 << 24) + 3, 4096, "small", 32, 0),
+    # windows of 1 and 2 units slide on nearly every unit
+    "window-1": (300_001, 64, "small", 1, 0),
+    "window-2": (300_001, 64, "small", 2, 0),
+    # units of 3,001 values: every other unit starts off a 16-byte boundary
+    # of the input and the output, read by the threads and stored a value
+    # at a time
+    "unaligned-units": (250_000, 3001, "small", 32, 0),
+    # the residuals one value into their buffer: no unit starts on a
+    # 16-byte boundary of the input
+    "input-offset": (300_001, 4096, "small", 32, 1),
+    # residuals near +-2**31: the sums wrap int32 inside units and across
+    "int32-wrap": (1_000_003, 4096, "wide", 32, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(RECONSTRUCT_KERNEL_CASES))
+def test_reconstruct1d_kernel_cases(cuda, no_plain_versions, monkeypatch,
+                                    case):
+    """reconstruct1d launches its kernel (no plain version may run) and
+    equals its plain version bit for bit."""
+    from repro_torch.kernels import fused_decode as fd
+
+    n, tile, kind, window, offset = RECONSTRUCT_KERNEL_CASES[case]
+    rng = np.random.default_rng(n + tile)
+    lo, hi = (-600, 600) if kind == "small" else (-(1 << 31), 1 << 31)
+    buf = torch.from_numpy(rng.integers(lo, hi, size=n + offset).astype(
+        np.int32)).to(cuda)
+    d = buf[offset:]
+    geometry = fd.epilogue_geometry
+    monkeypatch.setattr(fd, "epilogue_geometry",
+                        lambda *a: geometry(*a)._replace(window=window))
+    before = L.reconstruct1d.launches
+    got = L.reconstruct1d(d, ops._two_eb_f32(1e-3), tile)
+    assert L.reconstruct1d.launches == before + 1
+    monkeypatch.undo()
+    want = L.reconstruct1d_plain(d, ops._two_eb_f32(1e-3))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if kind == "wide":
+        q = torch.cumsum(d, 0, dtype=torch.int64)
+        assert bool(((q < -(1 << 31)) | (q >= 1 << 31)).any())
 
 
 def test_quantize_reconstruct_roundtrip_on_card(cuda):
