@@ -44,6 +44,16 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     ``histogram`` and ``pack_tiles`` (bit-pack) kernels once a tensor;
   * reconstruct, ``ops.lorenzo_reconstruct`` of hacc1d's residuals: the
     ``reconstruct1d`` kernel (the quantizer's 1-D inverse);
+  * chunked, Table V's baseline: each field's quant codes through cuSZ's
+    coarse-grained coder (``encode_chunked``, then ``decode_chunked``:
+    the ``decode_chunked`` kernel, one thread a chunk) at 16,384 and 2,048
+    symbols a chunk, with its plain version made to raise;
+  * tree, ``Codec.compress_tree`` / ``decompress_tree`` of a dict of the
+    three fields, 256 KV pages, an int32 leaf, a ``None`` and a nested
+    list: one ``decompress_batch`` call (``count_subseq``,
+    ``decode_tiles``); store, the same compressed leaves written by
+    ``ArchiveWriter`` and read by ``Archive.iter_decode`` cold (plans
+    built) and warm (``decode_tiles`` only);
   * opt self-sync, ``Codec(CodecConfig(method="selfsync"))``: ``decompress``
     and ``Codec.decode(early_exit=True)`` of the three fields, the sync
     points found by self-synchronization (the ``selfsync_intra`` kernel,
@@ -60,7 +70,12 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     reference's defaults (batch 4, prompt 32, 32 generated), whose rwkv
     decode steps run ``gla_time_mix`` (one a layer a step) and whose dense
     decode runs no kernel; and step decode against the forward in float32
-    (B 2, 256 tokens).
+    (B 2, 256 tokens);
+  * pager, qwen3-0.6b's prefill at B 4 x 1024 kept as its decode cache
+    (k, v bf16 (28, 4, 1024, 8, 128)), tokens [256, 768) offloaded by
+    ``KVPager`` through a "cuda"-encode codec (``lorenzo_quantize``,
+    ``histogram``, ``pack_tiles``) and paged back in (``count_subseq``,
+    ``decode_tiles``).
 
 The script
 
@@ -94,6 +109,14 @@ The script
     logits are finite and of the expected shape; the float32 step-decode
     logits are within ``DECODE_F32_TOL`` of the forward's at every
     position, with equal argmax wherever the top-2 gap exceeds it;
+    ``decode_chunked`` equals its plain version bit for bit at every block
+    width it takes and its first n codes equal ``Codec.decode``'s; the
+    tree's decoded leaves equal ``decompress_batch`` of the same payloads
+    bit for bit and every other leaf comes back as the same object; the
+    archive reads back bit for bit, the warm read builds zero plans and
+    hits the codebook cache; the paged tokens come back within the
+    codec's bound (``eb_effective`` with the cast to bf16), zeroed in
+    between, and a second page-in builds zero plans;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
@@ -112,8 +135,14 @@ The script
     ``histogram`` and ``pack_tiles`` launch split into the wrapper's host
     time and the kernel's device time (``launch_split``, for
     ``histogram`` on the fields too); the card's name and power limit;
-    and a ``kernels`` JSON line, one row a TPU kernel of the repo
-    (fourteen), with rows 5 and 7 on both N-D fields, row 10 on all three
+    ``decode_chunked``'s ms at each block width, GB/s of codes and stored
+    bytes beside the gap stream's, and each Table V decoder's speedup over
+    it (``table V``); the tree, archive write and cold and warm read
+    times, and the pager's offload, page-in and ratio (``store and
+    pager``); and a ``kernels`` JSON line, one row a TPU kernel of the
+    repo (fourteen) and one for the yardstick ``decode_chunked``
+    (``replaces`` null, ``yardstick`` the reference function), with rows
+    5 and 7 on both N-D fields, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT.  Each time is read after
     warm-up, once two readings in a row agree.
@@ -155,7 +184,11 @@ REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
             "selfsync_intra": "src/repro/kernels/huffman_selfsync.py:80",
             "flash_attention": "src/repro/kernels/flash_attn.py:83",
             "gla_time_mix": "src/repro/kernels/rwkv_gla.py:52"}
-SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+#: The kernels of the port that replace no TPU kernel: the yardsticks, by
+#: the reference function whose output they compute.
+YARDSTICKS = {"decode_chunked": "src/repro/core/huffman/decode.py:372"}
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu"
+           for name in (*REPLACES, *YARDSTICKS)}
 SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attn.cu"
 #: The kernels each path must launch; every other kernel must not launch.
 TWO_PASS_KERNELS = ("count_subseq", "decode_tiles")
@@ -170,6 +203,12 @@ ENCODE_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles")
 RECONSTRUCT_KERNELS = ("reconstruct1d",)
 SELFSYNC_KERNELS = ("selfsync_intra", "decode_tiles")
 ORI_SELFSYNC_KERNELS = ("selfsync_intra", "decode_padded")
+CHUNKED_KERNELS = ("decode_chunked",)
+TREE_KERNELS = ("count_subseq", "decode_tiles")
+STORE_READ_KERNELS = ("count_subseq", "decode_tiles")
+STORE_WARM_KERNELS = ("decode_tiles",)
+PAGER_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles",
+                 "count_subseq", "decode_tiles")
 #: selfsync_intra's times beside its bound in the kernels line: the chained
 #: heads, no early exit (ori), and the decode-work yardstick (rounds run x
 #: count_subseq's time on the same stream).
@@ -198,6 +237,10 @@ PAGE_SHAPE = (2, 8, 16, 128)
 #: 2**22 of them, which the float32 and float64 quantizers map alike.
 LATTICE_SHAPE = (64, 256, 256)
 LATTICE_EB = 2.0 ** -10
+#: cuSZ's chunk sizes for the chunked baseline: its default, then 2,048.
+CHUNK_SIZES = (16384, 2048)
+#: The token span the pager offloads from qwen3-0.6b's 1,024-token cache.
+PAGE_SPAN = (256, 768)
 
 
 def make_fields(seed: int):
@@ -1024,6 +1067,404 @@ def run_encode(seed: int, xs) -> dict:
     print(f"encode path {json.dumps(summary)}")
     return {"fields": rows, "launches": counts,
             "reconstruct_launches": rcounts}
+
+
+def run_chunked(results, rows, selfsync) -> dict:
+    """Table V's baseline: cuSZ's chunked coder on each field's quant codes
+    at ``CHUNK_SIZES`` symbols a chunk (``encode_chunked``, then
+    ``decode_chunked`` on the card, its launch check with its plain version
+    made to raise), the output against the plain version bit for bit and
+    its first n codes against ``Codec.decode``'s, and the times: the
+    kernel's ms and GB/s of codes, its stored bytes beside the gap stream's,
+    and the speedup of each Table V decoder over it.  Prints one
+    ``chunked`` row per field and returns ``{"fields": rows, "launches":
+    ..., "kernel": the kernels-line entry (hacc1d, 16,384)}``."""
+    import torch
+
+    from repro_torch.core.huffman import decode as hd
+    from repro_torch.core.huffman import encode as he
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import huffman_chunked as HC
+    from repro_torch.kernels import huffman_decode as K
+
+    inputs = {}
+    for name, (codec, c, _, _, _) in results.items():
+        codes = codec.decode(c.stream, c.codebook, c.n_symbols)
+        luts = hp._as_luts(c.codebook, c.device)
+        for chunk in CHUNK_SIZES:
+            ch = he.encode_chunked(codes, c.codebook.enc_code,
+                                   c.codebook.enc_len, chunk)
+            inputs[name, chunk] = (codes, ch, (
+                ch["units"], ch["chunk_bits"], ch["chunk_syms"],
+                luts.dec_sym, luts.dec_len, luts.max_len, chunk))
+
+    plain = HC.decode_chunked_plain
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("decode_chunked's plain version ran for a CUDA "
+                           "tensor")
+
+    def drive():
+        return {key: hd.decode_chunked(*args)
+                for key, (_, _, args) in inputs.items()}
+
+    HC.decode_chunked_plain = refuse
+    try:
+        outs, counts = run_path("chunked", CHUNKED_KERNELS, drive)
+    finally:
+        HC.decode_chunked_plain = plain
+
+    field_rows = {r["field"]: r for r in rows}
+    out_rows, kernel = {}, None
+    for name, (codec, c, _, _, _) in results.items():
+        row = {"field": name, "n_codes": c.n_symbols,
+               "gap_stream_bytes": -(-c.stream.total_bits // 8),
+               "gap_array_bytes": c.stream.n_subseq}
+        frow, srow = field_rows[name], selfsync["fields"][name]
+        decoders = {"gap_tile": frow["decode_ms"],
+                    "gap_padded": frow["decode_ms_padded"],
+                    "gap_tuned": frow["decode_ms_tuned"],
+                    "opt_selfsync": srow["opt_decode_ms"],
+                    "ori_selfsync": srow["ori_decode_ms"]}
+        row["decoders_ms"] = decoders
+        for chunk in CHUNK_SIZES:
+            codes, ch, args = inputs[name, chunk]
+            got = outs[name, chunk]
+            require(got.device.type == "cuda"
+                    and same(got.reshape(-1)[:c.n_symbols], codes),
+                    f"{name}: decode_chunked at {chunk} symbols a chunk "
+                    f"differs from Codec.decode's codes")
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain(*args)
+            stop.record()
+            torch.cuda.synchronize()
+            require(same(got, want), f"{name}: decode_chunked at {chunk} "
+                    f"symbols a chunk differs from its plain version")
+            n_chunks, max_units = ch["units"].shape
+            ms = cuda_ms(lambda: HC.decode_chunked(*args), 5)
+            lut = 1 << args[5]
+            entry = {
+                "chunks": n_chunks, "max_units": max_units,
+                "geometry": HC.decode_chunked_geometry(
+                    n_chunks, lut, K.sm_count(0)),
+                "width_ms": chunked_widths(args), "ms": ms,
+                "plain_ms": start.elapsed_time(stop),
+                "bound_ms": (4 * n_chunks * max_units + 8 * n_chunks
+                             + 3 * (1 << args[5])
+                             + 2 * n_chunks * chunk) / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": max_abs_diff(got, want),
+                "gbps": c.quant_code_bytes / (ms * 1e-3) / 1e9,
+                "stored_bytes": ch["stored_bytes"],
+                "stored_over_gap_stream": ch["stored_bytes"]
+                / row["gap_stream_bytes"],
+                "lut_in_smem": HC.decode_chunked_lut_in_smem(1 << args[5]),
+                "speedup_over_chunked": {k: ms / v
+                                         for k, v in decoders.items()}}
+            row[f"chunk_{chunk}"] = entry
+            if name == "hacc1d" and chunk == CHUNK_SIZES[0]:
+                kernel = entry
+        out_rows[name] = row
+        print(f"chunked {json.dumps(row)}")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    kernel = {**kernel, "fields_ms": {
+        f: r[f"chunk_{CHUNK_SIZES[0]}"]["ms"] for f, r in out_rows.items()}}
+    return {"fields": out_rows, "launches": counts, "kernel": kernel}
+
+
+def table_v(chunked) -> dict:
+    """Table V's speedups over the chunked baseline, a field and chunk
+    size: ``{field: {chunk: {decoder: speedup}}}``."""
+    return {name: {chunk: row[f"chunk_{chunk}"]["speedup_over_chunked"]
+                   for chunk in CHUNK_SIZES}
+            for name, row in chunked["fields"].items()}
+
+
+def store_summary(store, pager) -> dict:
+    """The store's and the pager's times, in one line."""
+    return {"archive_bytes": store["archive_bytes"],
+            "write_ms": store["write_s"] * 1e3,
+            "cold_read_ms": store["cold_read_s"] * 1e3,
+            "warm_read_ms": store["warm_read_s"] * 1e3,
+            "decompress_tree_ms": store["decompress_tree_ms"],
+            "offload_ms": pager["offload_ms"],
+            "page_in_ms": pager["page_in_ms"],
+            "page_in_warm_ms": pager["page_in_warm_ms"],
+            "page_stage_ms": pager["stage_ms"],
+            "page_decode_staged_ms": pager["decode_staged_ms"],
+            "page_compress_ms": pager["compress_ms"],
+            "page_ratio": pager["ratio"]}
+
+
+def chunked_widths(args) -> dict:
+    """``decode_chunked``'s ms at each block width it takes
+    (``huffman_chunked.CHUNK_WIDTHS``) on the same inputs, the geometry's
+    choice replaced for the reading; the output checked against the
+    chosen width's each time."""
+    from repro_torch.kernels import huffman_chunked as HC
+
+    want = HC.decode_chunked(*args)
+    geometry = HC.decode_chunked_geometry
+    out = {}
+    try:
+        for threads in HC.CHUNK_WIDTHS:
+            def forced(n_chunks, lut, sm, threads=threads):
+                return -(-n_chunks // threads), threads, geometry(
+                    n_chunks, lut, sm)[2]
+
+            HC.decode_chunked_geometry = forced
+            require(same(HC.decode_chunked(*args), want),
+                    f"decode_chunked at {threads} threads a block differs")
+            out[threads] = cuda_ms(lambda: HC.decode_chunked(*args), 3)
+    finally:
+        HC.decode_chunked_geometry = geometry
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    """``(path, leaf)`` of every leaf of a dict / list tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+def run_store(seed: int, xs) -> dict:
+    """Trees and the store: a dict tree of the three fields, the
+    ``N_PAGES`` KV pages, an int32 leaf, a ``None`` leaf and a nested list
+    through ``compress_tree`` and ``decompress_tree`` (exactly one
+    ``decompress_batch`` call, its launch check; bit for bit that call's
+    values, every other leaf the same object), then the same compressed
+    leaves through ``ArchiveWriter`` and a cold and a warm ``iter_decode``
+    on the card (launch checks; the values bit for bit; the warm read
+    builds zero plans and hits the codebook cache).  Prints and returns one
+    ``store`` row."""
+    import shutil
+
+    import torch
+
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.sz.compressor import Compressed
+    from repro_torch.store import Archive, ArchiveWriter
+
+    pages = [torch.from_numpy(p).cuda() for p in make_pages(seed)]
+    step = torch.tensor([seed, 7], dtype=torch.int32, device="cuda")
+    tree = {"fields": dict(xs), "pages": pages, "step": step, "none": None,
+            "nested": [[xs["hacc1d"][:4096], None], 3]}
+    codec = Codec(CodecConfig())
+    t0 = time.perf_counter()
+    ctree = codec.compress_tree(tree)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    named = list(_named_leaves(ctree))
+    cs = [(n, c) for n, c in named if isinstance(c, Compressed)]
+    require(len(cs) == len(xs) + N_PAGES + 1,
+            f"tree: {len(cs)} compressed leaves")
+    calls = []
+    batch = codec.decompress_batch
+
+    def counted(items, **kwargs):
+        calls.append(len(items))
+        return batch(items, **kwargs)
+
+    def drive():
+        codec.decompress_batch = counted
+        try:
+            return codec.decompress_tree(ctree)
+        finally:
+            del codec.decompress_batch
+
+    back, tree_counts = run_path("tree", TREE_KERNELS, drive)
+    require(calls == [len(cs)], f"tree: decompress_batch calls {calls}, "
+            f"not one of {len(cs)} leaves")
+    want = dict(zip([n for n, _ in cs],
+                    codec.decompress_batch([c for _, c in cs])))
+    for (name, leaf), (_, orig) in zip(_named_leaves(back),
+                                       _named_leaves(tree)):
+        if name in want:
+            require(same(leaf, want[name]), f"tree: {name} differs from "
+                    f"decompress_batch")
+        else:
+            require(leaf is orig, f"tree: leaf {name} was not returned "
+                    f"untouched")
+    tree_ms = cuda_ms(lambda: codec.decompress_tree(ctree), 3)
+
+    directory = os.path.join(ROOT, "build", "chip_smoke_store")
+    shutil.rmtree(directory, ignore_errors=True)
+    path = os.path.join(directory, "tree.szt")
+    t0 = time.perf_counter()
+    with ArchiveWriter(path) as w:
+        for name, c in cs:
+            w.add(name, c)
+    write_s = time.perf_counter() - t0
+    reader = Codec(CodecConfig(), plan_cache=PlanCache())
+
+    def read():
+        with Archive(path, codec=reader) as ar:
+            out = ar.read_all()
+        torch.cuda.synchronize()
+        return out
+
+    reader.reset_stats()
+    t0 = time.perf_counter()
+    cold, cold_counts = run_path("store read", STORE_READ_KERNELS, read)
+    cold_s = time.perf_counter() - t0
+    cold_stats = dict(reader.stats)
+    reader.reset_stats()
+    t0 = time.perf_counter()
+    warm, warm_counts = run_path("store warm read", STORE_WARM_KERNELS, read)
+    warm_s = time.perf_counter() - t0
+    warm_stats = dict(reader.stats)
+    for name, _ in cs:
+        require(same(cold[name], want[name]) and same(warm[name],
+                                                      want[name]),
+                f"store: {name} read back differs from decompress_batch")
+    require(cold_stats["plan_builds"] == len(cs),
+            f"store: cold read stats {cold_stats}")
+    require(warm_stats["plan_builds"] == 0 and warm_stats["lut_hits"] > 0
+            and warm_stats["lut_misses"] == 0,
+            f"store: warm read stats {warm_stats}")
+    row = {"leaves": len(named), "compressed_leaves": len(cs),
+           "compress_tree_s": compress_s,
+           "decompress_tree_ms": tree_ms,
+           "decompress_batch_calls": calls, "tree_launches": tree_counts,
+           "archive_bytes": os.path.getsize(path), "write_s": write_s,
+           "cold_read_s": cold_s, "warm_read_s": warm_s,
+           "cold_stats": cold_stats, "warm_stats": warm_stats,
+           "read_launches": cold_counts, "warm_read_launches": warm_counts}
+    shutil.rmtree(directory, ignore_errors=True)
+    print(f"store {json.dumps(row)}")
+    return row
+
+
+def prefill_cache(params, tokens, cfg):
+    """The prefill forward (``steps.make_prefill_step``) with each layer's
+    keys and values kept as ``blockwise_attn`` receives them: the decode
+    cache {"k", "v"} (L, B, S, Hkv, Dh) in the compute type that the
+    prompt's step decode would have written."""
+    import torch
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import steps as St
+
+    keys, values = [], []
+    attn = A.blockwise_attn
+
+    def keep(q, k, v, **kwargs):
+        keys.append(k)
+        values.append(v)
+        return attn(q, k, v, **kwargs)
+
+    A.blockwise_attn = keep
+    try:
+        St.make_prefill_step(cfg)(params, tokens)
+    finally:
+        A.blockwise_attn = attn
+    return {"k": torch.stack(keys), "v": torch.stack(values)}
+
+
+def run_pager(seed: int) -> dict:
+    """The KV pager at full width: qwen3-0.6b prefilled at B 4 x 1024 (its
+    keys and values kept as the decode cache), tokens ``PAGE_SPAN`` of
+    every pageable cache tensor offloaded through a "cuda"-encode codec and
+    paged back in (one launch check over both), every paged value within
+    the codec's bound of the original, the span zeroed in between, and a
+    second page-in that builds zero plans.  Prints and returns one
+    ``pager`` row."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.store import KVPager
+
+    cfg = configs.get_config("qwen3-0.6b")
+    params = T.init_model(seed, cfg, "cuda")
+    gen = T.generator(seed + 1, "cuda")
+    tokens = torch.randint(0, cfg.vocab, (PREFILL_BATCH, PREFILL_LEN),
+                           generator=gen, device="cuda")
+    cache = prefill_cache(params, tokens, cfg)
+    del params
+    lo, hi = PAGE_SPAN
+    span = (slice(None), slice(None), slice(lo, hi))
+    orig = {k: t[span].clone() for k, t in cache.items()}
+    directory = os.path.join(ROOT, "build", "chip_smoke_pager")
+    shutil.rmtree(directory, ignore_errors=True)
+    codec = Codec(CodecConfig(encode_backend="cuda"), plan_cache=PlanCache())
+    pager = KVPager(directory, codec=codec)
+    state = {}
+
+    def drive():
+        t0 = time.perf_counter()
+        _, bid = pager.offload(cache, lo, hi)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state["zeroed"] = all(not bool(t[span].any()) for t in cache.values())
+        pager.page_in(cache, bid)
+        torch.cuda.synchronize()
+        state.update(bid=bid, offload_s=t1 - t0,
+                     page_in_s=time.perf_counter() - t1)
+
+    _, counts = run_path("pager", PAGER_KERNELS, drive)
+    bid = state["bid"]
+    require(state["zeroed"], "pager: the offloaded span was not zeroed")
+    require(pager.block_meta(bid)["names"] == ["k", "v"],
+            f"pager: paged {pager.block_meta(bid)['names']}")
+    t0 = time.perf_counter()
+    staged = pager.stage(bid)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pager.decode_staged([staged])
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in orig.values():
+        codec.compress(t.to(torch.float32))
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    errs = {}
+    for name, c in zip(staged.names, staged.cs):
+        bound = dataclasses.replace(c, dtype=cache[name].dtype).eb_effective
+        err = max_abs_err(cache[name][span], orig[name])
+        require(err <= bound, f"pager: {name} paged back with max|x - x'| "
+                f"{err} > {bound}")
+        errs[name] = {"max_abs_err": err, "bound": bound}
+    codec.reset_stats()
+    t0 = time.perf_counter()
+    pager.page_in(cache, bid)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    require(codec.stats["plan_builds"] == 0,
+            f"pager: a second page-in built {codec.stats['plan_builds']} "
+            f"plans")
+    row = {"arch": cfg.name, "cache": {k: [str(t.dtype), list(t.shape)]
+                                       for k, t in cache.items()},
+           "span": [lo, hi], "values": sum(t.numel() for t in orig.values()),
+           "launches": counts, "offload_ms": state["offload_s"] * 1e3,
+           "page_in_ms": state["page_in_s"] * 1e3,
+           "page_in_warm_ms": warm_s * 1e3,
+           # the halves of a warm page-in, and the offload's compress alone
+           "stage_ms": stage_s * 1e3, "decode_staged_ms": decode_s * 1e3,
+           "compress_ms": compress_s * 1e3, "ratio": pager.ratio,
+           "stats": pager.stats, "errors": errs}
+    pager.drop(bid)
+    shutil.rmtree(directory, ignore_errors=True)
+    del cache, orig
+    torch.cuda.empty_cache()
+    print(f"pager {json.dumps(row)}")
+    return row
 
 
 def model_kernel_bound(kname: str, args, out) -> tuple:
@@ -1965,9 +2406,12 @@ def main() -> int:
     selfsync = run_selfsync(results)
     batch = run_batch(args.seed, results, xs)
     encode = run_encode(args.seed, xs)
+    chunked = run_chunked(results, rows, selfsync)
+    store = run_store(args.seed, xs)
     del xs, results, fused, padded, padded_fused, tuned
     torch.cuda.empty_cache()
     model = run_model(args.seed)
+    pager = run_pager(args.seed)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2070,8 +2514,26 @@ def main() -> int:
             "dtype": k["dtype"], **{key: k[key] for key in (
                 "decode_shape", "decode_ms", "decode_device_ms",
                 "decode_bound_ms") if key in k}})
-    require(len(kernels) == len(REPLACES) == len(_build.SIGNATURES),
+    require(len(kernels) == len(REPLACES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
+    # The yardsticks: kernels of the port that replace no TPU kernel.
+    k = chunked["kernel"]
+    kernels.append({
+        "name": "decode_chunked", "route": "cuda",
+        "source": SOURCES["decode_chunked"], "replaces": None,
+        "yardstick": YARDSTICKS["decode_chunked"],
+        "launches": chunked["launches"]["decode_chunked"],
+        "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "field": "hacc1d",
+        "chunk_symbols": CHUNK_SIZES[0], "fields_ms": k["fields_ms"]})
+    require(len(kernels) == len(REPLACES) + len(YARDSTICKS)
+            == len(_build.SIGNATURES),
+            f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels, "
+            f"{len(YARDSTICKS)} yardsticks and {len(_build.SIGNATURES)} "
+            f"kernel libraries")
+    print(f"table V {json.dumps(table_v(chunked))}")
+    print(f"store and pager {json.dumps(store_summary(store, pager))}")
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

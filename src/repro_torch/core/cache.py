@@ -1,12 +1,19 @@
-"""Plan cache and the content digests that key it.
+"""Plan / LUT cache and the content digests that key it.
 
 Port of ``src/repro/core/cache.py``.  The digests hash the same bytes as the
 reference's (tensors are copied to the host first), so a payload has the
-same ``compressed_digest`` in both packages.  ``PlanCache`` maps
-(chunk digest, method, t_high) -> ``DecoderPlan`` with LRU eviction and
-single-flight builds.  ``t_high`` is in the key, as in the reference, so a
-cached plan's CR classes (built from it when first read) are never those
-of another ``t_high``.
+same ``compressed_digest`` in both packages.  ``PlanCache`` holds two maps:
+
+* **codebooks** -- codebook digest -> materialized ``Codebook`` (decode LUT
+  included), built on first use (``get_codebook``; ``lut_hits`` /
+  ``lut_misses``).  Archives store only the encoder tables, so every chunk
+  and archive with the same histogram shares one LUT.
+* **plans** -- (chunk digest, method, t_high) -> ``DecoderPlan`` with LRU
+  eviction and single-flight builds.  ``t_high`` is in the key, as in the
+  reference, so a cached plan's CR classes (built from it when first read)
+  are never those of another ``t_high``.
+
+``DEFAULT_PLAN_CACHE`` is the process-wide cache of the default ``Codec``.
 """
 
 from __future__ import annotations
@@ -115,10 +122,27 @@ def compressed_digest(c) -> str:
 class PlanCache:
     def __init__(self, max_plans: int = 4096):
         self.max_plans = max_plans
+        self._books: dict = {}
         self._plans: collections.OrderedDict = collections.OrderedDict()
         self._inflight: dict = {}
         self._lock = threading.Lock()
-        self.stats = {"plan_hits": 0, "plan_misses": 0}
+        self.stats = {"plan_hits": 0, "plan_misses": 0,
+                      "lut_hits": 0, "lut_misses": 0}
+
+    # -- codebooks / LUTs ---------------------------------------------------
+
+    def get_codebook(self, digest: str, build_fn):
+        """Return the cached ``Codebook`` for ``digest``, building via
+        ``build_fn()`` on first use."""
+        with self._lock:
+            book = self._books.get(digest)
+            if book is not None:
+                self.stats["lut_hits"] += 1
+                return book
+            self.stats["lut_misses"] += 1
+        book = build_fn()
+        with self._lock:
+            return self._books.setdefault(digest, book)
 
     # -- plans --------------------------------------------------------------
 
@@ -185,6 +209,7 @@ class PlanCache:
 
     def clear(self):
         with self._lock:
+            self._books.clear()
             self._plans.clear()
 
     def reset_stats(self):
@@ -195,3 +220,8 @@ class PlanCache:
     def __len__(self):
         return len(self._plans)
 
+
+
+#: Process-wide default used by the default ``Codec`` (and therefore by
+#: ``Archive`` / ``KVPager`` unless given their own codec or cache).
+DEFAULT_PLAN_CACHE = PlanCache()

@@ -14,15 +14,27 @@ when PyTorch sees no CUDA device.  The CPU is used only when asked for:
     c = codec.compress(x)                       # on the card
     xhat = codec.decompress(c)                  # plan cached by digest
     xs = codec.decompress_batch([c, c2, c3])    # one dispatch per CR class
+    shards = codec.compress_tree({"w": w, "b": b})
+    restored = codec.decompress_tree(shards)    # one decompress_batch call
+
+The module-level ``compress`` / ``decompress`` / ``decompress_batch``
+functions are thin shims over a default Codec (``default_codec``, which
+shares ``DEFAULT_PLAN_CACHE``); the removed ``use_tiles`` / ``use_kernels``
+/ ``tuned`` flags raise ``TypeError`` pointing at ``CodecConfig``, as in
+the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
+import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
-from repro_torch.core.cache import PlanCache, compressed_digest
+from repro_torch.core.cache import (DEFAULT_PLAN_CACHE, PlanCache,
+                                    compressed_digest)
 from repro_torch.core.huffman import codebook as cb
 from repro_torch.core.huffman import encode as he
 from repro_torch.core.huffman import pipeline as hp
@@ -30,8 +42,12 @@ from repro_torch.core.sz import compressor, lorenzo
 from repro_torch.core.sz.compressor import Compressed
 from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels.huffman_selfsync import selfsync_smem
+from repro_torch.runtime import fault_tolerance as ft
 
 VALID_MODES = ("rel", "abs")
+#: The reference's methods less its host oracle "naive_ref", which is no
+#: decode path of the port.
+VALID_METHODS = hp.VALID_PLAN_METHODS
 VALID_STRATEGIES = hp.VALID_STRATEGIES
 
 DEFAULT_EB = compressor.DEFAULT_EB
@@ -84,6 +100,14 @@ class CodecConfig:
 
     Session side:
       plan_cache_size  LRU bound of the codec's digest-keyed plan cache
+      recovery         "raise" (default) | "skip" | "zero_fill": what
+                       ``Archive.iter_decode`` and ``KVPager.page_in`` do
+                       on persistent corruption; per-call ``policy=``
+                       overrides win (``runtime/fault_tolerance.py:
+                       RecoveryPolicy``)
+      io_retries       transient-IO retry count for store reads (``OSError``
+                       only; corruption is never retried)
+      io_backoff       initial backoff seconds between retries (doubles)
       device           where compress and decompress run; ``None`` means
                        "cuda" for the "cuda" backend and "cpu" for "ref"
 
@@ -106,6 +130,9 @@ class CodecConfig:
     tile_syms: int = hp.DEFAULT_TILE_SYMS
     fused: bool = False
     plan_cache_size: int = 4096
+    recovery: str = "raise"
+    io_retries: int = 2
+    io_backoff: float = 0.05
     device: "str | None" = None
 
     def __post_init__(self):
@@ -162,6 +189,15 @@ class CodecConfig:
         if self.plan_cache_size < 0:
             raise ValueError("plan_cache_size must be >= 0, got "
                              f"{self.plan_cache_size}")
+        if self.recovery not in ft.VALID_RECOVERY:
+            raise ValueError(f"unknown recovery {self.recovery!r}; valid "
+                             f"policies: {ft.VALID_RECOVERY}")
+        if self.io_retries < 0:
+            raise ValueError(f"io_retries must be >= 0, got "
+                             f"{self.io_retries}")
+        if self.io_backoff < 0:
+            raise ValueError(f"io_backoff must be >= 0, got "
+                             f"{self.io_backoff}")
         if self.device is not None:
             torch.device(self.device)   # raises on a malformed device
 
@@ -223,6 +259,11 @@ class Codec:
         self.backend.reset_stats()
         self.encode_backend.reset_stats()
         self.plan_cache.reset_stats()
+
+    def recovery_policy(self, policy=None) -> ft.RecoveryPolicy:
+        """This codec's ``RecoveryPolicy``; ``policy`` (a string or a
+        ``RecoveryPolicy``) overrides the config's ``recovery`` default."""
+        return ft.RecoveryPolicy.resolve(policy, self.config)
 
     def _local(self, compressed: Compressed) -> Compressed:
         if compressed.device == self.device:
@@ -301,3 +342,194 @@ class Codec:
                          backend=self.backend, strategy=c.strategy,
                          tile_syms=c.tile_syms, t_high=c.t_high,
                          early_exit=early_exit)
+
+    # -- pytrees -------------------------------------------------------------
+
+    def compress_tree(self, tree, *, min_size: int = 1, predicate=None):
+        """Compress every compressible leaf of a pytree, in place of it.
+
+        A leaf is compressed when ``predicate(leaf)`` is true (default:
+        a tensor or array of float32 / bfloat16 / float16 --
+        ``compressor.FUSED_DTYPES`` -- with at least ``min_size``
+        elements); everything else passes through untouched.  Trees are
+        ``torch.utils._pytree`` trees, whose ``None`` is a leaf where JAX's
+        is an empty node: a ``None`` passes through without reaching
+        ``predicate``, as in the reference.
+        """
+        if predicate is None:
+            def predicate(leaf):
+                return (_leaf_dtype_name(leaf) in compressor.FUSED_DTYPES
+                        and _leaf_size(leaf) >= min_size)
+
+        def one(leaf):
+            if leaf is not None and predicate(leaf):
+                return self.compress(leaf)
+            return leaf
+
+        return pytree.tree_map(one, tree)
+
+    def decompress_tree(self, tree, *, shardings=None):
+        """Inverse of ``compress_tree``: every ``Compressed`` leaf decodes
+        through ONE class-batched ``decompress_batch`` call; other leaves
+        (``None`` included) pass through untouched.
+
+        ``shardings`` (optional) is a pytree matching ``tree`` whose leaves
+        are ``torch.device`` or ``None``: a leaf paired with a device is
+        moved there (a non-tensor leaf becomes a tensor on it).  It must
+        have one leaf for each leaf of ``tree`` other than ``None`` (the
+        leaves JAX counts), or ``ValueError`` is raised, as in the
+        reference.  Any other placement (a mesh, a ``DTensor`` layout)
+        raises ``NotImplementedError``: sharded restore is ROADMAP A9.
+        """
+        leaves, treedef = pytree.tree_flatten(
+            tree, is_leaf=lambda x: isinstance(x, Compressed))
+        live = [i for i, leaf in enumerate(leaves) if leaf is not None]
+        shard_leaves = None
+        if shardings is not None:
+            shard_leaves, _ = pytree.tree_flatten(
+                shardings, is_leaf=lambda x: x is None
+                or isinstance(x, torch.device))
+            if len(shard_leaves) != len(live):
+                raise ValueError(
+                    f"shardings tree has {len(shard_leaves)} leaves but the "
+                    f"compressed tree has {len(live)}")
+            for s in shard_leaves:
+                if s is not None and not isinstance(s, torch.device):
+                    raise NotImplementedError(
+                        f"placement {s!r} is not ported yet: ROADMAP A9 "
+                        f"(sharded restore); a shardings leaf is a "
+                        f"torch.device or None")
+        idx = [i for i, leaf in enumerate(leaves)
+               if isinstance(leaf, Compressed)]
+        outs = self.decompress_batch([leaves[i] for i in idx])
+        for i, out in zip(idx, outs):
+            leaves[i] = out
+        if shard_leaves is not None:
+            for i, s in zip(live, shard_leaves):
+                if s is not None:
+                    leaves[i] = torch.as_tensor(leaves[i]).to(s)
+        return pytree.tree_unflatten(leaves, treedef)
+
+
+def _leaf_dtype_name(leaf) -> "str | None":
+    if isinstance(leaf, torch.Tensor):
+        return compressor.dtype_name(leaf.dtype)
+    dtype = getattr(leaf, "dtype", None)
+    if dtype is None:
+        return None
+    try:
+        return np.dtype(dtype).name
+    except TypeError:
+        return str(dtype)
+
+
+def _leaf_size(leaf) -> int:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.numel()
+    return int(np.size(leaf))
+
+
+# ---------------------------------------------------------------------------
+# Default codec + module-level shims
+# ---------------------------------------------------------------------------
+
+_DEFAULT_CODEC: "Codec | None" = None
+_SHIM_CODECS: dict = {}
+_SHIM_LOCK = threading.Lock()
+
+
+def default_codec() -> Codec:
+    """The process-wide default ``Codec`` (default config, on the card,
+    shared ``DEFAULT_PLAN_CACHE``) used by the module-level shims and by
+    consumers constructed without an explicit codec.  Raises, as every
+    ``Codec()`` does, when PyTorch sees no CUDA device."""
+    global _DEFAULT_CODEC
+    if _DEFAULT_CODEC is None:
+        _DEFAULT_CODEC = Codec(CodecConfig(), plan_cache=DEFAULT_PLAN_CACHE)
+    return _DEFAULT_CODEC
+
+
+def _codec_for(config: CodecConfig) -> Codec:
+    """Memoized per-config codecs for the shims; all share the default plan
+    cache so kwarg-style callers still get digest-keyed plan reuse."""
+    if config == CodecConfig():
+        return default_codec()
+    with _SHIM_LOCK:
+        codec = _SHIM_CODECS.get(config)
+        if codec is None:
+            codec = Codec(config, plan_cache=DEFAULT_PLAN_CACHE)
+            if len(_SHIM_CODECS) >= 64:   # kwarg soup bound, not a cache
+                _SHIM_CODECS.clear()
+            _SHIM_CODECS[config] = codec
+        return codec
+
+
+_REMOVED_FLAGS = ("use_tiles", "use_kernels", "tuned")
+
+
+def _reject_removed(fn_name: str, kwargs: dict):
+    bad = sorted(set(kwargs) & set(_REMOVED_FLAGS))
+    if bad:
+        raise TypeError(
+            f"{fn_name}() no longer accepts {', '.join(bad)}; configure a "
+            f"repro_torch.core.Codec instead -- CodecConfig(backend='cuda'|"
+            f"'ref') replaces use_kernels, CodecConfig(strategy='tuned'|"
+            f"'tile'|'padded') replaces tuned/use_tiles")
+    if kwargs:
+        raise TypeError(f"{fn_name}() got unexpected keyword arguments "
+                        f"{sorted(kwargs)}")
+
+
+def _replace_some(config: CodecConfig, **overrides) -> CodecConfig:
+    changes = {k: v for k, v in overrides.items() if v is not None}
+    return config.replace(**changes) if changes else config
+
+
+def compress(x, eb: "float | None" = None, mode: "str | None" = None,
+             radius: "int | None" = None, max_len: "int | None" = None,
+             subseqs_per_seq: "int | None" = None,
+             encode_backend: "str | None" = None, *,
+             device: "str | None" = None, **removed) -> Compressed:
+    """Compress a float tensor (shim over a default ``Codec``).
+
+    mode="rel": bound is ``eb * (max(x) - min(x))`` (the paper's setting,
+    "relative error bound 1e-3"); mode="abs": bound is ``eb`` directly.
+    ``device`` (the port's, where the reference has JAX's default device)
+    asks for another device than the card, such as "cpu".  Prefer holding
+    a ``Codec`` when compressing more than once.
+    """
+    _reject_removed("compress", removed)
+    cfg = _replace_some(CodecConfig(), eb=eb, mode=mode, radius=radius,
+                        max_len=max_len, subseqs_per_seq=subseqs_per_seq,
+                        encode_backend=encode_backend, device=device)
+    return _codec_for(cfg).compress(x)
+
+
+def decompress(c: Compressed, method: "str | None" = None,
+               tile_syms: "int | None" = None, *,
+               backend: "str | None" = None, strategy: "str | None" = None,
+               t_high: "int | None" = None, fused: "bool | None" = None,
+               plan=None, **removed):
+    """Decompress one tensor (shim over a default ``Codec``; on the CPU
+    with ``backend="ref"``).
+
+    The legacy ``use_tiles`` / ``use_kernels`` / ``tuned`` flags are gone;
+    they raise ``TypeError`` pointing at ``CodecConfig``.
+    """
+    _reject_removed("decompress", removed)
+    cfg = _replace_some(CodecConfig(), method=method, tile_syms=tile_syms,
+                        backend=backend, strategy=strategy, t_high=t_high,
+                        fused=fused)
+    return _codec_for(cfg).decompress(c, plan=plan)
+
+
+def decompress_batch(cs, method: "str | None" = None, *,
+                     backend: "str | None" = None,
+                     t_high: "int | None" = None, fused: "bool | None" = None,
+                     plans=None, **removed) -> list:
+    """Decompress many tensors with class-batched decode dispatch (shim
+    over a default ``Codec``); see ``Codec.decompress_batch``."""
+    _reject_removed("decompress_batch", removed)
+    cfg = _replace_some(CodecConfig(), method=method, backend=backend,
+                        t_high=t_high, fused=fused)
+    return _codec_for(cfg).decompress_batch(cs, plans=plans)

@@ -225,3 +225,11 @@ def validate_codebook(codebook, max_len: "int | None" = None) -> list:
         if dmax > L:
             problems.append(f"decode-LUT length {dmax} exceeds max_len={L}")
     return problems
+
+
+def expected_bits_per_symbol(freq: np.ndarray, lengths: np.ndarray) -> float:
+    freq = np.asarray(freq, dtype=np.float64)
+    total = freq.sum()
+    if total == 0:
+        return 0.0
+    return float((freq * lengths).sum() / total)

@@ -19,7 +19,9 @@ Port of ``src/repro/core/huffman/decode.py``, the decoders' phases:
 each.  These work in absolute stream coordinates (:func:`bits.peek`) and are
 the oracles of the CUDA kernels in ``repro_torch.kernels``.
 :func:`decode_sequential` is the ground-truth oracle for small streams on
-the CPU; no decode path of the port calls it.
+the CPU; no decode path of the port calls it.  :func:`decode_chunked` is
+cuSZ's coarse-grained decoder over ``encode.encode_chunked``'s rows, the
+paper's yardstick: the ``decode_chunked`` CUDA kernel on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.huffman.bits import SUBSEQ_BITS, peek
+from repro_torch.core.huffman.encode import EncodedStream  # noqa: F401
 
 # Worst-case codewords per 128-bit subsequence (min codeword length 1).
 MAX_SYMS_PER_SUBSEQ = SUBSEQ_BITS
@@ -302,3 +305,28 @@ def decode_selfsync(stream, dec_sym, dec_len, max_len: int, n_out: int,
                               stream.total_bits, max_len, sps)
     return _count_and_write(stream, dec_sym, dec_len, start, max_len, n_out,
                             tile_syms, use_tiles)
+
+
+def decode_chunked(units_rows, chunk_bits, chunk_syms, dec_sym, dec_len,
+                   max_len: int, chunk_symbols: int) -> torch.Tensor:
+    """cuSZ's naive coarse-grained decoder: one sequential scan per chunk.
+
+    Port of the reference's ``decode_chunked``: ``chunk_symbols`` steps of
+    peek, LUT lookup, emit (0 once a row's ``chunk_bits`` are spent) and
+    advance by ``max(len, 1)`` on every row of ``units_rows``
+    (``encode_chunked``'s ``units``).  Returns uint16[n_chunks,
+    chunk_symbols].  CUDA tensors run the ``decode_chunked`` kernel
+    (``kernels/huffman_chunked.py``, one thread a chunk), CPU tensors its
+    plain version; ``chunk_bits`` is taken as int64 and the LUT as the
+    ``Codebook``'s tables on the rows' device.
+    """
+    # Imported here: the kernels package imports this one's modules.
+    from repro_torch.kernels import huffman_chunked
+
+    device = units_rows.device
+    return huffman_chunked.decode_chunked(
+        units_rows, torch.as_tensor(chunk_bits).to(device, torch.int64),
+        torch.as_tensor(chunk_syms).to(device, torch.int32),
+        torch.as_tensor(dec_sym).to(device, torch.uint16),
+        torch.as_tensor(dec_len).to(device, torch.uint8), max_len,
+        chunk_symbols)

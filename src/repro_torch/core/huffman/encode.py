@@ -240,3 +240,72 @@ def encode(symbols: torch.Tensor, enc_code: torch.Tensor,
     return _encode_padded(sym, enc_code, enc_len,
                           units_for_bits(total_bits, subseqs_per_seq),
                           subseqs_per_seq)
+
+
+def encode_chunked(symbols, enc_code, enc_len,
+                   chunk_symbols: int = 16384) -> dict:
+    """cuSZ-style *coarse-grained* chunked encoding (the paper's baseline).
+
+    Port of the reference's ``encode_chunked``, with the same dict and the
+    same bits.  Each fixed-size chunk of input symbols is encoded
+    independently and padded to a unit boundary; the decoder runs one
+    sequential thread per chunk (``decode.decode_chunked``).  The per-chunk
+    padding is the compression-ratio cost the paper mentions for small
+    chunks.
+
+    The reference packs chunk by chunk in a host loop, one element a bit;
+    this packs every chunk in one pass of :func:`pack_units` on the input's
+    device: each codeword's start is its start within its chunk plus its
+    chunk's first bit in the padded ``[n_chunks, max_units]`` rows, so the
+    rows are one stream whose chunks never share a unit.
+
+    Returns ``units`` uint32[n_chunks, max_units], ``chunk_bits`` int64 and
+    ``chunk_syms`` int32 [n_chunks], ``chunk_symbols``, ``n_symbols`` and
+    ``stored_bytes`` (the real per-chunk unit counts, unit-aligned padding,
+    as cuSZ accounts chunked storage).
+    """
+    if chunk_symbols < 1:
+        raise ValueError(f"chunk_symbols must be >= 1, got {chunk_symbols}")
+    symbols = torch.as_tensor(symbols)
+    device = symbols.device
+    sym = symbols.reshape(-1).to(torch.int64)
+    enc_code = torch.as_tensor(enc_code).to(device).to(torch.int64)
+    enc_len = torch.as_tensor(enc_len).to(device).to(torch.int64)
+    n = sym.shape[0]
+    n_chunks = (n + chunk_symbols - 1) // chunk_symbols
+    if n == 0:
+        return {"units": torch.zeros((0, 0), dtype=torch.uint32,
+                                     device=device),
+                "chunk_bits": torch.zeros(0, dtype=torch.int64,
+                                          device=device),
+                "chunk_syms": torch.zeros(0, dtype=torch.int32,
+                                          device=device),
+                "chunk_symbols": chunk_symbols, "n_symbols": 0,
+                "stored_bytes": 0}
+    lens = enc_len[sym]
+    codes = enc_code[sym]
+    rows = torch.zeros(n_chunks * chunk_symbols, dtype=torch.int64,
+                       device=device)
+    rows[:n] = lens
+    rows = rows.reshape(n_chunks, chunk_symbols)
+    chunk_bits = rows.sum(dim=1)
+    within = (torch.cumsum(rows, dim=1) - rows).reshape(-1)[:n]
+    n_units = ((chunk_bits + UNIT_BITS - 1) // UNIT_BITS).clamp(min=1)
+    max_units = int(n_units.max())
+    chunk_of = torch.arange(n, device=device) // chunk_symbols
+    starts = within + chunk_of * (max_units * UNIT_BITS)
+    used = enc_len[enc_len > 0]
+    min_len = int(used.min()) if used.numel() else 1
+    units = pack_units(starts, lens, codes, n_chunks * max_units, min_len)
+    chunk_syms = torch.full((n_chunks,), chunk_symbols, dtype=torch.int32,
+                            device=device)
+    chunk_syms[-1] = n - (n_chunks - 1) * chunk_symbols
+    stored = int(((chunk_bits + UNIT_BITS - 1) // UNIT_BITS).sum()) * 4
+    return {
+        "units": units.to(torch.uint32).reshape(n_chunks, max_units),
+        "chunk_bits": chunk_bits,
+        "chunk_syms": chunk_syms,
+        "chunk_symbols": chunk_symbols,
+        "n_symbols": n,
+        "stored_bytes": stored,
+    }

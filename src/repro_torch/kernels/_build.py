@@ -74,6 +74,9 @@ SIGNATURES = {
     "gla_time_mix": ("repro_gla_time_mix",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _P]),
+    "decode_chunked": ("repro_decode_chunked",
+                       [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                        _P]),
 }
 
 _lock = threading.Lock()

@@ -5,9 +5,11 @@ stepping the decoder over the prompt, then greedy generation; it prints the
 same summary line and returns the same dict.  ``--device`` (default
 ``cuda``) is the port's counterpart of JAX's platform choice; the weights
 and the prompt are drawn on that device from ``--seed``.  The compressed-KV
-options come with the store and the codec trees: ``--compress-kv`` and
-``--kv-recovery`` other than ``raise`` (ROADMAP A5), ``--kv-offload``
-(A6), ``--concurrency`` above 1 (A8); they raise ``NotImplementedError``.
+options ``--compress-kv``, ``--kv-recovery`` other than ``raise`` and
+``--kv-offload`` come with ``models/kvcache.py`` (ROADMAP A10), which
+rides on the ported codec trees and ``repro_torch.store.KVPager``;
+``--concurrency`` above 1 with the serving scheduler (A8).  They raise
+``NotImplementedError``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
@@ -74,14 +76,16 @@ def main(argv=None):
 
     if args.compress_kv:
         raise NotImplementedError("--compress-kv is not ported yet: ROADMAP "
-                                  "A5 (Codec.compress_tree)")
+                                  "A10 (models/kvcache.py over "
+                                  "Codec.compress_tree)")
     if args.kv_recovery != "raise":
         raise NotImplementedError("--kv-recovery other than 'raise' is not "
-                                  "ported yet: ROADMAP A5 (recovery "
-                                  "policies)")
+                                  "ported yet: ROADMAP A10 (models/"
+                                  "kvcache.py's paging over KVPager)")
     if args.kv_offload:
         raise NotImplementedError("--kv-offload is not ported yet: ROADMAP "
-                                  "A6 (the store and KVPager)")
+                                  "A10 (models/kvcache.py's offload over "
+                                  "KVPager)")
     if args.concurrency > 1:
         raise NotImplementedError("--concurrency > 1 is not ported yet: "
                                   "ROADMAP A8 (the serving scheduler)")

@@ -1943,3 +1943,223 @@ def test_model_forward_and_decode_on_card(cuda, full_f32_matmul, arch):
     assert GLA.gla_time_mix.launches == (8 * cfg.n_layers
                                          if cfg.family == "rwkv" else 0)
     assert FA.flash_attention.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# cuSZ's chunked baseline (decode_chunked), the store and the KV pager
+# ---------------------------------------------------------------------------
+
+
+def _chunk_book(max_len: int, n: int, seed: int):
+    """A codebook at ``max_len`` whose LUT has 2**max_len entries, and ``n``
+    symbols drawn uniformly from its used symbols (so its long codes
+    occur)."""
+    k = 2 if max_len == 1 else 40 if max_len > 12 else 300
+    freq = np.maximum(1, (1e7 * 0.6 ** np.arange(k))).astype(np.int64)
+    book = codebook.build_codebook(freq, max_len=max_len)
+    syms = np.random.default_rng(seed).integers(0, k, n)
+    return book, syms
+
+
+def _chunked_args(cuda, max_len, chunk, n, seed=0):
+    from repro_torch.core.huffman import encode as he
+
+    book, syms = _chunk_book(max_len, n, seed)
+    ch = he.encode_chunked(torch.from_numpy(syms).to(cuda), book.enc_code,
+                           book.enc_len, chunk)
+    luts = hp._as_luts(book, cuda)
+    return syms, (ch["units"], ch["chunk_bits"], ch["chunk_syms"],
+                  luts.dec_sym, luts.dec_len, max_len, chunk)
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+def test_decode_chunked_every_block_width(cuda, monkeypatch, threads):
+    """Each block width the geometry can choose decodes the same bits,
+    with a ragged last block."""
+    from repro_torch.kernels import huffman_chunked as HC
+
+    syms, args = _chunked_args(cuda, 12, 512, 300 * 512 + 5)
+    want = HC.decode_chunked(*args)
+    geometry = HC.decode_chunked_geometry
+
+    def forced(n_chunks, lut, sm):
+        _, _, smem = geometry(n_chunks, lut, sm)
+        return -(-n_chunks // threads), threads, smem
+
+    monkeypatch.setattr(HC, "decode_chunked_geometry", forced)
+    got = HC.decode_chunked(*args)
+    assert torch.equal(_signed(got), _signed(want))
+    assert np.array_equal(_signed(got).reshape(-1)[:len(syms)].cpu().numpy(),
+                          syms)
+
+
+@pytest.mark.parametrize("chunk,n", [(1, 3001), (2048, 20 * 2048 + 77),
+                                     (16384, 3 * 16384 + 1001)])
+@pytest.mark.parametrize("max_len", [1, 12, 17, 24])
+def test_decode_chunked_matches_plain(cuda, max_len, chunk, n):
+    """The kernel equals its plain version (run on the CPU copies) bit for
+    bit, zeros included, with the LUT in shared memory (max_len 1, 12) and
+    in device memory (17, 24), at chunk sizes 1, 2,048 and 16,384 with a
+    ragged last chunk; its first n codes are the symbols."""
+    from repro_torch.kernels import huffman_chunked as HC
+
+    assert HC.decode_chunked_lut_in_smem(1 << max_len) == (max_len <= 16)
+    syms, args = _chunked_args(cuda, max_len, chunk, n)
+    before = HC.decode_chunked.launches
+    got = HC.decode_chunked(*args)
+    torch.cuda.synchronize()
+    assert HC.decode_chunked.launches == before + 1
+    assert got.device.type == "cuda" and got.shape == (-(-n // chunk), chunk)
+    want = HC.decode_chunked_plain(*[a.cpu() if isinstance(a, torch.Tensor)
+                                     else a for a in args])
+    assert torch.equal(_signed(got).cpu(), _signed(want))
+    assert np.array_equal(_signed(got).reshape(-1)[:n].cpu().numpy(), syms)
+
+
+def test_decode_chunked_entry_refuses(cuda):
+    """The C entry refuses (-1) a max_len outside 1-24, no chunks, a block
+    that is not 1-8 whole warps, a grid with fewer threads than chunks,
+    and a shared-memory LUT that the given shared memory cannot hold or
+    Hopper cannot give, before it launches anything."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import huffman_chunked as HC
+
+    _, (units, bits, _, ds, dl, max_len, chunk) = _chunked_args(
+        cuda, 12, 2048, 10_000)
+    n = units.shape[0]
+    out = torch.empty((n, chunk), dtype=torch.uint16, device=cuda)
+    launch = _build.load("decode_chunked")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(max_len=max_len, n_chunks=n, global_lut=0, blocks=n,
+             threads=32, smem=HC.decode_chunked_smem(1 << max_len)):
+        return launch(units.data_ptr(), n_chunks, units.shape[1],
+                      bits.data_ptr(), ds.data_ptr(), dl.data_ptr(), max_len,
+                      chunk, global_lut, blocks, threads, smem,
+                      out.data_ptr(), stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    for bad in (dict(max_len=0), dict(max_len=25), dict(n_chunks=0),
+                dict(threads=48), dict(threads=16), dict(threads=512),
+                dict(blocks=0), dict(blocks=-(-n // 64) - 1, threads=64),
+                dict(smem=100), dict(smem=300_000)):
+        assert call(**bad) == -1, bad
+    with pytest.raises(ValueError, match="max_len"):
+        HC.decode_chunked(units, bits, torch.zeros_like(bits, dtype=torch.int32),
+                          ds, dl, 25, chunk)
+
+
+def test_decode_chunked_never_falls_back(cuda, monkeypatch):
+    """``core.huffman.decode.decode_chunked`` on CUDA tensors launches the
+    kernel with its plain version made to raise."""
+    from repro_torch.kernels import huffman_chunked as HC
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(HC, "decode_chunked_plain", refuse)
+    syms, args = _chunked_args(cuda, 12, 16384, 40_000)
+    got = hd.decode_chunked(*args)
+    assert np.array_equal(_signed(got).reshape(-1)[:40_000].cpu().numpy(),
+                          syms)
+
+
+@pytest.fixture
+def no_encode_plain_versions(monkeypatch):
+    """The write path's plain versions raise if called: a "cuda" compress
+    of a CUDA tensor must launch its kernels."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+
+    for mod, name in ((L, "lorenzo_quantize_plain"), (H, "histogram_plain"),
+                      (E, "pack_tiles_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("max_len", [12, 20])
+def test_store_read_on_card(cuda, tmp_path, no_plain_versions, max_len):
+    """An archive written from the card reads back through iter_decode on
+    the card (count_subseq and decode_tiles, plain versions raising) bit
+    for bit against decompress_batch, at max_len 12 and 20 (the LUTs read
+    from device memory); a bfloat16 chunk comes back as bfloat16; a warm
+    reopen builds zero plans and hits the codebook cache; zero_fill yields
+    bfloat16 zeros of the recorded shape on the card."""
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.store import Archive, ArchiveWriter
+
+    codec = Codec(CodecConfig(device=str(cuda), max_len=max_len),
+                  plan_cache=PlanCache())
+    xs = {f"t{i}": torch.from_numpy(smooth_field((48, 40 + 9 * i),
+                                                 seed=i)).to(cuda)
+          for i in range(5)}
+    cs = {n: codec.compress(x) for n, x in xs.items()}
+    path = str(tmp_path / "card.szt")
+    with ArchiveWriter(path) as w:
+        for n, c in cs.items():
+            w.add(n, c, "bfloat16" if n == "t4" else None)
+    want = dict(zip(cs, codec.decompress_batch(list(cs.values()))))
+    # A reader with its own plan cache: the writer's codec holds the plans.
+    codec = Codec(CodecConfig(device=str(cuda), max_len=max_len),
+                  plan_cache=PlanCache())
+    launches.reset()
+    with Archive(path, codec=codec) as ar:
+        got = ar.read_all(group_chunks=2)
+    assert K.count_subseq.launches > 0 and K.decode_tiles.launches > 0
+    for n in cs:
+        assert got[n].device.type == "cuda"
+        if n == "t4":
+            assert got[n].dtype == torch.bfloat16
+            assert torch.equal(got[n], want[n].to(torch.bfloat16))
+        else:
+            assert torch.equal(got[n], want[n])
+    codec.reset_stats()
+    with Archive(path, codec=codec) as ar:
+        again = ar.read_all()
+    assert codec.stats["plan_builds"] == 0
+    assert codec.stats["lut_hits"] >= 1
+    assert all(torch.equal(again[n], got[n]) for n in cs)
+    with Archive(path, codec=codec) as ar:
+        rec_off = ar.chunk("t4").units.offset
+    with open(path, "r+b") as f:
+        f.seek(rec_off)
+        f.write(b"\xff\xff\xff\xff")
+    with Archive(path, codec=codec) as ar:
+        z = ar.read_all(policy="zero_fill")["t4"]
+    assert z.dtype == torch.bfloat16 and z.device.type == "cuda"
+    assert tuple(z.shape) == tuple(xs["t4"].shape) and not z.any()
+
+
+def test_kv_pager_on_card(cuda, tmp_path, no_plain_versions,
+                          no_encode_plain_versions):
+    """KVPager over a bfloat16 cache on the card with a "cuda" codec: the
+    offload launches the write path's kernels, zeroes the span in place,
+    page_in restores it within the bf16-cast bound, and a repeat page-in
+    builds zero plans."""
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.store import KVPager
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    base = torch.cumsum(torch.randn((2, 2, 64, 2, 16), generator=gen,
+                                    device=cuda) * 0.05, dim=2)
+    cache = {"k": base.to(torch.bfloat16),
+             "v": (base + 0.5).to(torch.bfloat16)}
+    orig = {n: t.clone() for n, t in cache.items()}
+    codec = Codec(CodecConfig(encode_backend="cuda", device=str(cuda)),
+                  plan_cache=PlanCache())
+    pager = KVPager(str(tmp_path), codec=codec)
+    launches.reset()
+    cache, bid = pager.offload(cache, 16, 48)
+    assert L.lorenzo_quantize.launches == 2 and E.pack_tiles.launches == 2
+    assert not cache["k"][:, :, 16:48].any()
+    assert torch.equal(cache["k"][:, :, 48:], orig["k"][:, :, 48:])
+    cache = pager.page_in(cache, bid)
+    assert K.decode_tiles.launches > 0
+    for n in ("k", "v"):
+        c = codec.compress(orig[n][:, :, 16:48].float())
+        bound = dataclasses.replace(c, dtype=torch.bfloat16).eb_effective
+        err = (cache[n].float() - orig[n].float()).abs().max().item()
+        assert err <= bound, (n, err, bound)
+    codec.reset_stats()
+    pager.page_in(cache, bid)
+    assert codec.stats["plan_builds"] == 0 and pager.stats["pages_in"] == 2

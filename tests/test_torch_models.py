@@ -353,8 +353,8 @@ def test_serve_main_runs_on_cpu(arch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--compress-kv"], "A5"), (["--kv-recovery", "skip"], "A5"),
-    (["--kv-offload"], "A6"), (["--concurrency", "2"], "A8")])
+    (["--compress-kv"], "A10"), (["--kv-recovery", "skip"], "A10"),
+    (["--kv-offload"], "A10"), (["--concurrency", "2"], "A8")])
 def test_serve_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu",
