@@ -75,7 +75,25 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     (k, v bf16 (28, 4, 1024, 8, 128)), tokens [256, 768) offloaded by
     ``KVPager`` through a "cuda"-encode codec (``lorenzo_quantize``,
     ``histogram``, ``pack_tiles``) and paged back in (``count_subseq``,
-    ``decode_tiles``).
+    ``decode_tiles``);
+  * checkpoint, qwen3-0.6b's 596,049,920 float32 parameters stacked into
+    the reference's layout (``convert.stack_layers``) and saved by
+    ``CheckpointManager`` through a "cuda"-encode codec at eb 1e-4
+    (``lorenzo_quantize``, ``histogram``, ``pack_tiles``), step 1 at once
+    and step 2 asynchronously, then restored cold and warm and past a
+    torn manifest (``count_subseq``, ``decode_tiles``);
+  * faults, the seed-0 fault-injection campaign of 200 cases with every
+    decode on the card (``count_subseq``, ``decode_tiles`` on corrupt
+    streams, gap arrays, outlier lists and tables);
+  * serve kv, ``launch.serve.main`` of qwen3-0.6b at full width (B 4, a
+    128-token prompt, 8 generated) with ``--kv-offload --kv-block 32``
+    through a "cuda"-encode codec, with ``--concurrency`` 1 and 4 (the
+    serving scheduler), then ``--compress-kv``;
+  * loadgen, the serving load generator at qwen3-0.6b's KV shape (16
+    tokens a block, 4 shared prefix blocks and one unique block a
+    session, 100 sessions at 400 a second): the baseline, then the
+    scheduler with and without overlap, and without and with again
+    (``count_subseq``, ``decode_tiles``).
 
 The script
 
@@ -116,7 +134,17 @@ The script
     archive reads back bit for bit, the warm read builds zero plans and
     hits the codebook cache; the paged tokens come back within the
     codec's bound (``eb_effective`` with the cast to bf16), zeroed in
-    between, and a second page-in builds zero plans;
+    between, and a second page-in builds zero plans; the checkpoint's
+    compressed leaves are within ``eb_effective`` of the parameters and
+    equal ``decompress_batch`` of their archive payloads bit for bit, its
+    raw leaves come back bit for bit, a warm restore builds zero plans and
+    the torn restore lands on step 1 with ``fallback_from`` set; the
+    campaign has no silent, unnamed or hanging case; the two offloading
+    serve runs give the same tokens, their ``kv_err`` within the blocks'
+    ``eb_effective`` with the bf16 cast, the scheduler decoding 4 blocks
+    for 16 requests, 12 of them hits or coalesced; the load generator's
+    scheduler runs hold its invariants, and every block they served
+    equals ``pager.fetch`` of it bit for bit;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
@@ -139,12 +167,19 @@ The script
     bytes beside the gap stream's, and each Table V decoder's speedup over
     it (``table V``); the tree, archive write and cold and warm read
     times, and the pager's offload, page-in and ratio (``store and
-    pager``); and a ``kernels`` JSON line, one row a TPU kernel of the
+    pager``); the new phases' rows (``checkpoint``, ``faults``, ``serve
+    kv``, ``loadgen``: save, async save and restore ms, bytes on disk,
+    ratio and outlier share; outcome counts; each serve run's wall time,
+    ``kv_err`` and ratios; p50 / p99 TTFT and dispatches a request of
+    each load mode) and their summary (``consumers``); and a ``kernels``
+    JSON line, one row a TPU kernel of the
     repo (fourteen) and one for the yardstick ``decode_chunked``
     (``replaces`` null, ``yardstick`` the reference function), with rows
     5 and 7 on both N-D fields, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
-    also through their device-memory LUT.  Each time is read after
+    also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
+    their launches on the four new phases (``consumer_launches``).  Each
+    time is read after
     warm-up, once two readings in a row agree.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.  The
@@ -241,6 +276,26 @@ LATTICE_EB = 2.0 ** -10
 CHUNK_SIZES = (16384, 2048)
 #: The token span the pager offloads from qwen3-0.6b's 1,024-token cache.
 PAGE_SPAN = (256, 768)
+#: The checkpoint phase: qwen3-0.6b's float32 parameters at ``--ckpt-
+#: compress-eb 1e-4`` (the training launcher's flag) and the manager's
+#: default size floor.
+CKPT_VALUES = 596_049_920
+CKPT_EB = 1e-4
+CKPT_MIN_SIZE = 65_536
+CHECKPOINT_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles",
+                      "count_subseq", "decode_tiles")
+#: The fault campaign on the card: the reference's CI campaign.
+FAULT_CASES = 200
+FAULT_KERNELS = ("count_subseq", "decode_tiles")
+#: ``serve.main``'s KV paths: a 128-token prompt in blocks of 32, 8
+#: generated, 4 lanes through the scheduler.
+SERVE_PROMPT, SERVE_GEN, SERVE_KV_BLOCK, SERVE_LANES = 128, 8, 32, 4
+SERVE_KV_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles",
+                    "count_subseq", "decode_tiles")
+#: The load generator at qwen3-0.6b's KV shape: 16 tokens a block (vLLM's
+#: default block size), 4 shared prefix blocks and one unique a session.
+LOAD_SESSIONS, LOAD_PREFIX, LOAD_TOKENS, LOAD_RATE = 100, 4, 16, 400.0
+LOADGEN_KERNELS = ("count_subseq", "decode_tiles")
 
 
 def make_fields(seed: int):
@@ -1198,6 +1253,32 @@ def store_summary(store, pager) -> dict:
             "page_ratio": pager["ratio"]}
 
 
+def consumer_summary(consumers) -> dict:
+    """The checkpoint, fault-campaign, serve and load-generator phases'
+    times, in one line."""
+    ck, fa, sv, lg = (consumers[k] for k in ("checkpoint", "faults",
+                                              "serve", "loadgen"))
+    return {
+        "checkpoint_save_ms": ck["save_ms"],
+        "checkpoint_async_save_ms": ck["async_save_ms"],
+        "checkpoint_async_return_ms": ck["async_save_return_ms"],
+        "checkpoint_restore_cold_ms": ck["restore_cold_ms"],
+        "checkpoint_restore_warm_ms": ck["restore_warm_ms"],
+        "checkpoint_step_bytes": ck["step_bytes"],
+        "checkpoint_ratio": ck["ratio"],
+        "checkpoint_outlier_share": ck["outlier_share"],
+        "faults_cases": fa["cases"], "faults_violations": fa["violations"],
+        "faults_s": fa["elapsed_s"],
+        "serve_wall_s": sv["wall_s"], "serve_kv_err": sv["kv_err"],
+        "serve_offload_ratio": sv["offload_ratio"],
+        "serve_compress_kv_ratio": sv["compress_kv_ratio"],
+        "loadgen": {k: lg[k] for k in (
+            "baseline", "scheduler", "scheduler_no_overlap",
+            "scheduler_no_overlap_2", "scheduler_2")},
+        "phase_s": {"checkpoint": ck["phase_s"], "faults": fa["elapsed_s"],
+                    "serve": sv["phase_s"], "loadgen": lg["phase_s"]}}
+
+
 def chunked_widths(args) -> dict:
     """``decode_chunked``'s ms at each block width it takes
     (``huffman_chunked.CHUNK_WIDTHS``) on the same inputs, the geometry's
@@ -1464,6 +1545,386 @@ def run_pager(seed: int) -> dict:
     del cache, orig
     torch.cuda.empty_cache()
     print(f"pager {json.dumps(row)}")
+    return row
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _flat_leaves(tree, prefix=""):
+    """``{dot-joined path: leaf}`` of a dict tree, as the checkpoint
+    manager names its entries."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def run_checkpoint(seed: int) -> dict:
+    """The checkpoint manager at full width: qwen3-0.6b's parameters from
+    ``init_model`` at ``seed``, stacked into the reference's layout
+    (``convert.stack_layers``), saved by ``CheckpointManager`` through a
+    "cuda"-encode codec at ``CKPT_EB`` (float32 leaves of at least
+    ``CKPT_MIN_SIZE`` values into the step's archive, the rest raw): step 1
+    synchronously, step 2 with ``asynchronous=True``; the newest step
+    restored cold, then warm; then step 2's manifest torn and a ``skip``
+    restore.  One launch check over all of it.  Every compressed leaf is
+    within ``eb_effective`` of its original and equals ``decompress_batch``
+    of its archive payload bit for bit; raw leaves come back bit for bit;
+    the warm restore builds zero plans; the torn restore lands on step 1
+    with ``fallback_from`` set.  Prints and returns one ``checkpoint``
+    row."""
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import ARCHIVE_NAME
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.store import Archive
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("qwen3-0.6b")
+    params = convert.stack_layers(T.init_model(seed, cfg, "cuda"))
+    flat = _flat_leaves(params)
+    n_values = sum(t.numel() for t in flat.values())
+    require(n_values == CKPT_VALUES and all(
+        t.dtype == torch.float32 for t in flat.values()),
+        f"checkpoint: {n_values} parameters, not {CKPT_VALUES} float32")
+    directory = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    config = CodecConfig(eb=CKPT_EB, encode_backend="cuda")
+    reader = Codec(config, plan_cache=PlanCache())
+    state = {}
+
+    def drive():
+        mgr = CheckpointManager(directory, codec=Codec(
+            config, plan_cache=PlanCache()), compress_min_size=CKPT_MIN_SIZE)
+        t0 = time.perf_counter()
+        mgr.save(1, params)
+        state["save_s"] = time.perf_counter() - t0
+        amgr = CheckpointManager(directory, codec=Codec(
+            config, plan_cache=PlanCache()), compress_min_size=CKPT_MIN_SIZE,
+            asynchronous=True)
+        t0 = time.perf_counter()
+        amgr.save(2, params)
+        state["async_return_s"] = time.perf_counter() - t0
+        amgr.wait()
+        state["async_save_s"] = time.perf_counter() - t0
+        rmgr = CheckpointManager(directory, codec=reader)
+        for key in ("cold", "warm"):
+            reader.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = rmgr.restore()
+            torch.cuda.synchronize()
+            state[f"restore_{key}_s"] = time.perf_counter() - t0
+            state[f"restore_{key}_stats"] = dict(reader.stats)
+            state[key] = r
+        step2 = os.path.join(directory, "step_00000002")
+        state["step_bytes"] = _dir_bytes(step2)
+        mpath = os.path.join(step2, "manifest.json")
+        with open(mpath, "r+b") as f:
+            f.truncate(os.path.getsize(mpath) // 2)
+        t0 = time.perf_counter()
+        state["torn"] = rmgr.restore(policy="skip")
+        torch.cuda.synchronize()
+        state["restore_torn_s"] = time.perf_counter() - t0
+
+    _, counts = run_path("checkpoint", CHECKPOINT_KERNELS, drive)
+    cold = _flat_leaves(state.pop("cold")["params"])
+    warm = _flat_leaves(state["warm"]["params"])
+    torn = state["torn"]
+    require(state["warm"]["step"] == 2 and not state["warm"]["quarantined"],
+            f"checkpoint: restored step {state['warm']['step']}")
+    require(torn is not None and torn["step"] == 1
+            and [f["step"] for f in torn["fallback_from"]] == [2],
+            f"checkpoint: the torn restore landed on "
+            f"{torn and torn['step']}, fallback {torn and torn['fallback_from']}")
+    torn = _flat_leaves(torn["params"])
+    require(state["restore_warm_stats"]["plan_builds"] == 0,
+            f"checkpoint: a warm restore built "
+            f"{state['restore_warm_stats']['plan_builds']} plans")
+    require(sorted(warm) == sorted(flat) == sorted(cold) == sorted(torn),
+            "checkpoint: the restored tree's entries differ")
+    with open(os.path.join(directory, "step_00000001",
+                           "manifest.json")) as f:
+        entries = json.load(f)["entries"]
+    n_sz = n_outliers = sz_values = 0
+    worst = 0.0
+    path = os.path.join(directory, "step_00000001", ARCHIVE_NAME)
+    with Archive(path, codec=reader) as ar:
+        for key, orig in flat.items():
+            name = f"params.{key}"
+            for tree in (cold, warm, torn):
+                require(same(tree[key], warm[key]), f"checkpoint: {name} "
+                        f"differs between restores")
+            if entries[name]["kind"] == "raw":
+                require(same(warm[key], orig), f"checkpoint: raw {name} "
+                        f"did not come back bit for bit")
+                continue
+            c = ar.read_chunk(name)
+            want = reader.decompress_batch([c])[0]
+            require(same(warm[key], want), f"checkpoint: {name} differs "
+                    f"from decompress_batch of its payload")
+            err = max_abs_err(warm[key], orig)
+            require(err <= c.eb_effective, f"checkpoint: {name} max|x - x'| "
+                    f"{err} > eb_effective {c.eb_effective}")
+            worst = max(worst, err / c.eb_effective)
+            n_sz += 1
+            sz_values += orig.numel()
+            n_outliers += int((c.outlier_pos >= 0).sum())
+            del c, want
+    raw_bytes = 4 * n_values
+    row = {"arch": cfg.name, "values": n_values, "leaves": len(flat),
+           "compressed_leaves": n_sz, "compressed_values": sz_values,
+           "eb": CKPT_EB, "compress_min_size": CKPT_MIN_SIZE,
+           "launches": counts,
+           "save_ms": state["save_s"] * 1e3,
+           "async_save_return_ms": state["async_return_s"] * 1e3,
+           "async_save_ms": state["async_save_s"] * 1e3,
+           "restore_cold_ms": state["restore_cold_s"] * 1e3,
+           "restore_warm_ms": state["restore_warm_s"] * 1e3,
+           "restore_torn_ms": state["restore_torn_s"] * 1e3,
+           "restore_cold_stats": state["restore_cold_stats"],
+           "restore_warm_stats": state["restore_warm_stats"],
+           "step_bytes": state["step_bytes"], "raw_bytes": raw_bytes,
+           "ratio": raw_bytes / state["step_bytes"],
+           "outlier_share": n_outliers / max(sz_values, 1),
+           "max_err_over_bound": worst,
+           "phase_s": time.perf_counter() - t_phase}
+    del params, flat, cold, warm, torn, state
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"checkpoint {json.dumps(row)}")
+    return row
+
+
+def run_faults() -> dict:
+    """The fault-injection campaign on the card: ``run_campaign(seed=0,
+    cases=FAULT_CASES, backend="cuda")``, every decode through the kernels
+    (the decode channel hands them corrupt streams, gap arrays, outlier
+    lists and tables); zero silent, unnamed or hanging cases.  Prints and
+    returns one ``faults`` row."""
+    import shutil
+
+    from repro_torch.testing import run_campaign
+
+    directory = os.path.join(ROOT, "build", "chip_smoke_faults")
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    report, counts = run_path("faults", FAULT_KERNELS, lambda: run_campaign(
+        seed=0, cases=FAULT_CASES, backend="cuda", base_dir=directory))
+    elapsed = time.perf_counter() - t0
+    print(report.summary())
+    require(report.ok, f"faults: {len(report.violations)} violations: "
+            f"{[(r.case.kind, r.case.seed, r.outcome, r.note) for r in report.violations[:5]]}")
+    outcomes = {}
+    for (consumer, outcome), n in sorted(report.counts().items()):
+        outcomes.setdefault(consumer, {})[outcome] = n
+    row = {"seed": 0, "cases": len(report.results), "backend": "cuda",
+           "violations": len(report.violations), "outcomes": outcomes,
+           "launches": counts, "elapsed_s": elapsed}
+    shutil.rmtree(directory, ignore_errors=True)
+    print(f"faults {json.dumps(row)}")
+    return row
+
+
+def run_serve_kv(seed: int) -> dict:
+    """``launch.serve.main`` on qwen3-0.6b at full width with its KV paths:
+    B 4, a 128-token prompt, 8 generated, ``--kv-offload --kv-block 32``
+    (4 blocks) through a "cuda"-encode codec, once with ``--concurrency
+    1`` (one batched page-in) and once with 4 (four lanes through the
+    serving scheduler); then ``--compress-kv``.  A launch check a run.
+    The two offload runs give the same tokens, their ``kv_err`` is within
+    the blocks' ``eb_effective`` with the bf16 cast, and the scheduler
+    decoded 4 blocks for 16 requests, 12 of them hits or coalesced.
+    Prints and returns one ``serve kv`` row."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.launch import serve
+    from repro_torch.store import Archive
+
+    t_phase = time.perf_counter()
+    directory = os.path.join(ROOT, "build", "chip_smoke_serve")
+    shutil.rmtree(directory, ignore_errors=True)
+    base = ["--arch", "qwen3-0.6b", "--batch", str(PREFILL_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--gen-len", str(SERVE_GEN),
+            "--kv-encode-backend", "cuda", "--seed", str(seed)]
+    runs, counts, walls = {}, {}, {}
+    for name, extra in (
+            ("offload", ["--kv-offload", "--kv-block", str(SERVE_KV_BLOCK),
+                         "--concurrency", "1"]),
+            ("concurrency", ["--kv-offload", "--kv-block",
+                             str(SERVE_KV_BLOCK), "--concurrency",
+                             str(SERVE_LANES)]),
+            ("compress_kv", ["--compress-kv"])):
+        argv = base + extra + ["--kv-offload-dir",
+                               os.path.join(directory, name)]
+        t0 = time.perf_counter()
+        runs[name], counts[name] = run_path(
+            f"serve {name}", SERVE_KV_KERNELS, lambda: serve.main(argv))
+        walls[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    one, four, ckv = runs["offload"], runs["concurrency"], runs["compress_kv"]
+    require(np.array_equal(one["tokens"], four["tokens"]),
+            "serve: --concurrency 1 and 4 generated different tokens")
+    n_blocks = SERVE_PROMPT // SERVE_KV_BLOCK
+    bound = 0.0
+    reader = Codec(CodecConfig(), plan_cache=PlanCache())
+    block_dir = os.path.join(directory, "offload")
+    for f in sorted(os.listdir(block_dir)):
+        with Archive(os.path.join(block_dir, f), codec=reader) as ar:
+            for name in ar.names:
+                c = ar.read_chunk(name)
+                bound = max(bound, dataclasses.replace(
+                    c, dtype=torch.bfloat16).eb_effective)
+    require(len(os.listdir(block_dir)) == n_blocks,
+            f"serve: {len(os.listdir(block_dir))} blocks offloaded")
+    for r in (one, four):
+        require(0 < r["kv_err"] <= bound, f"serve: kv_err {r['kv_err']} "
+                f"outside (0, {bound}]")
+    st = four["page_stats"]["scheduler"]
+    require(st["blocks_decoded"] == n_blocks
+            and st["requests"] == SERVE_LANES * n_blocks
+            and st["prefix_hits"] + st["coalesced_requests"]
+            == (SERVE_LANES - 1) * n_blocks,
+            f"serve: scheduler stats {st}")
+    require(ckv["ratio"] > 0 and np.isfinite(ckv["kv_err"]),
+            f"serve: --compress-kv ratio {ckv['ratio']}, kv_err "
+            f"{ckv['kv_err']}")
+    row = {"arch": "qwen3-0.6b", "batch": PREFILL_BATCH,
+           "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+           "kv_block": SERVE_KV_BLOCK, "blocks": n_blocks,
+           "lanes": SERVE_LANES, "launches": counts, "wall_s": walls,
+           "kv_err": {"offload": one["kv_err"], "concurrency": four["kv_err"],
+                      "compress_kv": ckv["kv_err"], "bound": bound},
+           "offload_ratio": one["ratio"], "compress_kv_ratio": ckv["ratio"],
+           "scheduler": st, "page_stats": one["page_stats"],
+           "phase_s": time.perf_counter() - t_phase}
+    shutil.rmtree(directory, ignore_errors=True)
+    print(f"serve kv {json.dumps(row)}")
+    return row
+
+
+def run_loadgen(seed: int) -> dict:
+    """The serving load generator at qwen3-0.6b's KV shape: ``build_corpus``
+    of ``LOAD_SESSIONS`` sessions sharing ``LOAD_PREFIX`` prefix blocks and
+    one unique block each, ``LOAD_TOKENS`` tokens a block of 28 layers x 8
+    KV heads x 128 ("cuda" encode), then ``run_load`` in the baseline mode,
+    the scheduler with overlap and without, then without and with again
+    (both orders in one call), at ``LOAD_RATE`` sessions a second, on the
+    card (one launch check over the five runs).  The scheduler
+    runs hold ``check_invariants``, and every block the scheduler served
+    equals ``pager.fetch`` of it bit for bit.  Prints and returns one
+    ``loadgen`` row."""
+    import shutil
+    import threading
+
+    import torch
+
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.serving import loadgen
+    from repro_torch.store import KVPager
+
+    t_phase = time.perf_counter()
+    directory = os.path.join(ROOT, "build", "chip_smoke_loadgen")
+    shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    corpus = loadgen.build_corpus(
+        directory, n_sessions=LOAD_SESSIONS, prefix_blocks=LOAD_PREFIX,
+        unique_blocks=1, tokens_per_block=LOAD_TOKENS, layers=28, heads=8,
+        head_dim=128, seed=seed, config=CodecConfig(encode_backend="cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    served: dict = {}
+    lock = threading.Lock()
+
+    class Recording(loadgen.DecodeScheduler):
+        """The scheduler, keeping what each fetch returned."""
+
+        def fetch(self, sid, block_ids):
+            out = super().fetch(sid, block_ids)
+            with lock:
+                for bid, tensors in out.items():
+                    served.setdefault(bid, []).append(tensors)
+            return out
+
+    runs = {}
+
+    def drive():
+        runs["baseline"] = loadgen.run_load(
+            corpus, mode="baseline", rate_per_s=LOAD_RATE, seed=seed)
+        original = loadgen.DecodeScheduler
+        loadgen.DecodeScheduler = Recording
+        try:
+            # Overlap on, off, then off and on again: the two modes in both
+            # orders within one call.
+            for key, overlap in (("scheduler", True),
+                                 ("scheduler_no_overlap", False),
+                                 ("scheduler_no_overlap_2", False),
+                                 ("scheduler_2", True)):
+                runs[key] = loadgen.run_load(
+                    corpus, mode="scheduler", rate_per_s=LOAD_RATE,
+                    seed=seed, overlap=overlap)
+        finally:
+            loadgen.DecodeScheduler = original
+
+    _, counts = run_path("loadgen", LOADGEN_KERNELS, drive)
+    for key in ("scheduler", "scheduler_no_overlap",
+                "scheduler_no_overlap_2", "scheduler_2"):
+        loadgen.check_invariants(corpus, runs["baseline"], runs[key])
+    pager = KVPager(corpus.dir, codec=Codec(corpus.config,
+                                            plan_cache=PlanCache()))
+    for bid, meta in corpus.metas.items():
+        pager.adopt_block(bid, meta)
+    require(sorted(served) == sorted(corpus.metas),
+            f"loadgen: the scheduler served {len(served)} of "
+            f"{len(corpus.metas)} blocks")
+    n_checked = 0
+    for bid, outs in served.items():
+        want = pager.fetch(bid)
+        for got in outs:
+            for name, t in want.items():
+                require(same(got[name], t), f"loadgen: block {bid} {name} "
+                        f"served differs from pager.fetch")
+                n_checked += 1
+    raw = sum(t.numel() * 4 for t in want.values())
+    row = {"sessions": LOAD_SESSIONS, "prefix_blocks": LOAD_PREFIX,
+           "tokens_per_block": LOAD_TOKENS,
+           "block_shape": list(next(iter(want.values())).shape),
+           "distinct_blocks": corpus.n_distinct_blocks,
+           "block_requests": corpus.n_block_requests,
+           "raw_bytes": raw * corpus.n_distinct_blocks,
+           "rate_per_s": LOAD_RATE, "build_s": build_s,
+           "launches": counts, "served_tensors_checked": n_checked,
+           "phase_s": time.perf_counter() - t_phase}
+    for key, r in runs.items():
+        row[key] = {"p50_ttft_ms": r["ttft"]["p50_ms"],
+                    "p99_ttft_ms": r["ttft"]["p99_ms"],
+                    "dispatches_per_request": r["dispatches_per_request"],
+                    "decode_dispatches": r["decode_dispatches"],
+                    "wall_s": r["wall_s"], **({"scheduler": r["scheduler"]}
+                                              if "scheduler" in r else {})}
+    del served, runs, pager
+    shutil.rmtree(directory, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"loadgen {json.dumps(row)}")
     return row
 
 
@@ -2412,6 +2873,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = run_model(args.seed)
     pager = run_pager(args.seed)
+    consumers = {"checkpoint": run_checkpoint(args.seed),
+                 "faults": run_faults(), "serve": run_serve_kv(args.seed),
+                 "loadgen": run_loadgen(args.seed)}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2503,6 +2967,17 @@ def main() -> int:
             "max_len": long_codes["max_len"],
             "ms": long_codes[f"{kname}_global_ms"],
             "smem_lut_ms": long_codes[f"{kname}_smem_ms"]}
+    # The launches of the checkpoint, fault-campaign, serve (its three
+    # runs) and load-generator paths, beside each row's main-path count.
+    for i, kname in ((0, "count_subseq"), (1, "decode_tiles"),
+                     (7, "lorenzo_quantize"), (9, "histogram"),
+                     (10, "pack_tiles")):
+        kernels[i]["consumer_launches"] = {
+            "checkpoint": consumers["checkpoint"]["launches"][kname],
+            "faults": consumers["faults"]["launches"][kname],
+            "serve": sum(c[kname] for c in
+                         consumers["serve"]["launches"].values()),
+            "loadgen": consumers["loadgen"]["launches"][kname]}
     for kname, k in model["kernels"].items():
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],
@@ -2534,6 +3009,7 @@ def main() -> int:
             f"kernel libraries")
     print(f"table V {json.dumps(table_v(chunked))}")
     print(f"store and pager {json.dumps(store_summary(store, pager))}")
+    print(f"consumers {json.dumps(consumer_summary(consumers))}")
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,8 @@ def _host(a):
 def crc32_arrays(*arrays) -> int:
     crc = 0
     for a in arrays:
-        crc = zlib.crc32(np.ascontiguousarray(_host(a)).tobytes(), crc)
+        # zlib reads the array's own buffer: no copy of its bytes.
+        crc = zlib.crc32(np.ascontiguousarray(_host(a)), crc)
     return crc & 0xFFFFFFFF
 
 
@@ -53,11 +54,12 @@ def payload_crc(units, gaps, outlier_pos, outlier_val) -> int:
     the valid prefix keeps the digest -- and therefore every plan-cache key
     -- identical across all of them.
     """
-    pos = _host(outlier_pos).astype(np.int32)
-    val = _host(outlier_val).astype(np.int32)
+    pos = _host(outlier_pos).astype(np.int32, copy=False)
+    val = _host(outlier_val).astype(np.int32, copy=False)
     n = int((pos >= 0).sum())
-    return crc32_arrays(_host(units).astype(np.uint32),
-                        _host(gaps).astype(np.uint8), pos[:n], val[:n])
+    return crc32_arrays(_host(units).astype(np.uint32, copy=False),
+                        _host(gaps).astype(np.uint8, copy=False), pos[:n],
+                        val[:n])
 
 
 def codebook_digest(enc_code, enc_len, max_len: int) -> str:

@@ -4,10 +4,10 @@ The reference's parameter tree (``src/repro/models/transformer.py``
 ``init_model``) stacks each per-layer leaf on axis 0; the port keeps a list
 of per-layer dicts.  So a tree crosses by a rename and an unstack:
 ``params["layers"]["attn"]["wq"][i]`` there is ``params["layers"][i]["attn"]
-["wq"]`` here.  The trees come and go as numpy arrays (``jax.tree.map(
-np.asarray, ...)`` on the other side); bfloat16 arrays (``ml_dtypes``) cross
-through their 16-bit patterns.  Decode caches keep the same keys and
-stacked layouts on both sides.
+["wq"]`` here, and ``stack_layers`` goes back.  The trees come and go as
+numpy arrays (``jax.tree.map(np.asarray, ...)`` on the other side);
+bfloat16 arrays (``ml_dtypes``) cross through their 16-bit patterns.
+Decode caches keep the same keys and stacked layouts on both sides.
 """
 
 from __future__ import annotations
@@ -64,6 +64,22 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
                 f"parameter group {key!r} belongs to a family not ported "
                 f"yet (ROADMAP A10)")
     return out
+
+
+def stack_layers(params):
+    """The port's parameters in the reference's layout: the list of
+    per-layer dicts stacked into one dict whose leaves carry the layer on
+    axis 0 (``torch.stack``, on the leaves' device); the other groups
+    unchanged.  The inverse of ``params_from_jax``'s unstack: a checkpoint
+    of it has the reference's entry names (``params.layers.attn.wq``, shape
+    ``[n_layers, ...]``)."""
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return torch.stack(items)
+
+    return {key: stack(sub) if key == "layers" else sub
+            for key, sub in params.items()}
 
 
 def cache_from_jax(np_cache, device="cuda"):

@@ -78,10 +78,11 @@ class ArchiveWriter:
         if pad:
             self._f.write(b"\0" * pad)
             self._off += pad
-        buf = np.ascontiguousarray(arr).tobytes()
-        self._f.write(buf)
-        ref = F.BlobRef(offset=self._off, length=len(buf))
-        self._off += len(buf)
+        data = np.ascontiguousarray(arr)
+        # The array's own bytes, written without a copy.
+        self._f.write(memoryview(data).cast("B"))
+        ref = F.BlobRef(offset=self._off, length=data.nbytes)
+        self._off += data.nbytes
         return ref
 
     def _add_codebook(self, book) -> str:

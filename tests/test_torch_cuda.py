@@ -2163,3 +2163,100 @@ def test_kv_pager_on_card(cuda, tmp_path, no_plain_versions,
     codec.reset_stats()
     pager.page_in(cache, bid)
     assert codec.stats["plan_builds"] == 0 and pager.stats["pages_in"] == 2
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints, the serving scheduler and the fault campaign on the card
+# ---------------------------------------------------------------------------
+
+
+def test_checkpoint_restore_on_card_equals_ref(cuda, tmp_path,
+                                               no_plain_versions):
+    """One checkpoint (float32 and bfloat16 leaves over and under the size
+    floor, an int32 scalar) restored on the card through the kernels and
+    on the CPU by "ref": bit for bit, the card's leaves on the card; a
+    raw bfloat16 leaf comes back as bfloat16."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.cache import PlanCache
+
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.from_numpy(smooth_field((96, 80), seed=1)),
+              "layers": {"b": torch.randn((24,), generator=g),
+                         "h": torch.from_numpy(smooth_field(
+                             (4096,), seed=2)).to(torch.bfloat16),
+                         "s": torch.randn((5, 3), generator=g).to(
+                             torch.bfloat16)},
+              "n": torch.tensor(3, dtype=torch.int32)}
+    ref = Codec(CodecConfig(backend="ref"), plan_cache=PlanCache())
+    CheckpointManager(str(tmp_path), codec=ref,
+                      compress_min_size=1024).save(1, params)
+    want = CheckpointManager(str(tmp_path), codec=ref).restore()["params"]
+    card = Codec(CodecConfig(device=str(cuda)), plan_cache=PlanCache())
+    launches.reset()
+    got = CheckpointManager(str(tmp_path), codec=card).restore()["params"]
+    assert K.count_subseq.launches > 0 and K.decode_tiles.launches > 0
+
+    def leaves(t, p=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from leaves(v, f"{p}{k}.")
+        else:
+            yield p[:-1], t
+
+    got, want = dict(leaves(got)), dict(leaves(want))
+    assert sorted(got) == sorted(want) == ["layers.b", "layers.h",
+                                           "layers.s", "n", "w"]
+    for k, w in want.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == w.dtype, k
+        assert torch.equal(got[k].cpu(), w), k
+    assert got["layers.s"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("overlap", [True, False])
+def test_scheduler_on_card(cuda, tmp_path, no_plain_versions, overlap):
+    """The serving scheduler on the card, staging on its own stream with
+    overlap: many sessions' requests, each block equal to ``pager.fetch``
+    bit for bit, every distinct block decoded once, with and without the
+    overlap (which then runs on one stream)."""
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.serving import DecodeScheduler
+    from repro_torch.store import KVPager
+
+    codec = Codec(CodecConfig(device=str(cuda)), plan_cache=PlanCache())
+    pager = KVPager(str(tmp_path), codec=codec)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    cache = {n: torch.cumsum(torch.randn((4, 1, 96, 2, 64), generator=gen,
+                                         device=cuda) * 0.05, dim=2)
+             for n in ("k", "v")}
+    ids = [pager.offload(cache, lo, lo + 16)[1] for lo in range(0, 96, 16)]
+    direct = {bid: pager.fetch(bid) for bid in ids}
+    with DecodeScheduler(pager, batch_window_s=0.001,
+                         overlap=overlap) as sched:
+        assert (sched._stage_stream is not None) == overlap
+        futs = [(bid, sched.submit(sid, bid)) for sid in range(8)
+                for bid in ids[sid % 3:]]
+        for bid, f in futs:
+            for n, t in f.result().items():
+                assert t.device.type == "cuda"
+                assert torch.equal(t, direct[bid][n]), (bid, n)
+        stats = dict(sched.stats)
+    assert stats["blocks_decoded"] == len(ids)
+    assert stats["requests"] == len(futs)
+    assert stats["prefix_hits"] + stats["coalesced_requests"] == \
+        len(futs) - len(ids)
+
+
+def test_fault_campaign_on_card(cuda, tmp_path):
+    """24 cases of the seed-0 campaign with every decode on the card
+    (corrupt streams, gap arrays, outlier lists and tables handed to the
+    kernels): zero silent, unnamed or hanging cases, and the context stays
+    usable after them."""
+    from repro_torch.testing import run_campaign
+
+    report = run_campaign(seed=0, cases=24, backend="cuda",
+                          base_dir=str(tmp_path / "campaign"))
+    assert report.ok, report.summary()
+    assert {r.case.consumer for r in report.results} == \
+        {"store", "decode", "checkpoint", "paging"}
+    x = torch.arange(8, device=cuda, dtype=torch.float32)
+    assert float(x.sum()) == 28.0
