@@ -93,7 +93,15 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     tokens a block, 4 shared prefix blocks and one unique block a
     session, 100 sessions at 400 a second): the baseline, then the
     scheduler with and without overlap, and without and with again
-    (``count_subseq``, ``decode_tiles``).
+    (``count_subseq``, ``decode_tiles``);
+  * sharded, qwen3-0.6b's parameters saved by ``CheckpointManager`` on
+    the reference's {data: 4, model: 2} layout in 4 shards (58 tiles,
+    "cuda" encode), restored cold and warm as full tensors and into
+    ``make_host_mesh()`` as DTensors, one host's share decoded by
+    ``ShardedRestorer.decode_shards([0])``, then shard 1 overwritten by
+    4 KiB and restored under "raise" and "zero_fill"; then
+    ``make_dp_gradient_sync`` on a [28, 1024, 3072] gradient over the
+    one-rank NCCL group against the same call over gloo on the CPU.
 
 The script
 
@@ -144,7 +152,14 @@ The script
     ``eb_effective`` with the bf16 cast, the scheduler decoding 4 blocks
     for 16 requests, 12 of them hits or coalesced; the load generator's
     scheduler runs hold its invariants, and every block they served
-    equals ``pager.fetch`` of it bit for bit;
+    equals ``pager.fetch`` of it bit for bit; every tile of the sharded
+    checkpoint equals ``decompress_batch`` of its shard chunk bit for bit
+    and is within its ``eb_effective``, raw leaves bit for bit, each
+    DTensor's ``to_local()`` equals the full restore, warm restores build
+    zero plans, "raise" names the overwritten shard, "zero_fill"
+    quarantines exactly the entries whose chunks the store's CRC check
+    rejects (zeros) and every other entry is intact; the NCCL and gloo
+    gradient syncs are equal bit for bit;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
@@ -167,18 +182,21 @@ The script
     bytes beside the gap stream's, and each Table V decoder's speedup over
     it (``table V``); the tree, archive write and cold and warm read
     times, and the pager's offload, page-in and ratio (``store and
-    pager``); the new phases' rows (``checkpoint``, ``faults``, ``serve
-    kv``, ``loadgen``: save, async save and restore ms, bytes on disk,
-    ratio and outlier share; outcome counts; each serve run's wall time,
-    ``kv_err`` and ratios; p50 / p99 TTFT and dispatches a request of
-    each load mode) and their summary (``consumers``); and a ``kernels``
+    pager``); the consumer phases' rows (``checkpoint``, ``faults``,
+    ``serve kv``, ``loadgen``, ``sharded``: save, async save and restore
+    ms, bytes on disk, ratio and outlier share; outcome counts; each serve
+    run's wall time, ``kv_err`` and ratios; p50 / p99 TTFT and dispatches
+    a request of each load mode; the sharded save, cold, warm and mesh
+    restores, one shard's decode, the salvage, the quarantined names and
+    the gradient sync's NCCL and gloo times) and their summary
+    (``consumers``); and a ``kernels``
     JSON line, one row a TPU kernel of the
     repo (fourteen) and one for the yardstick ``decode_chunked``
     (``replaces`` null, ``yardstick`` the reference function), with rows
     5 and 7 on both N-D fields, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
-    their launches on the four new phases (``consumer_launches``).  Each
+    their launches on the five consumer phases (``consumer_launches``).  Each
     time is read after
     warm-up, once two readings in a row agree.
 
@@ -296,6 +314,18 @@ SERVE_KV_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles",
 #: default block size), 4 shared prefix blocks and one unique a session.
 LOAD_SESSIONS, LOAD_PREFIX, LOAD_TOKENS, LOAD_RATE = 100, 4, 16, 400.0
 LOADGEN_KERNELS = ("count_subseq", "decode_tiles")
+#: The mesh-sharded checkpoint: qwen3-0.6b on the reference's (4, 2)
+#: layout in 4 shards, 58 tiles (the 7 layer matrices in 8, embed in 2);
+#: the salvage restores decode with the plans the cold restore built.
+SHARD_LAYOUT = {"data": 4, "model": 2}
+SHARD_COUNT = 4
+SHARD_TILES = 58
+SHARDED_KERNELS = ("lorenzo_quantize", "histogram", "pack_tiles",
+                   "count_subseq", "decode_tiles")
+SALVAGE_KERNELS = ("decode_tiles",)
+#: The compressed gradient sync: one of qwen3-0.6b's MLP matrices.
+GRAD_SHAPE = (28, 1024, 3072)
+GRAD_EB = 1e-7
 
 
 def make_fields(seed: int):
@@ -1256,8 +1286,8 @@ def store_summary(store, pager) -> dict:
 def consumer_summary(consumers) -> dict:
     """The checkpoint, fault-campaign, serve and load-generator phases'
     times, in one line."""
-    ck, fa, sv, lg = (consumers[k] for k in ("checkpoint", "faults",
-                                              "serve", "loadgen"))
+    ck, fa, sv, lg, sh = (consumers[k] for k in (
+        "checkpoint", "faults", "serve", "loadgen", "sharded"))
     return {
         "checkpoint_save_ms": ck["save_ms"],
         "checkpoint_async_save_ms": ck["async_save_ms"],
@@ -1275,8 +1305,16 @@ def consumer_summary(consumers) -> dict:
         "loadgen": {k: lg[k] for k in (
             "baseline", "scheduler", "scheduler_no_overlap",
             "scheduler_no_overlap_2", "scheduler_2")},
+        "sharded_save_ms": sh["save_ms"],
+        "sharded_restore_cold_ms": sh["restore_cold_ms"],
+        "sharded_restore_warm_ms": sh["restore_warm_ms"],
+        "sharded_restore_mesh_ms": sh["restore_mesh_ms"],
+        "sharded_restore_mesh_again_ms": sh["restore_mesh_again_ms"],
+        "sharded_decode_shards_ms": sh["decode_shards_ms"],
+        "sharded_step_bytes": sh["step_bytes"],
         "phase_s": {"checkpoint": ck["phase_s"], "faults": fa["elapsed_s"],
-                    "serve": sv["phase_s"], "loadgen": lg["phase_s"]}}
+                    "serve": sv["phase_s"], "loadgen": lg["phase_s"],
+                    "sharded": sh["phase_s"]}}
 
 
 def chunked_widths(args) -> dict:
@@ -1925,6 +1963,267 @@ def run_loadgen(seed: int) -> dict:
     shutil.rmtree(directory, ignore_errors=True)
     torch.cuda.empty_cache()
     print(f"loadgen {json.dumps(row)}")
+    return row
+
+
+def run_sharded(seed: int) -> dict:
+    """The mesh-sharded checkpoint at full width: qwen3-0.6b's parameters
+    (``init_model`` at ``seed``, stacked by ``convert.stack_layers``) saved
+    by ``CheckpointManager`` through a "cuda"-encode codec at ``CKPT_EB``
+    on the reference's ``SHARD_LAYOUT`` in ``SHARD_COUNT`` shards
+    (``SHARD_TILES`` tiles); restored cold and warm with no mesh (full
+    tensors on the card), then into ``make_host_mesh()`` (DTensors); one
+    host's share decoded alone (``ShardedRestorer.decode_shards([0])``).
+    One launch check over that, another over the salvage: shard 1
+    overwritten by 4 KiB in its middle, restored under "raise" and
+    "zero_fill".  Gates: every tile equals ``decompress_batch`` of its
+    shard chunk bit for bit and is within that chunk's ``eb_effective``
+    of the original; raw leaves bit for bit; the warm restore builds no
+    plan; each DTensor's ``to_local()`` equals the full restore; "raise"
+    names the shard file, "zero_fill" quarantines exactly the entries of
+    the chunks the store's own CRC check rejects, zeros for them, every
+    other entry intact.  Then ``make_dp_gradient_sync`` on a
+    ``GRAD_SHAPE`` gradient over the one-rank NCCL group, bit for bit
+    against the same call over a one-rank gloo group on the CPU.  Prints
+    and returns one ``sharded`` row."""
+    import shutil
+    from types import SimpleNamespace
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import CheckpointIntegrityError
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.distributed import (ShardedRestorer, load_manifest,
+                                         tile_slice)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import collectives
+    from repro_torch.store import Archive, StoreError
+
+    t_phase = time.perf_counter()
+    cfg = configs.get_config("qwen3-0.6b")
+    params = convert.stack_layers(T.init_model(seed, cfg, "cuda"))
+    flat = _flat_leaves(params)
+    n_values = sum(t.numel() for t in flat.values())
+    require(n_values == CKPT_VALUES, f"sharded: {n_values} parameters")
+    directory = os.path.join(ROOT, "build", "chip_smoke_sharded")
+    step = os.path.join(directory, "step_00000001")
+    shutil.rmtree(directory, ignore_errors=True)
+    layout = SimpleNamespace(shape=dict(SHARD_LAYOUT),
+                             axis_names=tuple(SHARD_LAYOUT))
+    config = CodecConfig(eb=CKPT_EB, encode_backend="cuda")
+    reader = Codec(config, plan_cache=PlanCache())
+    state = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        state[key] = time.perf_counter() - t0
+        return out
+
+    def drive():
+        mgr = CheckpointManager(directory, codec=Codec(
+            config, plan_cache=PlanCache()), compress_min_size=CKPT_MIN_SIZE)
+        timed("save_s", lambda: mgr.save(1, params, mesh=layout,
+                                         shard_count=SHARD_COUNT))
+        rmgr = CheckpointManager(directory, codec=reader)
+        for key in ("cold", "warm"):
+            reader.reset_stats()
+            state[key] = timed(f"restore_{key}_s", rmgr.restore)
+            state[f"restore_{key}_stats"] = dict(reader.stats)
+        state["mesh"] = make_host_mesh()
+        reader.reset_stats()
+        state["on_mesh"] = timed("restore_mesh_s", lambda: rmgr.restore(
+            mesh=state["mesh"]))
+        state["restore_mesh_stats"] = dict(reader.stats)
+        # The first DTensor of a process imports torch._dynamo (seconds,
+        # once): a second restore into the mesh reads without it.
+        timed("restore_mesh_again_s", lambda: rmgr.restore(
+            mesh=state["mesh"]))
+        restorer = ShardedRestorer(step, codec=reader)
+        state["share"] = timed("decode_shards_s",
+                               lambda: restorer.decode_shards([0]))
+
+    _, counts = run_path("sharded", SHARDED_KERNELS, drive)
+    manifest = load_manifest(step)
+    with open(os.path.join(step, "manifest.json")) as f:
+        kinds = {k: e["kind"] for k, e in json.load(f)["entries"].items()}
+    n_tiles = sum(len(e["tiles"]) for e in manifest["entries"].values())
+    require(n_tiles == SHARD_TILES, f"sharded: {n_tiles} tiles, not "
+            f"{SHARD_TILES}")
+    require(sorted(kinds.values()).count("sz-sharded") == 8
+            and sorted(kinds.values()).count("raw") == 5,
+            f"sharded: entry kinds {kinds}")
+    cold = _flat_leaves(state.pop("cold")["params"])
+    warm = _flat_leaves(state.pop("warm")["params"])
+    on_mesh = _flat_leaves(state.pop("on_mesh")["params"])
+    require(sorted(cold) == sorted(warm) == sorted(on_mesh) == sorted(flat),
+            "sharded: the restored trees' entries differ")
+    require(state["restore_warm_stats"]["plan_builds"] == 0
+            and state["restore_mesh_stats"]["plan_builds"] == 0,
+            f"sharded: a warm restore built plans: "
+            f"{state['restore_warm_stats']['plan_builds']}, "
+            f"{state['restore_mesh_stats']['plan_builds']}")
+    for key, orig in flat.items():
+        leaf = on_mesh[key]
+        require(isinstance(leaf, DTensor) and same(leaf.to_local(),
+                                                   cold[key])
+                and same(warm[key], cold[key]),
+                f"sharded: params.{key} differs between restores")
+        if kinds[f"params.{key}"] == "raw":
+            require(same(cold[key], orig), f"sharded: raw params.{key} did "
+                    f"not come back bit for bit")
+    del on_mesh, warm
+    worst = 0.0
+    shard_of = {}
+    n_outliers = 0
+    for name, meta in manifest["entries"].items():
+        key = name.partition(".")[2]
+        for t in meta["tiles"]:
+            shard_of[t["chunk"]] = (int(t["shard"]), name)
+            sl = tile_slice(t["offset"], t["shape"])
+            path = os.path.join(step, f"shard_{int(t['shard']):05d}.szt")
+            with Archive(path, codec=reader) as ar:
+                c = ar.read_chunk(t["chunk"])
+            want = reader.decompress_batch([c])[0]
+            got = cold[key][sl]
+            require(same(got, want), f"sharded: tile {t['chunk']} differs "
+                    f"from decompress_batch of its chunk")
+            err = max_abs_err(got, flat[key][sl])
+            require(err <= c.eb_effective, f"sharded: tile {t['chunk']} "
+                    f"max|x - x'| {err} > eb_effective {c.eb_effective}")
+            worst = max(worst, err / c.eb_effective)
+            n_outliers += int((c.outlier_pos >= 0).sum())
+            del c, want
+    share = state.pop("share")
+    require(sorted(share) == sorted(c for c, (s, _) in shard_of.items()
+                                    if s == 0),
+            "sharded: decode_shards([0]) decoded other chunks")
+    for chunk, t in share.items():
+        name = shard_of[chunk][1]
+        meta = next(m for m in manifest["entries"][name]["tiles"]
+                    if m["chunk"] == chunk)
+        require(same(t, cold[name.partition(".")[2]][
+            tile_slice(meta["offset"], meta["shape"])]),
+            f"sharded: decode_shards tile {chunk} differs")
+    share_values = sum(t.numel() for t in share.values())
+    del share
+    step_bytes = _dir_bytes(step)
+    shard_bytes = {f: os.path.getsize(os.path.join(step, f))
+                   for f in sorted(os.listdir(step)) if f.endswith(".szt")}
+
+    # -- salvage: 4 KiB of shard 1 overwritten in its middle ---------------
+    spath = os.path.join(step, "shard_00001.szt")
+    with open(spath, "r+b") as f:
+        f.seek(os.path.getsize(spath) // 2)
+        f.write(b"\xff" * 4096)
+    rejected = set()
+    with Archive(spath, codec=reader) as ar:
+        for chunk in ar.names:
+            try:
+                ar.read_chunk(chunk)
+            except StoreError:
+                rejected.add(shard_of[chunk][1])
+
+    def salvage():
+        smgr = CheckpointManager(directory, codec=reader)
+        try:
+            smgr.restore(policy="raise")
+            state["raise"] = None
+        except CheckpointIntegrityError as e:
+            state["raise"] = str(e)
+        state["zero"] = timed("salvage_s", lambda: smgr.restore(
+            policy="zero_fill"))
+
+    _, salvage_counts = run_path("sharded salvage", SALVAGE_KERNELS,
+                                 salvage)
+    zero = state.pop("zero")
+    quarantined = sorted(zero["quarantined"])
+    require(state["raise"] is not None and "shard_00001.szt" in
+            state["raise"], f"sharded: restore(policy='raise') gave "
+            f"{state['raise']!r}")
+    require(rejected and quarantined == sorted(rejected),
+            f"sharded: quarantined {quarantined}, the store rejects "
+            f"chunks of {sorted(rejected)}")
+    require(all("shard_00001.szt" in why
+                for why in zero["quarantined"].values()),
+            "sharded: a quarantine reason does not name shard_00001.szt")
+    zleaves = _flat_leaves(zero["params"])
+    for key in flat:
+        if f"params.{key}" in rejected:
+            require(not bool(zleaves[key].any()), f"sharded: quarantined "
+                    f"params.{key} is not zeros")
+        else:
+            require(same(zleaves[key], cold[key]), f"sharded: params.{key}"
+                    f" outside the quarantine changed")
+    del zero, zleaves, cold
+    shutil.rmtree(directory, ignore_errors=True)
+
+    # -- the compressed gradient sync: NCCL on the card, gloo on the CPU ---
+    g = torch.randn(GRAD_SHAPE, generator=torch.Generator().manual_seed(
+        seed)) * 1e-3
+    grads = {"w": g.cuda()}
+    sync, init = collectives.make_dp_gradient_sync(state.pop("mesh"),
+                                                   eb=GRAD_EB)
+    res0 = init(grads)
+    timed("sync_first_s", lambda: sync(grads, res0))
+    out, res = timed("sync_s", lambda: sync(grads, res0))
+    csync, cinit = collectives.make_dp_gradient_sync(
+        make_host_mesh(device_type="cpu"), eb=GRAD_EB)
+    t0 = time.perf_counter()
+    cout, cres = csync({"w": g}, cinit({"w": g}))
+    state["cpu_sync_s"] = time.perf_counter() - t0
+    a, b = out["w"].cpu(), cout["w"]
+    diff = (bits(a) != bits(b)).nonzero()
+    require(len(diff) == 0 and same(res["w"].cpu(), cres["w"]),
+            f"sharded: the NCCL and gloo syncs differ at {len(diff)} "
+            f"values, first {diff[:4].tolist()}: "
+            f"{[float(a[tuple(i)]) for i in diff[:4]]} against "
+            f"{[float(b[tuple(i)]) for i in diff[:4]]}")
+    sync_err = max_abs_err(a, g)
+    del g, grads, out, res, cout, cres, a, b, res0
+    dist.destroy_process_group()
+
+    raw_bytes = 4 * n_values
+    row = {"arch": cfg.name, "layout": SHARD_LAYOUT, "shards": SHARD_COUNT,
+           "tiles": n_tiles,
+           "sharded_entries": sorted(kinds.values()).count("sz-sharded"),
+           "raw_entries": sorted(kinds.values()).count("raw"),
+           "eb": CKPT_EB, "launches": counts,
+           "salvage_launches": salvage_counts,
+           "save_ms": state["save_s"] * 1e3,
+           "restore_cold_ms": state["restore_cold_s"] * 1e3,
+           "restore_warm_ms": state["restore_warm_s"] * 1e3,
+           "restore_mesh_ms": state["restore_mesh_s"] * 1e3,
+           "restore_mesh_again_ms": state["restore_mesh_again_s"] * 1e3,
+           "restore_cold_stats": state["restore_cold_stats"],
+           "restore_warm_stats": state["restore_warm_stats"],
+           "decode_shards_ms": state["decode_shards_s"] * 1e3,
+           "decode_shards_values": share_values,
+           "step_bytes": step_bytes, "shard_bytes": shard_bytes,
+           "raw_bytes": raw_bytes, "ratio": raw_bytes / step_bytes,
+           "outlier_share": n_outliers / CKPT_VALUES,
+           "max_err_over_bound": worst,
+           "salvage_ms": state["salvage_s"] * 1e3,
+           "quarantined": quarantined,
+           "grad_sync": {"shape": list(GRAD_SHAPE), "eb": GRAD_EB,
+                         "nccl_first_ms": state["sync_first_s"] * 1e3,
+                         "nccl_ms": state["sync_s"] * 1e3,
+                         "gloo_cpu_ms": state["cpu_sync_s"] * 1e3,
+                         "bit_equal": True, "max_abs_err": sync_err},
+           "torch": torch.__version__,
+           "phase_s": time.perf_counter() - t_phase}
+    del params, flat, state
+    torch.cuda.empty_cache()
+    print(f"sharded {json.dumps(row)}")
     return row
 
 
@@ -2875,7 +3174,8 @@ def main() -> int:
     pager = run_pager(args.seed)
     consumers = {"checkpoint": run_checkpoint(args.seed),
                  "faults": run_faults(), "serve": run_serve_kv(args.seed),
-                 "loadgen": run_loadgen(args.seed)}
+                 "loadgen": run_loadgen(args.seed),
+                 "sharded": run_sharded(args.seed)}
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2977,7 +3277,9 @@ def main() -> int:
             "faults": consumers["faults"]["launches"][kname],
             "serve": sum(c[kname] for c in
                          consumers["serve"]["launches"].values()),
-            "loadgen": consumers["loadgen"]["launches"][kname]}
+            "loadgen": consumers["loadgen"]["launches"][kname],
+            "sharded": consumers["sharded"]["launches"][kname]
+            + consumers["sharded"]["salvage_launches"][kname]}
     for kname, k in model["kernels"].items():
         kernels.append({
             "name": kname, "route": "cuda", "source": SOURCES[kname],

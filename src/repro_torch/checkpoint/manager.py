@@ -1,8 +1,9 @@
 """Checkpointing over the compressed tensor store.
 
-Port of ``src/repro/checkpoint/manager.py``, its single-archive path.
+Port of ``src/repro/checkpoint/manager.py``.
 
 Layout:  <dir>/step_<N>/{manifest.json, archive.szt, <flat-key>.npy}
+         (+ shard_manifest.json, shard_<k>.szt for mesh-sharded entries)
 Writes are atomic (tmp dir + rename) so a preempted save can never corrupt
 the restore path; restore starts from ``latest_step``.
 
@@ -17,20 +18,25 @@ with its checksum recorded in ``manifest.json``; any corrupt or truncated
 shard surfaces as ``CheckpointIntegrityError`` naming the entry, never a
 numpy parse error.
 
+With ``mesh=`` (or ``shardings=`` / ``opt_shardings=``) the float32
+entries above the size floor are written in the mesh-sharded layout
+(``repro_torch.distributed``): partitioned by their
+``runtime/sharding.py`` specs into ``shard_count`` per-host shard
+archives; ``restore(mesh=...)`` decodes the shards in parallel and lands
+every entry as a ``DTensor`` holding this rank's slice.
+
 The step directories are byte-identical with the reference's for the same
-tree, and each package restores the other's, with two departures:
+tree, and each package restores the other's, with one departure:
 
 * a raw bfloat16 leaf is written as the reference writes it (an ``.npy``
   whose header says ``'<V2'``, the manifest's ``"dtype"`` saying
   ``"bfloat16"``), and the manifest's dtype turns it back into
   ``torch.bfloat16`` on restore, where the reference's restore raises
-  ``TypeError``;
-* mesh-sharded checkpoints (``mesh=``, ``shardings=``, ``opt_shardings=``,
-  ``shard_count=``, and a manifest entry of kind ``"sz-sharded"``) raise
-  ``NotImplementedError``: sharded save and restore are ROADMAP A9.
+  ``TypeError``.
 
 Restored leaves are torch tensors on the codec's device (``device=`` for a
-manager without a codec; the card by default).
+manager without a codec; the card by default), or ``DTensor``s where a
+target sharding is given.
 """
 
 from __future__ import annotations
@@ -43,16 +49,19 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.codec import Codec, CodecConfig, default_codec
 from repro_torch.core.huffman import pipeline as hp
 from repro_torch.core.sz.compressor import Compressed, dtype_name
+from repro_torch.distributed.restore import ShardedRestorer
+from repro_torch.distributed.shards import ShardedWriter
 from repro_torch.runtime import fault_tolerance as ft
 from repro_torch.store import Archive, ArchiveWriter, StoreError
 
 ARCHIVE_NAME = "archive.szt"
-#: v2 = single archive per step; v3 adds mesh-sharded entries (kind
-#: "sz-sharded" + shard_manifest.json), which this port reads as ROADMAP A9.
+#: v2 = single archive per step; v3 adds mesh-sharded entries
+#: (kind "sz-sharded" + shard_manifest.json).
 MANIFEST_VERSION = 3
 _STORE_MANIFEST_VERSION = 2     # first version with .szt-archived sz entries
 #: The ``.npy`` descr numpy gives a bfloat16 array (``ml_dtypes``'), which
@@ -64,10 +73,43 @@ class CheckpointIntegrityError(RuntimeError):
     """A checkpoint entry is missing, truncated, or fails its checksum."""
 
 
-def _sharded_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP A9 (mesh-sharded checkpoints); "
-        f"this port saves and restores the single-archive layout")
+def _entry_spec(fname: str, shape: tuple, mesh):
+    """Partition spec of a flat checkpoint entry under the sharding rules.
+
+    Entry names are dot-joined tree paths ("params.layers.attn.wq");
+    the rules in ``runtime/sharding.py`` match "/"-joined substrings, so
+    the path is translated before lookup.  Optimizer entries reuse their
+    parameter's rules the same way ``opt_state_shardings`` does: the
+    leading m/v element and any quantized-leaf suffix are stripped.
+    """
+    from repro_torch.runtime.sharding import P, param_spec
+
+    tname, _, key = fname.partition(".")
+    path = key.replace(".", "/")
+    if tname == "opt":
+        if path.endswith("step"):
+            return P()
+        path = path.split("/", 1)[1] if "/" in path else path
+        for suffix in ("/q", "/scale", "/f"):
+            if path.endswith(suffix):
+                path = path[: -len(suffix)]
+                break
+    return param_spec(path, shape, mesh)
+
+
+def _process_count() -> int:
+    """Ranks of the initialized world, else 1: the default shard count
+    (the reference's ``jax.process_count()``)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _is_sharded_leaf(leaf, min_size: int) -> bool:
+    """A leaf the sharded layout compresses: float32, at least
+    ``min_size`` values."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype == torch.float32 and leaf.numel() >= min_size
+    return (isinstance(leaf, np.ndarray) and leaf.dtype == np.float32
+            and leaf.size >= min_size)
 
 
 def _write_json_atomic(path: str, obj) -> None:
@@ -243,24 +285,28 @@ class CheckpointManager:
         published by a rename.  With ``asynchronous=True`` the trees are
         copied first (tensors cloned on their device) and written on a
         worker thread: an in-place write to a leaf after ``save`` returns
-        does not reach the checkpoint.  The mesh-sharded layout (``mesh``,
-        ``shardings``, ``opt_shardings``, ``shard_count``) raises
-        ``NotImplementedError`` (ROADMAP A9)."""
-        for name, value in (("mesh=", mesh), ("shardings=", shardings),
-                            ("opt_shardings=", opt_shardings),
-                            ("shard_count=", shard_count)):
-            if value is not None:
-                raise _sharded_unported(f"save({name}...)")
+        does not reach the checkpoint.
+
+        With ``mesh=`` (a ``DeviceMesh`` or a layout; or explicit
+        ``shardings=`` / ``opt_shardings=`` trees of ``NamedSharding`` or
+        ``PartitionSpec``), compressible entries write the mesh-sharded
+        layout: partitioned by their ``runtime/sharding.py`` specs into
+        ``shard_count`` per-host ``.szt`` shards (default: one per rank of
+        the world) that ``restore(mesh=...)`` decodes in parallel, directly
+        into the target shardings."""
         if self._pool is not None:
             self.wait()
             params = _snapshot(params)
             opt_state = _snapshot(opt_state) if opt_state else None
             self._pending = self._pool.submit(
-                self._save_sync, step, params, opt_state, extra)
+                self._save_sync, step, params, opt_state, extra, mesh,
+                shardings, opt_shardings, shard_count)
             return
-        self._save_sync(step, params, opt_state, extra)
+        self._save_sync(step, params, opt_state, extra, mesh, shardings,
+                        opt_shardings, shard_count)
 
-    def _save_sync(self, step, params, opt_state, extra):
+    def _save_sync(self, step, params, opt_state, extra, mesh=None,
+                   shardings=None, opt_shardings=None, shard_count=None):
         final = os.path.join(self.dir, f"step_{step:08d}")
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -270,13 +316,18 @@ class CheckpointManager:
         trees = {"params": params}
         if opt_state is not None:
             trees["opt"] = opt_state
-        writer = None
+        sharded = (mesh is not None or shardings is not None
+                   or opt_shardings is not None) and self.codec is not None
+        spec_trees = {"params": shardings, "opt": opt_shardings}
+        writer = sw = None
         try:
             for tname, tree in trees.items():
                 flat = {key: (leaf if isinstance(leaf, torch.Tensor)
                               else np.asarray(leaf))
                         for key, leaf in _flatten(tree).items()}
-                if self.codec is not None:
+                flat_specs = (_flatten(spec_trees[tname])
+                              if spec_trees[tname] is not None else None)
+                if self.codec is not None and not sharded:
                     # Tree-level compression: every float shard above the
                     # size floor becomes a Compressed leaf in one codec call.
                     # The reference's tree map returns the keys sorted.
@@ -284,7 +335,20 @@ class CheckpointManager:
                         dict(sorted(flat.items())), min_size=self.min_size)
                 for key, leaf in flat.items():
                     fname = f"{tname}.{key}"
-                    if isinstance(leaf, Compressed):
+                    if sharded and _is_sharded_leaf(leaf, self.min_size):
+                        if sw is None:
+                            sw = ShardedWriter(
+                                tmp, mesh, codec=self.codec,
+                                n_shards=shard_count or _process_count())
+                        shape = tuple(int(s) for s in leaf.shape)
+                        spec = (flat_specs.get(key)
+                                if flat_specs is not None
+                                else _entry_spec(fname, shape, mesh))
+                        sw.add(fname, leaf, spec)
+                        manifest["entries"][fname] = {
+                            "kind": "sz-sharded", "shape": list(shape),
+                            "dtype": "float32"}
+                    elif isinstance(leaf, Compressed):
                         if writer is None:
                             writer = ArchiveWriter(
                                 os.path.join(tmp, ARCHIVE_NAME),
@@ -309,11 +373,17 @@ class CheckpointManager:
         except BaseException:
             if writer is not None:
                 writer.abort()
+            if sw is not None:
+                sw.abort()
             raise
         if writer is not None:
             for fname, crc in writer.checksums().items():
                 manifest["entries"][fname]["checksum"] = crc
             writer.close()
+        if sw is not None:
+            sw.close()
+            manifest["version"] = MANIFEST_VERSION
+            manifest["n_shards"] = sw.n_shards
         _write_json_atomic(os.path.join(tmp, "manifest.json"), manifest)
         shutil.rmtree(final, ignore_errors=True)
         os.rename(tmp, final)
@@ -435,6 +505,53 @@ class CheckpointManager:
                     f"step {step}: {ARCHIVE_NAME} is corrupt or truncated: "
                     f"{e}") from e
 
+    def _restore_sharded(self, d: str, step: int, manifest, pol,
+                         quarantined: dict, targets: dict) -> dict:
+        """Decode every mesh-sharded entry of a step (per-shard parallel
+        decode, landing in ``targets`` shardings).
+
+        Mirrors ``_restore_archive``'s salvage contract: under a non-raise
+        policy a corrupt/missing shard quarantines only the entries with
+        tiles in it (the reason names the shard file), and a lost shard
+        manifest loses all sharded entries.
+        """
+        entries = {f: m for f, m in manifest["entries"].items()
+                   if m["kind"] == "sz-sharded"}
+        if not entries:
+            return {}
+
+        def lose_all(reason: str) -> dict:
+            if pol.on_error == "raise":
+                raise CheckpointIntegrityError(f"step {step}: {reason}")
+            for fname in entries:
+                quarantined[fname] = reason
+            return {}
+
+        try:
+            restorer = ShardedRestorer(d, codec=self._read_codec)
+        except StoreError as e:
+            return lose_all(f"sharded layout is unreadable: {e}")
+
+        missing = [f for f in entries if f not in restorer.entries]
+        if missing:
+            return lose_all(f"{len(missing)} sharded entries (e.g. "
+                            f"{missing[0]!r}) are missing from the shard "
+                            f"manifest")
+
+        def on_error(name, exc):
+            quarantined[name] = f"{type(exc).__name__}: {exc}"
+
+        try:
+            if pol.on_error == "raise":
+                return restorer.restore(targets, names=list(entries),
+                                        policy="raise")
+            # Salvage: skip failed entries here; restore() substitutes
+            # zeros for quarantined entries under "zero_fill".
+            return restorer.restore(targets, names=list(entries),
+                                    policy="skip", on_error=on_error)
+        except (StoreError, hp.DecodeGuardError) as e:
+            raise CheckpointIntegrityError(f"step {step}: {e}") from e
+
     def _restore_raw(self, d: str, step: int, fname: str, meta):
         path = os.path.join(d, fname + ".npy")
         if not os.path.exists(path):
@@ -471,6 +588,15 @@ class CheckpointManager:
         """Restore a step (default: newest) as torch tensors on the
         manager's device.
 
+        ``mesh=`` (a ``DeviceMesh``; or explicit ``shardings=`` /
+        ``opt_shardings=`` trees of ``NamedSharding``) gives every entry a
+        target sharding: mesh-sharded entries decode per shard in parallel
+        and are assembled *directly* into this rank's slice of their
+        target (the restore mesh need not match the write mesh), and raw
+        and archived entries are cut to this rank's slice; each lands as a
+        ``DTensor``.  Without either, every entry restores as a full
+        tensor, whatever layout it was written in.
+
         ``policy`` (a string or ``RecoveryPolicy``; default: the codec's
         ``recovery`` config, i.e. ``"raise"``) selects salvage behaviour on
         corruption:
@@ -485,14 +611,7 @@ class CheckpointManager:
         * ``"zero_fill"`` -- like ``"skip"``, but quarantined entries are
           replaced by zeros of their recorded shape/dtype so the restored
           tree keeps its structure.
-
-        ``mesh=``, ``shardings=``, ``opt_shardings=`` and a step holding
-        mesh-sharded entries raise ``NotImplementedError`` (ROADMAP A9).
         """
-        for name, value in (("mesh=", mesh), ("shardings=", shardings),
-                            ("opt_shardings=", opt_shardings)):
-            if value is not None:
-                raise _sharded_unported(f"restore({name}...)")
         config = self.codec.config if self.codec is not None else None
         pol = ft.RecoveryPolicy.resolve(policy, config or CodecConfig())
         fallback_from: list = []
@@ -513,17 +632,30 @@ class CheckpointManager:
         else:
             d = os.path.join(self.dir, f"step_{step:08d}")
             manifest = self._load_manifest(d, step)
-        sharded = [f for f, m in manifest["entries"].items()
-                   if m["kind"] == "sz-sharded"]
-        if sharded:
-            raise _sharded_unported(
-                f"step {step}: restoring {len(sharded)} mesh-sharded "
-                f"entries (e.g. {sharded[0]!r})")
+        targets: dict = {}
+        for tname, stree in (("params", shardings), ("opt", opt_shardings)):
+            if stree is not None:
+                for key, s in _flatten(stree).items():
+                    targets[f"{tname}.{key}"] = s
+        from repro_torch.runtime.sharding import NamedSharding
+        bad = [f for f, s in targets.items()
+               if s is not None and not isinstance(s, NamedSharding)]
+        if bad:
+            raise TypeError(f"target of {bad[0]!r} is "
+                            f"{type(targets[bad[0]]).__name__}, not a "
+                            f"repro_torch NamedSharding")
+        if mesh is not None:
+            for fname, meta in manifest["entries"].items():
+                if fname not in targets and meta.get("shape") is not None:
+                    targets[fname] = NamedSharding(
+                        mesh, _entry_spec(fname, tuple(meta["shape"]), mesh))
 
         trees: dict = {"params": {}, "opt": {}}
         quarantined: dict = {}
         sz_restored = self._restore_archive(d, step, manifest, pol,
                                             quarantined)
+        sharded_restored = self._restore_sharded(d, step, manifest, pol,
+                                                 quarantined, targets)
         for fname, meta in manifest["entries"].items():
             tname, _, key = fname.partition(".")
             if not key:
@@ -532,7 +664,15 @@ class CheckpointManager:
                         f"step {step}: malformed entry name {fname!r}")
                 quarantined[fname] = "malformed entry name"
                 continue
-            if meta["kind"] == "sz":
+            placed = False
+            if meta["kind"] == "sz-sharded":
+                arr = sharded_restored.get(fname)
+                placed = arr is not None  # restorer lands in the sharding
+                if arr is None:          # quarantined by _restore_sharded
+                    arr = self._zero_fill(meta, pol)
+                    if arr is None:
+                        continue
+            elif meta["kind"] == "sz":
                 arr = sz_restored.get(fname)
                 if arr is None:          # quarantined by _restore_archive
                     arr = self._zero_fill(meta, pol)
@@ -548,6 +688,10 @@ class CheckpointManager:
                     arr = self._zero_fill(meta, pol)
                     if arr is None:
                         continue
+            if not placed:
+                tgt = targets.get(fname)
+                if tgt is not None:
+                    arr = tgt.distribute(arr)
             trees.setdefault(tname, {})[key] = arr
         params = _unflatten(trees["params"])
         opt = _unflatten(trees["opt"]) if trees.get("opt") else None

@@ -374,13 +374,16 @@ class Codec:
         (``None`` included) pass through untouched.
 
         ``shardings`` (optional) is a pytree matching ``tree`` whose leaves
-        are ``torch.device`` or ``None``: a leaf paired with a device is
-        moved there (a non-tensor leaf becomes a tensor on it).  It must
-        have one leaf for each leaf of ``tree`` other than ``None`` (the
-        leaves JAX counts), or ``ValueError`` is raised, as in the
-        reference.  Any other placement (a mesh, a ``DTensor`` layout)
-        raises ``NotImplementedError``: sharded restore is ROADMAP A9.
+        are ``torch.device``, ``repro_torch.runtime.sharding.NamedSharding``
+        or ``None``: a leaf paired with a device is moved there (a
+        non-tensor leaf becomes a tensor on it), and a leaf paired with a
+        ``NamedSharding`` lands as a ``DTensor`` holding this rank's slice.
+        It must have one leaf for each leaf of ``tree`` other than ``None``
+        (the leaves JAX counts), or ``ValueError`` is raised, as in the
+        reference; any other placement raises ``TypeError``.
         """
+        from repro_torch.runtime.sharding import NamedSharding
+
         leaves, treedef = pytree.tree_flatten(
             tree, is_leaf=lambda x: isinstance(x, Compressed))
         live = [i for i, leaf in enumerate(leaves) if leaf is not None]
@@ -388,17 +391,17 @@ class Codec:
         if shardings is not None:
             shard_leaves, _ = pytree.tree_flatten(
                 shardings, is_leaf=lambda x: x is None
-                or isinstance(x, torch.device))
+                or isinstance(x, (torch.device, NamedSharding)))
             if len(shard_leaves) != len(live):
                 raise ValueError(
                     f"shardings tree has {len(shard_leaves)} leaves but the "
                     f"compressed tree has {len(live)}")
             for s in shard_leaves:
-                if s is not None and not isinstance(s, torch.device):
-                    raise NotImplementedError(
-                        f"placement {s!r} is not ported yet: ROADMAP A9 "
-                        f"(sharded restore); a shardings leaf is a "
-                        f"torch.device or None")
+                if s is not None and not isinstance(
+                        s, (torch.device, NamedSharding)):
+                    raise TypeError(
+                        f"placement {s!r} is neither a torch.device nor a "
+                        f"NamedSharding")
         idx = [i for i, leaf in enumerate(leaves)
                if isinstance(leaf, Compressed)]
         outs = self.decompress_batch([leaves[i] for i in idx])
@@ -406,7 +409,9 @@ class Codec:
             leaves[i] = out
         if shard_leaves is not None:
             for i, s in zip(live, shard_leaves):
-                if s is not None:
+                if isinstance(s, NamedSharding):
+                    leaves[i] = s.distribute(torch.as_tensor(leaves[i]))
+                elif s is not None:
                     leaves[i] = torch.as_tensor(leaves[i]).to(s)
         return pytree.tree_unflatten(leaves, treedef)
 

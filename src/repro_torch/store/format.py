@@ -52,7 +52,7 @@ FORMAT_VERSION = 1
 HEADER_SIZE = 64
 BLOB_ALIGN = 64
 
-# --- sharded layout (the distributed restore, ROADMAP A9) ------------------
+# --- sharded layout (the distributed restore, ``repro_torch.distributed``) -
 # A mesh-sharded archive is a directory: one JSON manifest mapping entries
 # to per-host tile chunks, plus N ordinary ``.szt`` shard files (each a
 # fully self-describing archive of this format).  The manifest version is

@@ -389,12 +389,60 @@ def test_decompress_tree_shardings_raise_where_the_reference_does(case):
                 assert v == u
 
 
-def test_decompress_tree_other_placements_name_a9():
-    c = Codec(CodecConfig(backend="ref")).compress(
-        torch.from_numpy(smooth_field((8, 64), seed=1)))
-    with pytest.raises(NotImplementedError, match="A9"):
+def test_decompress_tree_refuses_other_placements_as_the_reference():
+    """A placement that is neither a device nor a sharding (a string here)
+    is refused by both packages; the port names it in a ``TypeError``."""
+    x = smooth_field((8, 64), seed=1)
+    c = Codec(CodecConfig(backend="ref")).compress(torch.from_numpy(x))
+    with pytest.raises(TypeError, match="neither a torch.device"):
         Codec(CodecConfig(backend="ref")).decompress_tree(
             {"a": c}, shardings={"a": "cuda:0"})
+    assert _raises(lambda: japi.Codec().decompress_tree(
+        {"a": japi.Codec().compress(x)}, shardings={"a": "cuda:0"}))
+
+
+def test_decompress_tree_named_sharding_leaves_on_a_cpu_mesh():
+    """Port ``NamedSharding`` leaves on a one-rank CPU mesh land as
+    ``DTensor``s in their placements, holding what the reference's
+    ``NamedSharding`` leaves on its one-device mesh hold."""
+    import torch.distributed as dist
+    from jax.sharding import NamedSharding as JNamedSharding
+    from jax.sharding import PartitionSpec as JP
+    from torch.distributed.tensor import DTensor
+
+    from repro.launch.mesh import make_host_mesh as jmake_host_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime.sharding import NamedSharding, P
+
+    x = smooth_field((48, 40), seed=3)
+    y = smooth_field((4096,), seed=4)
+    codec = Codec(CodecConfig(backend="ref"))
+    jcodec = japi.Codec()
+    tree = {"w": torch.from_numpy(x), "v": torch.from_numpy(y),
+            "n": torch.arange(6, dtype=torch.int32)}
+    jtree = {"w": x, "v": y, "n": np.arange(6, dtype=np.int32)}
+    try:
+        mesh = make_host_mesh(device_type="cpu")
+        jmesh = jmake_host_mesh()
+        out = codec.decompress_tree(
+            codec.compress_tree(tree, min_size=1024),
+            shardings={"w": NamedSharding(mesh, P("data", "model")),
+                       "v": None, "n": NamedSharding(mesh, P("data"))})
+        jout = jcodec.decompress_tree(
+            jcodec.compress_tree(jtree, min_size=1024),
+            shardings={"w": JNamedSharding(jmesh, JP("data", "model")),
+                       "v": None, "n": JNamedSharding(jmesh, JP("data"))})
+        for k in ("w", "n"):
+            assert isinstance(out[k], DTensor)
+            assert out[k].placements == NamedSharding(
+                mesh, P("data", "model")).placements(out[k].shape)
+            assert as_bytes(out[k].to_local()) == np.asarray(
+                jout[k]).tobytes()
+        assert not isinstance(out["v"], DTensor)
+        assert as_bytes(out["v"]) == np.asarray(jout["v"]).tobytes()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

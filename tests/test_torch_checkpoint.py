@@ -8,7 +8,10 @@
   comes back from the port as ``torch.bfloat16``.
 * Salvage (skip, zero_fill, a torn newest manifest, a corrupt raw shard)
   quarantines and falls back as the reference does.
-* The mesh-sharded layout raises naming ROADMAP A9.
+* The mesh-sharded layout (``mesh=``, ``shardings=``, ``opt_shardings=``,
+  ``shard_count=``) writes the reference's step directory byte for byte,
+  each package restores the other's under every policy, and the port also
+  into a one-rank CPU mesh as ``DTensor``s.
 * A reduced qwen3-0.6b's parameters, stacked by ``convert.stack_layers``,
   save under the reference's entry names and round-trip.
 
@@ -18,6 +21,7 @@ is exact unless stated.
 
 import json
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -415,34 +419,185 @@ def test_integrity_errors_are_named(tmp_path, case, match):
 
 
 # ---------------------------------------------------------------------------
-# What is not ported: the mesh-sharded layout (ROADMAP A9)
+# The mesh-sharded layout
 # ---------------------------------------------------------------------------
 
-
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"shardings": {}},
-                                {"opt_shardings": {}}, {"shard_count": 2}])
-def test_mesh_arguments_name_a9(tmp_path, kw):
-    mgr = man.CheckpointManager(str(tmp_path), codec=_codec())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        mgr.save(1, _small_tree(), **kw)
-    if "shard_count" not in kw:
-        mgr.save(1, _small_tree())
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            mgr.restore(**kw)
+#: The reference's (4, 2) mesh as a layout: its save needs no devices.
+LAYOUT = SimpleNamespace(shape={"data": 4, "model": 2},
+                         axis_names=("data", "model"))
 
 
-def test_sharded_manifest_entry_names_a9(tmp_path):
-    mgr = man.CheckpointManager(str(tmp_path), codec=_codec(),
+def _cross_topology_tree(seed=0):
+    """The tree of the reference's ``test_cross_topology_restore_bit_exact``
+    with an optimizer state beside it (numpy)."""
+    rng = np.random.default_rng(seed)
+    params = {
+        "layers": {"0": {
+            "attn": {"wq": rng.normal(size=(256, 512)).astype(np.float32)},
+            "mlp": {"wg": rng.normal(size=(256, 1024)).astype(np.float32)}}},
+        "norm": rng.normal(size=(64,)).astype(np.float32)}
+    return params, {"m": _map(params, lambda k, a: a * np.float32(0.5)),
+                    "step": np.int32(3)}
+
+
+def _qwen3_tree():
+    """A reduced qwen3-0.6b from the port's ``init_model``, stacked by
+    ``convert.stack_layers`` (numpy, the port's key order)."""
+    cfg = PCFG.get_config("qwen3-0.6b").reduced()
+    params = _map(convert.stack_layers(T.init_model(0, cfg, "cpu")),
+                  lambda k, t: t.numpy())
+    return params, {"m": _map(params, lambda k, a: a * np.float32(0.5)),
+                    "step": np.int32(3)}
+
+
+def _spec_tree(params, P, axis):
+    """Every leaf split on dim 0 over ``axis``: specs the rules would not
+    pick, so a test sees they are the ones used."""
+    return _map(params, lambda k, a: P(axis) if np.ndim(a) else P())
+
+
+def _sharded_kwargs(case, params, opt, P):
+    if case == "mesh":
+        return {"mesh": LAYOUT}
+    if case == "shard_count":
+        return {"mesh": LAYOUT, "shard_count": 4}
+    if case == "shardings":
+        return {"mesh": LAYOUT, "shardings": _spec_tree(params, P, "model")}
+    return {"mesh": LAYOUT, "opt_shardings": _spec_tree(opt, P, "data")}
+
+
+def _save_sharded_both(tmp_path, case="shard_count", tree="cross"):
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.runtime.sharding import P
+
+    params, opt = (_cross_topology_tree() if tree == "cross"
+                   else _qwen3_tree())
+    tm = man.CheckpointManager(str(tmp_path / "port"), codec=_codec(),
+                               compress_min_size=MIN_SIZE)
+    jm = jman.CheckpointManager(str(tmp_path / "jax"), codec=_jcodec(),
                                 compress_min_size=MIN_SIZE)
-    mgr.save(1, _small_tree())
-    mpath = os.path.join(str(tmp_path), "step_00000001", "manifest.json")
-    m = json.load(open(mpath))
-    m["version"] = 3
-    m["entries"]["params.embed"]["kind"] = "sz-sharded"
-    json.dump(m, open(mpath, "w"))
-    for policy in ("raise", "skip"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            mgr.restore(policy=policy)
+    tparams = _map(params, lambda k, a: torch.from_numpy(np.array(a)))
+    tm.save(1, tparams, opt, extra={"case": case},
+            **_sharded_kwargs(case, params, opt, P))
+    jm.save(1, params, opt, extra={"case": case},
+            **_sharded_kwargs(case, params, opt, JP))
+    return tm, jm, params, opt
+
+
+def _assert_same_trees(got, want):
+    got = _flat({"params": got["params"], "opt": got["opt"]})
+    want = _flat({"params": want["params"], "opt": want["opt"]})
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k]
+        if hasattr(g, "to_local"):
+            g = g.to_local()
+        assert _dtype(g) == _dtype(w), k
+        assert tuple(g.shape) == tuple(np.shape(w)), k
+        assert _bytes(g) == _bytes(w), k
+
+
+@pytest.mark.parametrize("case,tree", [
+    ("mesh", "cross"), ("shardings", "cross"), ("opt_shardings", "cross"),
+    ("shard_count", "cross"), ("shard_count", "qwen3")])
+def test_sharded_step_directories_as_the_reference(tmp_path, case, tree):
+    """``save(mesh=, shardings=, opt_shardings=, shard_count=)``: the same
+    step directory byte for byte, and each package restores the other's
+    bit for bit; the port also into a one-rank CPU mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    tm, jm, params, _ = _save_sharded_both(tmp_path, case, tree)
+    got, want = (_files(os.path.join(m.dir, STEP)) for m in (tm, jm))
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name] == want[name], name
+    manifest = json.loads(want["manifest.json"])
+    assert manifest["version"] == man.MANIFEST_VERSION == 3
+    kinds = {k: e["kind"] for k, e in manifest["entries"].items()}
+    assert "sz-sharded" in kinds.values() and "raw" in kinds.values()
+    assert manifest["n_shards"] == (4 if case == "shard_count" else 1)
+    jown = jm.restore()
+    for r in (tm.restore(),
+              man.CheckpointManager(jm.dir, codec=_codec()).restore(),
+              jman.CheckpointManager(tm.dir, codec=_jcodec()).restore()):
+        assert r["step"] == 1 and r["extra"] == {"case": case}
+        assert not r["quarantined"]
+        _assert_same_trees(r, jown)
+    try:
+        mesh = make_host_mesh(device_type="cpu")
+        r = man.CheckpointManager(jm.dir, codec=_codec()).restore(mesh=mesh)
+        _assert_same_trees(r, jown)
+        assert all(isinstance(v, DTensor) for v in _flat(r["params"]).values())
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _corrupt_shard(step_dir, case):
+    path = os.path.join(step_dir, "shard_00001.szt")
+    if case == "missing":
+        os.unlink(path)
+    elif case == "corrupt":
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(size // 2)
+            f.write(b"\xff" * 4096)
+
+
+@pytest.fixture(scope="module")
+def sharded_steps(tmp_path_factory):
+    """Both packages' step directories of the cross-topology tree on the
+    (4, 2) layout in 4 shards, written once for the salvage cases."""
+    tm, jm, _, _ = _save_sharded_both(tmp_path_factory.mktemp("sharded"),
+                                      "shard_count")
+    return tm.dir, jm.dir
+
+
+@pytest.mark.parametrize("case", ["intact", "corrupt", "missing"])
+@pytest.mark.parametrize("policy", ["raise", "skip", "zero_fill"])
+def test_sharded_salvage_as_the_reference(tmp_path, sharded_steps, policy,
+                                          case):
+    """A sharded step restores under every policy as the reference's does,
+    either package reading either package's step: the same quarantined
+    entries (every reason naming the shard file), zeros for them under
+    ``zero_fill`` and every other entry bit for bit."""
+    import shutil
+
+    dirs = []
+    for src, name in zip(sharded_steps, ("port", "jax")):
+        shutil.copytree(src, tmp_path / name)
+        dirs.append(str(tmp_path / name))
+        _corrupt_shard(os.path.join(dirs[-1], STEP), case)
+    readers = [lambda d: man.CheckpointManager(d, codec=_codec()),
+               lambda d: jman.CheckpointManager(d, codec=_jcodec())]
+    if policy == "raise" and case != "intact":
+        for reader in readers:
+            for d in dirs:
+                with pytest.raises(Exception, match="shard_00001.szt") as e:
+                    reader(d).restore(policy=policy)
+                assert type(e.value).__name__ == "CheckpointIntegrityError"
+        return
+    results = [reader(d).restore(policy=policy) for reader in readers
+               for d in dirs]
+    want = results[-1]
+    if case == "intact":
+        assert not want["quarantined"]
+    else:
+        assert want["quarantined"]
+        assert all("shard_00001.szt" in why
+                   for why in want["quarantined"].values())
+    for r in results:
+        assert sorted(r["quarantined"]) == sorted(want["quarantined"])
+        _assert_same_trees(r, want)
+    flat = _flat({"params": want["params"], "opt": want["opt"]})
+    for k in want["quarantined"]:
+        assert (k in flat) == (policy == "zero_fill")
+        if policy == "zero_fill":
+            assert not np.asarray(flat[k]).any()
 
 
 def test_raw_only_manager_needs_a_device(tmp_path):

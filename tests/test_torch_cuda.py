@@ -2212,6 +2212,66 @@ def test_checkpoint_restore_on_card_equals_ref(cuda, tmp_path,
     assert got["layers.s"].dtype == torch.bfloat16
 
 
+def test_sharded_checkpoint_on_card(cuda, tmp_path, no_plain_versions,
+                                    no_encode_plain_versions):
+    """A mesh-sharded checkpoint written on the card ("cuda" encode, a
+    {data: 4, model: 2} layout, 3 shards) restores on the card through the
+    kernels bit for bit as "ref" restores it on the CPU, and into a
+    one-rank "cuda" mesh as DTensors; the gradient sync over that mesh's
+    NCCL group equals the same call over gloo on the CPU, bit for bit."""
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.cache import PlanCache
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import collectives
+
+    g = torch.Generator().manual_seed(0)
+    params = {"attn": {"wq": torch.randn((256, 8, 32), generator=g)},
+              "mlp": {"wd": torch.randn((512, 128), generator=g)},
+              "embed": torch.from_numpy(smooth_field((640, 96), seed=3)),
+              "norm": torch.randn((96,), generator=g)}
+    layout = SimpleNamespace(shape={"data": 4, "model": 2},
+                             axis_names=("data", "model"))
+    writer = Codec(CodecConfig(device=str(cuda), encode_backend="cuda"),
+                   plan_cache=PlanCache())
+    launches.reset()
+    on_card = torch.utils._pytree.tree_map(lambda t: t.to(cuda), params)
+    CheckpointManager(str(tmp_path), codec=writer, compress_min_size=4096
+                      ).save(1, on_card, mesh=layout, shard_count=3)
+    assert L.lorenzo_quantize.launches > 0 and E.pack_tiles.launches > 0
+    ref = Codec(CodecConfig(backend="ref"), plan_cache=PlanCache())
+    want = CheckpointManager(str(tmp_path), codec=ref).restore()["params"]
+    card = Codec(CodecConfig(device=str(cuda)), plan_cache=PlanCache())
+    launches.reset()
+    got = CheckpointManager(str(tmp_path), codec=card).restore()["params"]
+    assert K.count_subseq.launches > 0 and K.decode_tiles.launches > 0
+    try:
+        mesh = make_host_mesh()
+        on_mesh = CheckpointManager(str(tmp_path), codec=card).restore(
+            mesh=mesh)["params"]
+        for path in (("attn", "wq"), ("mlp", "wd"), ("embed",), ("norm",)):
+            a, b, d = got, want, on_mesh
+            for p in path:
+                a, b, d = a[p], b[p], d[p]
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b), path
+            assert isinstance(d, DTensor) and torch.equal(d.to_local(), a)
+        x = torch.randn((3, 1000), generator=g) * 1e-3
+        sync, init = collectives.make_dp_gradient_sync(mesh, eb=1e-7)
+        csync, cinit = collectives.make_dp_gradient_sync(
+            make_host_mesh(device_type="cpu"), eb=1e-7)
+        out, res = sync({"x": x.to(cuda)}, init({"x": x.to(cuda)}))
+        cout, cres = csync({"x": x}, cinit({"x": x}))
+        assert torch.equal(out["x"].cpu(), cout["x"])
+        assert torch.equal(res["x"].cpu(), cres["x"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("overlap", [True, False])
 def test_scheduler_on_card(cuda, tmp_path, no_plain_versions, overlap):
     """The serving scheduler on the card, staging on its own stream with

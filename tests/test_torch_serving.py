@@ -369,16 +369,15 @@ def test_serve_compress_kv_and_recovery(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-#: Names the reference's checkpoint manager imports for its mesh-sharded
-#: layout, which comes with ROADMAP A9.
-SHARDED = {"ShardedRestorer", "ShardedWriter"}
-
-
 @pytest.mark.parametrize("name", [
     "repro.checkpoint.manager", "repro.testing", "repro.testing.faults",
     "repro.models.kvcache", "repro.serving", "repro.serving.loadgen",
     "repro.serving.prefix_cache", "repro.serving.scheduler",
-    "repro.serving.sessions"])
+    "repro.serving.sessions", "repro.distributed",
+    "repro.distributed.partition", "repro.distributed.shards",
+    "repro.distributed.restore", "repro.runtime.sharding",
+    "repro.runtime.pspec", "repro.runtime.collectives",
+    "repro.launch.mesh"])
 def test_every_public_name_has_a_twin(name):
     import importlib
     import types
@@ -386,7 +385,7 @@ def test_every_public_name_has_a_twin(name):
     ref = importlib.import_module(name)
     port = importlib.import_module("repro_torch" + name[len("repro"):])
     missing = [n for n, v in vars(ref).items()
-               if not n.startswith("_") and n not in SHARDED
+               if not n.startswith("_")
                and not (isinstance(v, types.ModuleType)
                         and not v.__name__.startswith(name + "."))
                and not hasattr(port, n)]
