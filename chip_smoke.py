@@ -71,6 +71,17 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     decode steps run ``gla_time_mix`` (one a layer a step) and whose dense
     decode runs no kernel; and step decode against the forward in float32
     (B 2, 256 tokens);
+  * train, A10's training half: qwen3-0.6b at full width trained by
+    ``launch.train.main`` (4 steps at B 4 x 1024, float32 parameters,
+    bf16 compute, remat, no checkpoint), whose attention runs
+    ``flash_attention`` twice a layer a step (the forward and remat's
+    recompute, inside ``flash_attention_trainable``; its backward torch
+    ops); rwkv6-3b at full width cut to 2 layers (2 ``make_train_step``
+    steps at B 2 x 512) through ``gla_time_mix_trainable`` (the kernel a
+    64-step chunk, forward and recompute); one reduced train step a family
+    on the card and on the CPU from the same parameters and batch; the
+    reduced qwen3 preempted at step 3 (exit 17) and resumed from its
+    compressed checkpoint (``count_subseq``, ``decode_tiles``);
   * pager, qwen3-0.6b's prefill at B 4 x 1024 kept as its decode cache
     (k, v bf16 (28, 4, 1024, 8, 128)), tokens [256, 768) offloaded by
     ``KVPager`` through a "cuda"-encode codec (``lorenzo_quantize``,
@@ -159,7 +170,16 @@ The script
     zero plans, "raise" names the overwritten shard, "zero_fill"
     quarantines exactly the entries whose chunks the store's CRC check
     rejects (zeros) and every other entry is intact; the NCCL and gloo
-    gradient syncs are equal bit for bit;
+    gradient syncs are equal bit for bit; the trainable functions'
+    gradients on the card equal autograd's through their plain versions
+    (flash within one bf16 ulp of each gradient's scale in bf16, 1e-4 of
+    it in float32; gla within 1e-4 of it) at layer 0's shapes and on the
+    random cases, the reduced train step's loss, gradients, grad norm and
+    updated parameters on the card those on the CPU (1e-5 relative, 1e-4
+    of each gradient's scale, 1e-5, a quarter of the learning rate), the
+    training losses finite, 56 ``flash_attention`` launches a qwen3 step
+    and 32 ``gla_time_mix`` launches a 2-layer rwkv6 step, the preempted
+    run's exit code 17 and the resumed run's steps 4 and 5;
   * prints CUDA-event times of each kernel, its plain version and its byte
     bound, the two-pass dequantize, the plan and the whole ``decompress`` of
     every path; the decode throughput (phases 1-4) and the ``decompress``
@@ -189,11 +209,17 @@ The script
     a request of each load mode; the sharded save, cold, warm and mesh
     restores, one shard's decode, the salvage, the quarantined names and
     the gradient sync's NCCL and gloo times) and their summary
-    (``consumers``); and a ``kernels``
+    (``consumers``); the ``train`` row (each qwen3 step's ms, the median
+    after step 0, tokens a second, peak memory, first and last loss,
+    launches a step, the last step's profile with the device's idle
+    share; the attention backward's ms at layer 0's shape beside
+    autograd's through the plain version; the rwkv6 steps and the GLA
+    backward's ms; the restore's launches); and a ``kernels``
     JSON line, one row a TPU kernel of the
     repo (fourteen) and one for the yardstick ``decode_chunked``
     (``replaces`` null, ``yardstick`` the reference function), with rows
-    5 and 7 on both N-D fields, row 10 on all three
+    5 and 7 on both N-D fields, rows 13 and 14 with their train phase
+    launches and backward ms, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
     their launches on the five consumer phases (``consumer_launches``).  Each
@@ -326,6 +352,18 @@ SALVAGE_KERNELS = ("decode_tiles",)
 #: The compressed gradient sync: one of qwen3-0.6b's MLP matrices.
 GRAD_SHAPE = (28, 1024, 3072)
 GRAD_EB = 1e-7
+#: The train phase: qwen3-0.6b at full width trained by launch/train.py
+#: (remat on, float32 parameters, bfloat16 compute), rwkv6-3b at full
+#: width cut to 2 layers, and the reduced configs of the card-against-CPU
+#: step (float32 compute, AdamW at TRAIN_CHECK_LR) and of the preempt and
+#: resume.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 4, 4, 1024
+RWKV_TRAIN_LAYERS, RWKV_TRAIN_STEPS = 2, 2
+RWKV_TRAIN_BATCH, RWKV_TRAIN_SEQ = 2, 512
+TRAIN_CHECK_LR = 1e-3
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 64
+#: The train row whose run each model kernel's ``train_launches`` counts.
+TRAIN_RUNS = {"flash_attention": "qwen3-0.6b", "gla_time_mix": "rwkv6-3b"}
 
 
 def make_fields(seed: int):
@@ -2547,20 +2585,426 @@ def run_model(seed: int) -> dict:
     return {"rows": rows, "kernels": kernels}
 
 
-def profile_breakdown(fn, top: int = 6) -> dict:
-    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): its wall
-    time (host clock, synchronized), the device time summed over the kernels
-    it launched, their count, the device's idle share of the wall time, and
-    the ``top`` kernels by device time."""
+def _grads(fn, inputs, cotangents, **kw):
+    """``fn(*inputs, **kw)`` under autograd from fresh leaves: (outputs,
+    the inputs' gradients) for the loss ``sum(out_i * cotangent_i)``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in inputs]
+    out = fn(*leaves, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = sum((o.float() * c).sum() for o, c in zip(outs, cotangents))
+    loss.backward()
+    return outs, [t.grad for t in leaves if t is not None]
+
+
+def check_trainable(kname, inputs, stage: str, **kw) -> float:
+    """The gradients of ``kname``'s trainable function on the card (the
+    kernel forward, the torch-ops backward) against autograd through its
+    plain version, from the same inputs and random cotangents: flash's
+    dq, dk, dv within one bfloat16 ulp of each gradient's scale in
+    bfloat16 (both compute in float32 and round once), 1e-4 of it in
+    float32; gla's r, k, v, w, u and state gradients within 1e-4 of it
+    (sums in another order; the forward's boundary states come from the
+    kernel).  Fails unless the forward launched the kernel.  Returns the
+    largest difference over the scale."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import rwkv_gla as GLA
+    from repro_torch.testing import kernel_cases as KC
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(len(stage))
+    if kname == "flash_attention":
+        trainable, plain, wrapper = (FA.flash_attention_trainable,
+                                     FA.flash_attention_plain,
+                                     FA.flash_attention)
+        q, _, v = inputs
+        shapes = [(q.shape[0], q.shape[1], v.shape[2])]
+    else:
+        trainable, plain, wrapper = (GLA.gla_time_mix_trainable,
+                                     GLA.gla_time_mix_plain,
+                                     GLA.gla_time_mix)
+        r, _, v = inputs[:3]
+        shapes = [(r.shape[0], r.shape[1], v.shape[2]),
+                  (r.shape[0], r.shape[2], v.shape[2])]
+    cot = [torch.randn(sh, generator=gen, device="cuda") for sh in shapes]
+    before = wrapper.launches
+    _, got = _grads(trainable, inputs, cot, **kw)
+    require(wrapper.launches > before,
+            f"{stage}: {kname}'s trainable forward launched no kernel")
+    _, want = _grads(plain, inputs, cot, **kw)
+    worst = 0.0
+    for g, w in zip(got, want):
+        require(g.dtype == w.dtype and g.shape == w.shape
+                and bool(torch.isfinite(g).all()),
+                f"{stage}: {kname} gradient {g.dtype}{list(g.shape)}")
+        scale = max(1e-30, float(w.float().abs().max()))
+        tol = (KC.bf16_ulp(scale) if w.dtype == torch.bfloat16
+               else 1e-4 * scale)
+        err = max_abs_err(g, w)
+        require(err <= tol, f"{stage}: {kname} gradient differs from "
+                f"autograd through its plain version by {err} > {tol}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def _train_step_on(cfg, params, batch, ocfg):
+    """``grads_of`` and one ``make_train_step`` step at ``params``."""
+    from repro_torch.models import steps as St
+    from repro_torch.optim import adamw as O
+
+    (loss, _), grads = St.grads_of(params, batch, cfg)
+    new, _, metrics = St.make_train_step(cfg, ocfg)(
+        params, O.init(params, ocfg), batch)
+    return float(loss), grads, new, metrics
+
+
+def check_train_step(arch: str, seed: int) -> dict:
+    """One train step of the reduced ``arch`` (float32 compute) on the card
+    and on the CPU from the same parameters and batch: the loss within
+    1e-5 relative, each gradient within 1e-4 of its leaf's scale, the grad
+    norm within 1e-5, and every updated parameter within a quarter of the
+    learning rate (AdamW's first step moves a parameter by about ``lr *
+    sign(g)``: a gradient cut at a kernel moves it by ``lr`` the other
+    way).  Fails unless the card's step launched the kernel."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import launches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as O
+
+    cfg = configs.get_config(arch).reduced(compute_dtype="float32")
+    kname = ("flash_attention" if cfg.family == "dense"
+             else "gla_time_mix")
+    ocfg = O.AdamWConfig(lr=TRAIN_CHECK_LR)
+    cpu = T.init_model(seed, cfg, "cpu")
+    card = O.tree_map(lambda t: t.cuda(), cpu)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
+                                   global_batch=TRAIN_CHECK_BATCH,
+                                   seed=seed), device="cpu").batch_at(0)
+    before = launches.counts()[kname]
+    lg, gg, ng, mg = _train_step_on(
+        cfg, card, {k: v.cuda() for k, v in batch.items()}, ocfg)
+    torch.cuda.synchronize()
+    n_launch = launches.counts()[kname] - before
+    require(n_launch > 0, f"{arch}: the card's train step launched no "
+            f"{kname}")
+    lc, gc, nc, mc = _train_step_on(cfg, cpu, batch, ocfg)
+    require(abs(lg - lc) <= 1e-5 * abs(lc),
+            f"{arch}: card loss {lg} against the CPU's {lc}")
+    grad_err = 0.0
+    for a, b in zip(O.tree_leaves(gg), O.tree_leaves(gc)):
+        scale = max(1e-30, float(b.abs().max()))
+        err = max_abs_err(a.cpu(), b)
+        require(err <= 1e-4 * scale, f"{arch}: a gradient differs between "
+                f"the card and the CPU by {err} (scale {scale})")
+        grad_err = max(grad_err, err / scale)
+    gn_g, gn_c = float(mg["grad_norm"]), float(mc["grad_norm"])
+    require(abs(gn_g - gn_c) <= 1e-5 * gn_c and abs(
+        float(mg["loss"]) - lc) <= 1e-5 * abs(lc),
+        f"{arch}: grad norm {gn_g} / {gn_c}")
+    param_err = max(max_abs_err(a.cpu(), b) for a, b in zip(
+        O.tree_leaves(ng), O.tree_leaves(nc)))
+    require(param_err <= 0.25 * TRAIN_CHECK_LR,
+            f"{arch}: an updated parameter differs between the card and "
+            f"the CPU by {param_err} > {0.25 * TRAIN_CHECK_LR}")
+    return {"loss_card": lg, "loss_cpu": lc, "grad_norm_card": gn_g,
+            "grad_norm_cpu": gn_c, "max_grad_err_over_scale": grad_err,
+            "max_param_err": param_err, "kernel_launches": n_launch}
+
+
+def run_train(seed: int) -> dict:
+    """The train phase (A10's training half), each path with its own launch
+    check.  qwen3-0.6b at full width trained by ``launch.train.main`` for
+    ``TRAIN_STEPS`` steps at B ``TRAIN_BATCH`` x ``TRAIN_SEQ`` (no
+    checkpoint): every step launches ``flash_attention`` twice a layer (the
+    forward and remat's recompute), its backward torch ops; rwkv6-3b at
+    full width cut to ``RWKV_TRAIN_LAYERS`` layers, ``RWKV_TRAIN_STEPS``
+    ``make_train_step`` steps at B ``RWKV_TRAIN_BATCH`` x
+    ``RWKV_TRAIN_SEQ`` through ``gla_time_mix_trainable`` (the kernel a
+    64-step chunk).  Gates: finite losses; the trainable functions'
+    gradients on the card against autograd through their plain versions
+    (``check_trainable``) at layer 0's shapes and on the random cases of
+    ``repro_torch.testing.kernel_cases``; one reduced train step a family
+    on the card against the CPU (``check_train_step``); preempt (exit 17)
+    and resume of the reduced qwen3 from a compressed checkpoint.  Prints
+    and returns one ``train`` row."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.kernels import rwkv_gla as GLA
+    from repro_torch.launch import train
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as O
+    from repro_torch.testing import kernel_cases as KC
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    row = {}
+
+    # -- the trainable functions' gradients against autograd through the
+    # plain versions, at layer 0's shapes and on the random cases --------
+    qcfg = configs.get_config("qwen3-0.6b")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    bh, g = TRAIN_BATCH * qcfg.n_heads, qcfg.n_heads // qcfg.n_kv_heads
+    d = qcfg.head_dim
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    grad_errs = {"flash_attention": 0.0, "gla_time_mix": 0.0}
+    layer0 = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        # the model hands the kernel q scaled by D ** -0.5, scale 1.0
+        q = randn(bh, TRAIN_SEQ, d, dtype=dtype) * torch.tensor(
+            d ** -0.5, dtype=dtype, device="cuda")
+        k, v = (randn(bh // g, TRAIN_SEQ, d, dtype=dtype) for _ in "kv")
+        layer0[dtype] = (q, k, v)
+        grad_errs["flash_attention"] = max(
+            grad_errs["flash_attention"], check_trainable(
+                "flash_attention", (q, k, v), f"qwen3 layer 0 {dtype}",
+                causal=True, scale=1.0))
+        for case in KC.FLASH_CASES:
+            grad_errs["flash_attention"] = max(
+                grad_errs["flash_attention"], check_trainable(
+                    "flash_attention", KC.flash_inputs(case, dtype, "cuda",
+                                                       seed),
+                    f"flash case {case[0]} {dtype}", causal=case[7],
+                    scale=case[8]))
+    rcfg = dataclasses.replace(configs.get_config("rwkv6-3b"),
+                               n_layers=RWKV_TRAIN_LAYERS)
+    rbh = RWKV_TRAIN_BATCH * rcfg.d_model // 64
+    gla0 = (randn(rbh, RWKV_TRAIN_SEQ, 64), randn(rbh, RWKV_TRAIN_SEQ, 64),
+            randn(rbh, RWKV_TRAIN_SEQ, 64),
+            torch.rand((rbh, RWKV_TRAIN_SEQ, 64), generator=gen,
+                       device="cuda") * 0.1 + 0.899,
+            randn(rbh // RWKV_TRAIN_BATCH, 64) * 0.5, None)
+    grad_errs["gla_time_mix"] = check_trainable(
+        "gla_time_mix", gla0, "rwkv6 layer 0")
+    for case in KC.GLA_CASES:
+        grad_errs["gla_time_mix"] = max(
+            grad_errs["gla_time_mix"], check_trainable(
+                "gla_time_mix", KC.gla_inputs(case, "cuda", seed),
+                f"gla case {case[0]}"))
+    row["gradient_checks"] = {
+        "flash_cases": 2 * (1 + len(KC.FLASH_CASES)),
+        "gla_cases": 1 + len(KC.GLA_CASES),
+        "max_err_over_scale": grad_errs}
+    print(f"train gradients {json.dumps(row['gradient_checks'])}")
+
+    # -- one reduced step a family, the card against the CPU -------------
+    row["card_vs_cpu"] = {arch: check_train_step(arch, seed)
+                          for arch in MODEL_ARCHS}
+    print(f"train card vs cpu {json.dumps(row['card_vs_cpu'])}")
+
+    # -- qwen3-0.6b at full width through launch/train.py ----------------
+    times, flash_steps, prof = [], [], {}
+    real_make = St.make_train_step
+
+    def timed_make(*a, **kw):
+        step_fn = real_make(*a, **kw)
+
+        def run(params, opt_state, batch):
+            last = len(times) == TRAIN_STEPS - 1
+            n0 = FA.flash_attention.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if last:     # the last step under the profiler, timed apart
+                out, stats = profile_once(
+                    lambda: step_fn(params, opt_state, batch))
+                prof.update(stats)
+            else:
+                out = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            flash_steps.append(FA.flash_attention.launches - n0)
+            return out
+
+        return run
+
+    argv = ["--arch", "qwen3-0.6b", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--seed", str(seed)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    printed = io.StringIO()
+    St.make_train_step = timed_make
+    try:
+        with contextlib.redirect_stdout(printed):
+            _, qcounts = run_path("qwen3-0.6b train", ("flash_attention",),
+                                  lambda: train.main(argv))
+    finally:
+        St.make_train_step = real_make
+    print(printed.getvalue(), end="")
+    losses = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"\[train\] step=(\d+) loss=([-\d.naif]+)", printed.getvalue())}
+    require(sorted(losses) == list(range(TRAIN_STEPS))
+            and all(np.isfinite(x) for x in losses.values()),
+            f"qwen3-0.6b train losses {losses}")
+    want = 2 * qcfg.n_layers
+    require(flash_steps == [want] * TRAIN_STEPS,
+            f"qwen3-0.6b train: flash_attention launches a step "
+            f"{flash_steps}, not {want} (forward and recompute a layer)")
+    unprofiled = times[1:TRAIN_STEPS - 1]
+    step_ms = float(np.median(unprofiled))
+    row["qwen3-0.6b"] = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "step_ms": times, "median_step_ms_after_step_0": step_ms,
+        "median_over": "steps 1 to the one before the profiled last",
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms * 1e-3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_loss": losses[0], "last_loss": losses[TRAIN_STEPS - 1],
+        "flash_launches_per_step": flash_steps,
+        "train_launches": qcounts["flash_attention"],
+        "last_step_profile": prof}
+    torch.cuda.empty_cache()
+
+    # the attention backward at layer 0's shape (BH 64, S 1024, D 128,
+    # GQA 2, bf16): the trainable function's torch-ops backward, and
+    # autograd's through the plain version, each on a kept graph
+    q, k, v = layer0[torch.bfloat16]
+    do = randn(bh, TRAIN_SEQ, d, dtype=torch.bfloat16)
+
+    def backward_ms(fn, iters):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True, scale=1.0)
+        return cuda_ms(lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), iters)
+
+    row["attention_backward"] = {
+        "shape": [[bh, TRAIN_SEQ, d], [bh // g, TRAIN_SEQ, d]],
+        "dtype": "bfloat16",
+        "ms": backward_ms(FA.flash_attention_trainable, 10),
+        "plain_autograd_ms": backward_ms(FA.flash_attention_plain, 5)}
+    del layer0, q, k, v, do
+
+    # -- rwkv6-3b at full width, 2 layers, through make_train_step -------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ocfg = O.AdamWConfig()
+    params = T.init_model(seed, rcfg, "cuda")
+    opt = O.init(params, ocfg)
+    data = SyntheticLM(DataConfig(vocab=rcfg.vocab, seq_len=RWKV_TRAIN_SEQ,
+                                  global_batch=RWKV_TRAIN_BATCH, seed=seed),
+                       device="cuda")
+    step_fn = St.make_train_step(rcfg, ocfg)
+    rtimes, rlosses = [], []
+
+    def rwkv_steps():
+        nonlocal params, opt
+        for s in range(RWKV_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, data.batch_at(s))
+            rlosses.append(float(m["loss"]))
+            rtimes.append((time.perf_counter() - t0) * 1e3)
+
+    _, rcounts = run_path("rwkv6-3b train", ("gla_time_mix",), rwkv_steps)
+    require(all(np.isfinite(rlosses)), f"rwkv6-3b train losses {rlosses}")
+    chunks = -(-RWKV_TRAIN_SEQ // GLA.CHUNK)
+    want = RWKV_TRAIN_STEPS * rcfg.n_layers * 2 * chunks
+    require(rcounts["gla_time_mix"] == want,
+            f"rwkv6-3b train: {rcounts['gla_time_mix']} gla_time_mix "
+            f"launches, not {want} (a chunk, forward and recompute)")
+    del params, opt
+    torch.cuda.empty_cache()
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in gla0]
+    y, st = GLA.gla_time_mix_trainable(*leaves)
+    dy = randn(*y.shape)
+    ins = [t for t in leaves if t is not None]
+    row["rwkv6-3b"] = {
+        "layers": rcfg.n_layers, "steps": RWKV_TRAIN_STEPS,
+        "batch": RWKV_TRAIN_BATCH, "seq": RWKV_TRAIN_SEQ,
+        "step_ms": rtimes, "losses": rlosses,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_launches": rcounts["gla_time_mix"],
+        "gla_backward_ms": cuda_ms(lambda: torch.autograd.grad(
+            y, ins, dy, retain_graph=True), 1),
+        "gla_backward_shape": [list(t.shape) for t in ins]}
+    del y, st, leaves, ins, gla0
+
+    # -- preempt and resume of the reduced qwen3, compressed checkpoint --
+    directory = os.path.join(ROOT, "build", "chip_smoke_train")
+    shutil.rmtree(directory, ignore_errors=True)
+    base = ["--arch", "qwen3-0.6b", "--reduced", "--steps", "6", "--batch",
+            "2", "--seq", "32", "--ckpt-dir", directory, "--ckpt-every",
+            "2", "--log-every", "1", "--ckpt-compress-eb", "1e-4", "--seed",
+            str(seed)]
+
+    def preempt():
+        try:
+            train.main(base + ["--preempt-at", "3"])
+        except SystemExit as e:
+            return e.code
+        return 0
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        code, _ = run_path("train preempt", ("flash_attention",), preempt)
+        resumed, rc = run_path("train resume", (
+            "flash_attention", "count_subseq", "decode_tiles"),
+            lambda: train.main(base))
+    out = printed.getvalue()
+    print(out, end="")
+    require(code == 17, f"train --preempt-at 3 exited with {code}, not 17")
+    after = {int(m.group(1)): float(m.group(2)) for m in re.finditer(
+        r"\[train\] step=(\d+) loss=([-\d.naif]+)", out.split(
+            "simulated preemption")[-1])}
+    require("[train] resumed from step 3" in out and sorted(after) == [4, 5]
+            and all(np.isfinite(x) for x in after.values()),
+            f"train resume: {after}")
+    row["preempt_resume"] = {
+        "exit_code": code, "resumed_losses": after,
+        "restore_launches": {k: rc[k] for k in ("count_subseq",
+                                                "decode_tiles")},
+        "steps": sorted(os.listdir(directory))}
+    shutil.rmtree(directory, ignore_errors=True)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"train {json.dumps(row)}")
+    return row
+
+
+def profile_breakdown(fn, top: int = 6) -> dict:
+    """One call of ``fn`` after a warm-up call, under ``torch.profiler``
+    (``profile_once``)."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
+    return profile_once(fn, top)[1]
+
+
+def profile_once(fn, top: int = 6) -> tuple:
+    """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA): ``(its
+    result, stats)``, the stats its wall time (host clock, synchronized),
+    the device time summed over the kernels it launched, their count, the
+    device's idle share of the wall time, and the ``top`` kernels by device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -2571,10 +3015,10 @@ def profile_breakdown(fn, top: int = 6) -> dict:
         by_name[e.name] = (ms + e.device_time_total / 1e3, n + 1)
     device = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return {"wall_ms": wall, "device_ms": device,
-            "device_kernels": len(kernels),
-            "idle_share": max(0.0, 1 - device / wall),
-            "top": [[name[:60], ms, n] for name, (ms, n) in ranked]}
+    return out, {"wall_ms": wall, "device_ms": device,
+                 "device_kernels": len(kernels),
+                 "idle_share": max(0.0, 1 - device / wall),
+                 "top": [[name[:60], ms, n] for name, (ms, n) in ranked]}
 
 
 def _leaves(tree):
@@ -3171,6 +3615,7 @@ def main() -> int:
     del xs, results, fused, padded, padded_fused, tuned
     torch.cuda.empty_cache()
     model = run_model(args.seed)
+    trained = run_train(args.seed)
     pager = run_pager(args.seed)
     consumers = {"checkpoint": run_checkpoint(args.seed),
                  "faults": run_faults(), "serve": run_serve_kv(args.seed),
@@ -3287,7 +3732,13 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-            "serve_launches": k["serve_launches"], "shape": k["shape"],
+            "serve_launches": k["serve_launches"],
+            "train_launches": trained[TRAIN_RUNS[kname]]["train_launches"],
+            "train_backward_ms": (
+                trained["attention_backward"]["ms"]
+                if kname == "flash_attention"
+                else trained["rwkv6-3b"]["gla_backward_ms"]),
+            "shape": k["shape"],
             "dtype": k["dtype"], **{key: k[key] for key in (
                 "decode_shape", "decode_ms", "decode_device_ms",
                 "decode_bound_ms") if key in k}})

@@ -1,11 +1,13 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Port of ``src/repro/configs/__init__.py``: the ten configs, copied as they
-are.  The shape cells (``shapes.py``, ``cells``) come with the launchers
-(ROADMAP A10).
+Port of ``src/repro/configs/__init__.py``: the ten configs and the shape
+cells (``shapes.py``, ``cells``), copied as they are.
 """
 
 from __future__ import annotations
+
+from repro_torch.configs import shapes  # noqa: F401
+from repro_torch.configs.shapes import SHAPES, ShapeCell  # noqa: F401
 
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3
 from repro_torch.configs.starcoder2_15b import CONFIG as _sc2
@@ -31,3 +33,15 @@ def get_config(arch: str):
     if arch not in REGISTRY:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return REGISTRY[arch]
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) dry-run cells, honoring the long_500k skip rule."""
+    out = []
+    for name, cfg in REGISTRY.items():
+        for sname, cell in SHAPES.items():
+            skip = sname == "long_500k" and not cfg.is_subquadratic
+            if skip and not include_skipped:
+                continue
+            out.append((name, sname, skip))
+    return out

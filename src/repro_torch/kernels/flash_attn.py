@@ -16,8 +16,15 @@ row ``bh // groups`` (the ``(B, H, S, D)`` layout flattened, b-major).
 
 The wrapper follows the port's rules: input checks, the kernel for CUDA
 tensors, the plain version for CPU tensors, any other device raises, and
-each launch is counted (``kernels/launches``).  The backward of
-``flash_attention_trainable`` comes with training (ROADMAP A10).
+each launch is counted (``kernels/launches``).
+
+``flash_attention_trainable`` is the training counterpart (reference
+``flash_attention_trainable``, a Pallas forward with a recomputed XLA
+backward): a ``torch.autograd.Function`` whose forward is
+``flash_attention`` (the kernel for CUDA tensors) and whose backward
+recomputes the softmax from the saved ``q, k, v`` in float32 torch ops,
+one query chunk at a time.  ``dense_attention`` is the reference's
+``_xla_attention``, the oracle of the tests.
 """
 
 from __future__ import annotations
@@ -112,3 +119,88 @@ def flash_attention(q, k, v, *, causal: bool = True,
                            f"error {rc}")
     launches.launched(flash_attention)
     return out
+
+
+def dense_attention(q, k, v, causal: bool = True, scale: float | None = None):
+    """The reference's ``_xla_attention`` in torch ops (differentiable):
+    float32 scores of ``q`` and ``k`` times ``scale`` (default ``D **
+    -0.5``), the causal mask, softmax, ``p @ v``, cast to ``q``'s type.  GQA
+    as :func:`flash_attention` takes it."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    groups = q.shape[0] // k.shape[0]
+    kf = k.float().repeat_interleave(groups, 0)
+    vf = v.float().repeat_interleave(groups, 0)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), kf) * scale
+    if causal:
+        mask = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        s = torch.where(mask, s, NEG_INF)
+    return torch.einsum("bqk,bkd->bqd", torch.softmax(s, -1), vf).to(q.dtype)
+
+
+def attention_backward(q, k, v, do, *, causal: bool, scale: float,
+                       chunk: int = 512):
+    """``(dq, dk, dv)`` of softmax attention at ``q`` (BH, Sq, D), ``k`` (BH
+    / G, Skv, D), ``v`` (BH / G, Skv, Dv) for the output gradient ``do``
+    (BH, Sq, Dv), each in its input's type.
+
+    The softmax is recomputed from ``q`` and ``k`` in float32, ``chunk``
+    query rows at a time, so at most ``(BH, chunk, Skv)`` scores live at
+    once (the reference's checkpointed query chunk).  Query row ``bh``
+    reads kv row ``bh // G``, so ``dk`` and ``dv`` sum over each group."""
+    bh, sq, d = q.shape
+    bkv, skv, dv_ = v.shape
+    g = bh // bkv
+    qf = q.float().reshape(bkv, g, sq, d)
+    dof = do.float().reshape(bkv, g, sq, dv_)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    kpos = torch.arange(skv, device=q.device)
+    for lo in range(0, sq, chunk):
+        n = min(chunk, sq - lo)
+        # a kv row's g query rows of the chunk as one (g * n)-row matrix
+        qs = (qf[:, :, lo:lo + n] * scale).reshape(bkv, g * n, d)
+        doc = dof[:, :, lo:lo + n].reshape(bkv, g * n, dv_)
+        s = qs @ kf.transpose(1, 2)
+        if causal:
+            qpos = lo + torch.arange(g * n, device=q.device) % n
+            s.masked_fill_(kpos[None, :] > qpos[:, None], NEG_INF)
+        p = torch.softmax(s, -1)
+        del s
+        dv += p.transpose(1, 2) @ doc
+        # ds = p * (dp - rowsum(dp * p)), in place on dp
+        ds = doc @ vf.transpose(1, 2)
+        ds.sub_((ds * p).sum(-1, keepdim=True)).mul_(p)
+        del p
+        dq[:, :, lo:lo + n] = (ds @ kf).reshape(bkv, g, n, d) * scale
+        dk += ds.transpose(1, 2) @ qs
+        del ds
+    return (dq.reshape(bh, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale, ctx.chunk = causal, scale, chunk
+        return flash_attention(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, do, causal=ctx.causal,
+                                        scale=ctx.scale, chunk=ctx.chunk)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_trainable(q, k, v, causal: bool = True,
+                              scale: float | None = None, chunk: int = 512):
+    """Differentiable :func:`flash_attention`: the kernel forward (the plain
+    version for CPU tensors) and a recomputed torch-ops backward
+    (:func:`attention_backward`, ``chunk`` query rows at a time).  Saves only
+    ``q``, ``k`` and ``v``: no score block outlives the forward."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return _FlashAttention.apply(q, k, v, bool(causal), scale, int(chunk))

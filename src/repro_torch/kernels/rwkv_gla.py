@@ -18,6 +18,17 @@ it is the reference's ``gla_time_mix``.
 The wrapper follows the port's rules: input checks, the kernel for CUDA
 tensors, the plain version for CPU tensors, any other device raises, and
 each launch is counted (``kernels/launches``).
+
+``gla_time_mix_trainable`` is the training counterpart: a
+``torch.autograd.Function`` whose forward runs ``gla_time_mix`` one chunk
+of ``CHUNK`` steps at a time with the state carried through, keeping the
+state at each chunk boundary, and whose backward takes the chunks in
+reverse, recomputing each one's states from its boundary state: the
+memory profile of the reference's checkpointed chunk scan
+(``models/rwkv.py`` ``time_mix``, whose backward is XLA autodiff), with
+the recurrence's gradient derived by hand in torch ops
+(``_chunk_backward``).  The tests hold it against autograd through
+``gla_time_mix_plain`` and ``jax.grad`` through the reference.
 """
 
 from __future__ import annotations
@@ -109,3 +120,94 @@ def gla_time_mix(r, k, v, w, u, state=None):
                            f"{rc}")
     launches.launched(gla_time_mix)
     return y, state_out
+
+
+#: Steps a chunk of ``gla_time_mix_trainable``: the reference's ``chunk``.
+CHUNK = 64
+
+
+class _GLATimeMix(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state, chunk):
+        s = r.shape[1]
+        ys, starts = [], []
+        st = state
+        for lo in range(0, s, chunk):
+            hi = min(lo + chunk, s)
+            starts.append(st)
+            y, st = gla_time_mix(*(t[:, lo:hi].contiguous()
+                                   for t in (r, k, v, w)), u, st)
+            ys.append(y)
+        boundaries = [torch.zeros((r.shape[0], r.shape[2], v.shape[2]),
+                                  dtype=torch.float32, device=r.device)
+                      if b is None else b for b in starts]
+        ctx.save_for_backward(r, k, v, w, u, *boundaries)
+        ctx.chunk = chunk
+        ctx.has_state = state is not None
+        return torch.cat(ys, 1), st
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, *boundaries = ctx.saved_tensors
+        chunk = ctx.chunk
+        u_rows = u.repeat(r.shape[0] // u.shape[0], 1)
+        grads = [torch.empty_like(t) for t in (r, k, v, w)]
+        du_rows = torch.zeros_like(u_rows)
+        carry = dstate
+        for i in reversed(range(len(boundaries))):
+            lo = i * chunk
+            hi = min(lo + chunk, r.shape[1])
+            *pieces, du, carry = _chunk_backward(
+                *(t[:, lo:hi] for t in (r, k, v, w, dy)), u_rows,
+                boundaries[i], carry)
+            for g, piece in zip(grads, pieces):
+                g[:, lo:hi] = piece
+            du_rows += du
+        du = du_rows.reshape(-1, *u.shape).sum(0)
+        return (*grads, du, carry if ctx.has_state else None, None)
+
+
+def _chunk_backward(r, k, v, w, dy, u_rows, state, dstate):
+    """The recurrence's reverse over one chunk, in torch ops: ``(dr, dk,
+    dv, dw, du per row, dstate in)`` from ``dy`` and ``dstate`` (the
+    gradient of the state after the chunk), ``state`` the state before it.
+
+    With ``S_t = w_t S_{t-1} + k_t v_t^T`` and ``y_t = r_t (S_{t-1} + u
+    k_t v_t^T)``, the state's gradient runs back as ``G_{t-1} = w_t G_t +
+    r_t dy_t^T`` (``G_t`` that of ``S_t``); then, for every step at once,
+    ``dr = S_{t-1} dy + u k (v . dy)``, ``dk = G_t v + r u (v . dy)``,
+    ``dv = G_t^T k + (r . u k) dy``, ``dw = rowsum(G_t * S_{t-1})``, ``du =
+    sum_t r k (v . dy)``.  Two sequential ops a step (the forward's states
+    again, then ``G``); the rest is batched over the chunk."""
+    kv = k[..., :, None] * v[..., None, :]             # (BH, c, dk, dv)
+    prev = torch.empty_like(kv)                        # S_{t-1}
+    st = state
+    for t in range(r.shape[1]):
+        prev[:, t] = st
+        st = torch.addcmul(kv[:, t], w[:, t, :, None], st)
+    del kv
+    grad = r[..., :, None] * dy[..., None, :]          # r_t dy_t^T, then G_t
+    carry = dstate
+    for t in reversed(range(r.shape[1])):
+        rdy = grad[:, t].clone()
+        grad[:, t] = carry
+        carry = torch.addcmul(rdy, w[:, t, :, None], carry)
+    vdy = (v * dy).sum(-1, keepdim=True)               # (BH, c, 1)
+    uk = u_rows[:, None, :] * k
+    dr = torch.einsum("btij,btj->bti", prev, dy) + uk * vdy
+    dk = torch.einsum("btij,btj->bti", grad, v) + r * u_rows[:, None] * vdy
+    dv = torch.einsum("bti,btij->btj", k, grad) + (r * uk).sum(
+        -1, keepdim=True) * dy
+    dw = (grad * prev).sum(-1)
+    du = (r * k * vdy).sum(1)
+    return dr, dk, dv, dw, du, carry
+
+
+def gla_time_mix_trainable(r, k, v, w, u, state=None, chunk: int = CHUNK):
+    """Differentiable :func:`gla_time_mix` (same arguments and results):
+    gradients for ``r``, ``k``, ``v``, ``w``, ``u`` (summed over the batch
+    rows that share a head) and the state in, from the gradients of ``y``
+    and of the state out.  Saves the inputs and one state a ``chunk``
+    steps; the backward holds one chunk's states and state gradients at
+    a time."""
+    return _GLATimeMix.apply(r, k, v, w, u, state, int(chunk))

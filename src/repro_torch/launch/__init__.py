@@ -1,1 +1,2 @@
-"""Launchers of the port (``src/repro/launch``): ``serve``."""
+"""Launchers of the port (``src/repro/launch``): ``serve``, ``train`` and
+``mesh``."""

@@ -1,2 +1,3 @@
 """The model stack: configs, layers, attention, RWKV-6, the forward, the
-decode step and the serving steps (port of ``src/repro/models``)."""
+decode step, and the training and serving steps (port of
+``src/repro/models``)."""

@@ -1,9 +1,11 @@
 """Attention: GQA / MQA, qk-norm, QKV bias, RoPE, KV-cache decode.
 
-Port of ``src/repro/models/attention.py``.  Prefill runs ``blockwise_attn``,
-whose counterpart on the card is the hand-written ``flash_attention``
-kernel (``kernels/flash_attn.py``, the TPU kernel written to replace the
-reference's XLA blockwise loop); a CPU tensor runs its plain version.
+Port of ``src/repro/models/attention.py``.  Training and prefill run
+``blockwise_attn``, whose counterpart on the card is the hand-written
+``flash_attention`` kernel (``kernels/flash_attn.py``, the TPU kernel
+written to replace the reference's XLA blockwise loop; under autograd
+inside ``flash_attention_trainable``); a CPU tensor runs its plain
+version.
 Decode is the reference's dense one-token attention over the cache, in
 torch ops (the reference's is XLA).  Sliding windows (SWA), the int8 KV
 cache (``kv_quant``), cross-attention (``kv_x``) and M-RoPE come later
@@ -98,28 +100,36 @@ def attn_kernel_inputs(q, k, v):
     return rows(q), rows(k), rows(v)
 
 
-def blockwise_attn(q, k, v, *, causal: bool, window: int | None = None):
+def blockwise_attn(q, k, v, *, causal: bool, chunk: int = 512,
+                   window: int | None = None):
     """Flash-style attention through the ``flash_attention`` kernel.
 
     q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0.  The
     scores, softmax and ``p @ v`` stay in float32 (the reference rounds
     ``exp(s - m)`` to the working type before ``e @ v``; in bfloat16 the two
-    differ by that rounding).  The reference's XLA query ``chunk`` has no
-    counterpart here.  Returns (B, Sq, Hq, Dv).
+    differ by that rounding).  When autograd records (grad mode on and an
+    input that requires a gradient), the kernel runs inside
+    ``flash_attention_trainable``, whose backward recomputes the softmax
+    ``chunk`` query rows at a time (the reference's checkpointed query
+    chunk); otherwise the kernel runs alone.  Returns (B, Sq, Hq, Dv).
     """
     if window is not None:
         raise unported("window")
     b, sq, hq, _ = q.shape
     dv = v.shape[-1]
     q3, k3, v3 = attn_kernel_inputs(q, k, v)
-    out = FA.flash_attention(q3, k3, v3, causal=causal, scale=1.0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = FA.flash_attention_trainable(q3, k3, v3, causal, 1.0, chunk)
+    else:
+        out = FA.flash_attention(q3, k3, v3, causal=causal, scale=1.0)
     return out.reshape(b, hq, sq, dv).transpose(1, 2)
 
 
 def attn_block(x, p, cfg: ModelConfig, positions, *, causal=True,
                kv_x=None):
     q, k, v = _project_qkv(x, p, cfg, positions, kv_x=kv_x)
-    out = blockwise_attn(q, k, v, causal=causal, window=cfg.swa_window)
+    out = blockwise_attn(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                         window=cfg.swa_window)
     return torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
 
 

@@ -50,7 +50,9 @@ def _unstack(tree, i):
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
-    """The port's parameters from the reference's tree of numpy arrays."""
+    """The port's parameters from the reference's tree of numpy arrays.
+    A leaf may be a dict of arrays (an int8 optimizer-state leaf, ``{"q",
+    "scale"}`` or ``{"f"}``): each of its arrays crosses the same way."""
     out = {}
     for key, sub in np_tree.items():
         if key == "layers":
@@ -58,7 +60,7 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
                              lambda a: to_torch(a, device))
                         for i in range(cfg.n_layers)]
         elif key in ("embed", "unembed", "final_norm"):
-            out[key] = to_torch(sub, device)
+            out[key] = _map(sub, lambda a: to_torch(a, device))
         else:
             raise NotImplementedError(
                 f"parameter group {key!r} belongs to a family not ported "
@@ -80,6 +82,74 @@ def stack_layers(params):
 
     return {key: stack(sub) if key == "layers" else sub
             for key, sub in params.items()}
+
+
+def unstack_layers(tree):
+    """The inverse of ``stack_layers``: the ``"layers"`` group's stacked
+    leaves (dicts of them included) split along axis 0 into the port's list
+    of per-layer dicts; the other groups unchanged.  A tree restored from a
+    checkpoint crosses back this way."""
+    def first(t):
+        while isinstance(t, dict):
+            t = next(iter(t.values()))
+        return t
+
+    def pick(t, i):
+        if isinstance(t, dict):
+            return {k: pick(v, i) for k, v in t.items()}
+        return t[i]
+
+    out = dict(tree)
+    if "layers" in tree:
+        n = first(tree["layers"]).shape[0]
+        out["layers"] = [pick(tree["layers"], i) for i in range(n)]
+    return out
+
+
+def tree_to_numpy(tree):
+    """A tree of torch tensors (dicts) as numpy arrays (``to_numpy``)."""
+    return _map(tree, to_numpy)
+
+
+def params_to_numpy(params):
+    """The port's parameters as the reference's tree of numpy arrays: the
+    layers stacked (``stack_layers``), bfloat16 as float32."""
+    return tree_to_numpy(stack_layers(params))
+
+
+def opt_state_from_jax(np_state, cfg: ModelConfig, device="cuda"):
+    """The port's AdamW state (``optim/adamw.py``) from the reference's
+    ``{"m", "v", "step"}`` as numpy arrays: ``m`` and ``v`` as
+    ``params_from_jax`` moves a parameter tree (float32 leaves, or int8
+    ``{"q", "scale"}`` / ``{"f"}`` dicts), ``step`` a 0-dim int32 tensor."""
+    return {"m": params_from_jax(np_state["m"], cfg, device),
+            "v": params_from_jax(np_state["v"], cfg, device),
+            "step": to_torch(np.asarray(np_state["step"], np.int32),
+                             device)}
+
+
+def sorted_tree(tree):
+    """``tree`` with every dict's keys in sorted order: the order of the
+    trees a jitted reference step returns, and so of its checkpoints'
+    manifests."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def opt_state_stacked(state):
+    """The port's AdamW state with ``m`` and ``v`` in the reference's layout
+    (``stack_layers``), keys sorted: what a checkpoint stores under
+    ``opt``."""
+    return sorted_tree({"m": stack_layers(state["m"]),
+                        "v": stack_layers(state["v"]),
+                        "step": state["step"]})
+
+
+def opt_state_to_numpy(state):
+    """The port's AdamW state as the reference's ``{"m", "v", "step"}`` of
+    numpy arrays: the inverse of ``opt_state_from_jax``."""
+    return tree_to_numpy(opt_state_stacked(state))
 
 
 def cache_from_jax(np_cache, device="cuda"):

@@ -4,7 +4,10 @@ Port of ``src/repro/models/rwkv.py``.  The reference runs the recurrence as
 an exact per-step ``lax.scan``; its TPU replacement is the GLA kernel, and
 here the recurrence runs through that kernel's port (``kernels/rwkv_gla.py``
 ``gla_time_mix``: the CUDA kernel for CUDA tensors, its plain per-step
-version for CPU tensors), with the state in and out.
+version for CPU tensors), with the state in and out; when autograd records,
+through ``gla_time_mix_trainable`` (the kernel a chunk of 64 steps at a
+time forward, each chunk recomputed from its boundary state backward: the
+reference's checkpointed chunk scan).
 
 Recurrence (head h, channels i->k, j->v):
   S_t = diag(w_t) S_{t-1} + k_t^T v_t
@@ -97,7 +100,12 @@ def time_mix(x, x_prev, state, p, cfg: ModelConfig):
     xs = _token_shift(x, x_prev)
     r, k, v, g, w = _time_mix_proj(x, xs, p, cfg)
     st = None if state is None else state.reshape(bsz * h, dh, dh)
-    y, st = GLA.gla_time_mix(*recurrence_inputs(r, k, v, w, p, cfg), st)
+    ins = recurrence_inputs(r, k, v, w, p, cfg)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (*ins, st)):
+        y, st = GLA.gla_time_mix_trainable(*ins, st)
+    else:
+        y, st = GLA.gla_time_mix(*ins, st)
     y = y.reshape(bsz, h, s, dh).transpose(1, 2).reshape(bsz, s, d)
     y = y.to(x.dtype)
     y = L.rms_norm(y, p["ln_x"]) * g

@@ -10,12 +10,16 @@ Parameters are a dict shaped like the reference's tree, except that the
 per-layer stack is a list: ``params["layers"][i]["attn"]["wq"]`` here is
 ``params["layers"]["attn"]["wq"][i]`` there (``models/convert.py`` moves a
 tree across).  The layers run as a Python loop (the reference's
-``lax.scan``); remat comes with training.
+``lax.scan``).  With ``cfg.remat``, while autograd records, each layer body
+runs under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+recomputed in the backward, as the reference's ``jax.checkpoint``
+(``_maybe_remat``) has them.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -114,7 +118,7 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# Layer bodies (prefill)
+# Layer bodies (training and prefill)
 # ---------------------------------------------------------------------------
 
 
@@ -135,8 +139,20 @@ def _rwkv_layer(x, p, cfg: ModelConfig):
     return x + y
 
 
+def _maybe_remat(f, cfg: ModelConfig):
+    """``f`` under ``torch.utils.checkpoint`` (non-reentrant) when
+    ``cfg.remat`` is set and autograd records; ``f`` itself otherwise."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return f
+
+    def body(*args):
+        return _checkpoint.checkpoint(f, *args, use_reentrant=False)
+
+    return body
+
+
 # ---------------------------------------------------------------------------
-# Forward (prefill): tokens -> logits
+# Forward (training and prefill): tokens -> logits
 # ---------------------------------------------------------------------------
 
 
@@ -153,11 +169,13 @@ def forward_hidden(params, tokens, cfg: ModelConfig, extra_embeds=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "dense":
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        body = _maybe_remat(_dense_layer, cfg)
         for lp in params["layers"]:
-            x = _dense_layer(x, lp, cfg, positions)
+            x = body(x, lp, cfg, positions)
     else:
+        body = _maybe_remat(_rwkv_layer, cfg)
         for lp in params["layers"]:
-            x = _rwkv_layer(x, lp, cfg)
+            x = body(x, lp, cfg)
     return L.rms_norm(x, params["final_norm"]), aux
 
 

@@ -68,3 +68,17 @@ def shard(x, *spec):
         return x
     return x.redistribute(_MESH, NamedSharding(_MESH, P(*resolved))
                           .placements(x.shape))
+
+
+def place(x, sharding):
+    """``x`` on ``sharding`` (a ``NamedSharding``), the counterpart of the
+    reference's ``with_sharding_constraint`` on a leaf: a ``DTensor`` is
+    redistributed to the sharding's placements, a plain tensor (the global
+    value, on every rank) is cut to this rank's piece and wrapped
+    (``NamedSharding.distribute``, no collective).  ``sharding`` None
+    returns ``x``."""
+    if sharding is None:
+        return x
+    if isinstance(x, DTensor):
+        return x.redistribute(sharding.mesh, sharding.placements(x.shape))
+    return sharding.distribute(x)

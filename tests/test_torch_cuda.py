@@ -2320,3 +2320,117 @@ def test_fault_campaign_on_card(cuda, tmp_path):
         {"store", "decode", "checkpoint", "paging"}
     x = torch.arange(8, device=cuda, dtype=torch.float32)
     assert float(x.sum()) == 28.0
+
+
+# ---------------------------------------------------------------------------
+# Training: the trainable functions and a train step on the card
+# ---------------------------------------------------------------------------
+
+
+def _autograd(fn, inputs, cotangents, **kw):
+    leaves = [None if t is None else t.detach().clone().requires_grad_(True)
+              for t in inputs]
+    out = fn(*leaves, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    sum((o.float() * c).sum() for o, c in zip(outs, cotangents)).backward()
+    return [t.grad for t in leaves if t is not None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", KC.FLASH_CASES, ids=lambda c: c[0])
+def test_flash_trainable_gradients_on_card(cuda, full_f32_matmul, case,
+                                           dtype):
+    """dq, dk, dv of flash_attention_trainable (the kernel forward, one
+    launch) against autograd through the plain version: within one bf16
+    ulp of each gradient's scale in bfloat16 (both compute in float32 and
+    round once), 1e-4 of it in float32."""
+    q, k, v = KC.flash_inputs(case, dtype, cuda)
+    cot = [torch.randn((q.shape[0], q.shape[1], v.shape[2]), device=cuda)]
+    kw = {"causal": case[7], "scale": case[8]}
+    before = FA.flash_attention.launches
+    got = _autograd(FA.flash_attention_trainable, (q, k, v), cot, **kw)
+    assert FA.flash_attention.launches == before + 1
+    want = _autograd(FA.flash_attention_plain, (q, k, v), cot, **kw)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == dtype and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        tol = KC.bf16_ulp(scale) if dtype == torch.bfloat16 else 1e-4 * scale
+        assert float((g.float() - w.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", KC.GLA_CASES, ids=lambda c: c[0])
+def test_gla_trainable_gradients_on_card(cuda, case):
+    """The six gradients of gla_time_mix_trainable (the kernel a 64-step
+    chunk forward) against autograd through the plain recurrence, within
+    1e-4 of each gradient's scale."""
+    args = KC.gla_inputs(case, cuda)
+    r, v = args[0], args[2]
+    cot = [torch.randn((r.shape[0], r.shape[1], v.shape[2]), device=cuda),
+           torch.randn((r.shape[0], r.shape[2], v.shape[2]), device=cuda)]
+    before = GLA.gla_time_mix.launches
+    got = _autograd(GLA.gla_time_mix_trainable, args, cot)
+    assert GLA.gla_time_mix.launches == before + -(-r.shape[1] // GLA.CHUNK)
+    want = _autograd(GLA.gla_time_mix_plain, args, cot)
+    assert len(got) == len(want) == (6 if args[5] is not None else 5)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+def test_train_step_on_card_matches_cpu(cuda, full_f32_matmul, arch):
+    """One reduced train step (float32 compute) on the card and on the CPU
+    from the same parameters and batch: the loss within 1e-5 relative,
+    every gradient within 1e-4 of its leaf's scale, every updated
+    parameter within a quarter of the learning rate.  A gradient cut at a
+    kernel would move the projections' updates by about lr."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as O
+
+    cfg = configs.get_config(arch).reduced(compute_dtype="float32")
+    ocfg = O.AdamWConfig(lr=1e-3)
+    cpu = T.init_model(0, cfg, "cpu")
+    card = O.tree_map(lambda t: t.to(cuda), cpu)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=48,
+                                   global_batch=4), device="cpu").batch_at(0)
+    kernel = FA.flash_attention if cfg.family == "dense" else \
+        GLA.gla_time_mix
+    before = kernel.launches
+    (lg, _), gg = St.grads_of(card, {k: v.to(cuda) for k, v in
+                                     batch.items()}, cfg)
+    assert kernel.launches > before
+    (lc, _), gc = St.grads_of(cpu, batch, cfg)
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for a, b in zip(O.tree_leaves(gg), O.tree_leaves(gc)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    ng, _, mg = St.make_train_step(cfg, ocfg)(
+        card, O.init(card, ocfg), {k: v.to(cuda) for k, v in batch.items()})
+    nc, _, mc = St.make_train_step(cfg, ocfg)(cpu, O.init(cpu, ocfg), batch)
+    assert abs(float(mg["grad_norm"]) - float(mc["grad_norm"])) <= \
+        1e-5 * float(mc["grad_norm"])
+    for a, b in zip(O.tree_leaves(ng), O.tree_leaves(nc)):
+        assert float((a.cpu() - b).abs().max()) <= 0.25 * ocfg.lr
+
+
+def test_train_main_preempts_and_resumes_on_card(cuda, tmp_path, capsys):
+    """launch/train.py on the card: --preempt-at 3 exits 17, a rerun
+    resumes from the compressed step 3 (restore through count_subseq and
+    decode_tiles)."""
+    from repro_torch.launch import train
+
+    base = ["--arch", "qwen3-0.6b", "--reduced", "--steps", "6", "--batch",
+            "2", "--seq", "32", "--ckpt-every", "2", "--log-every", "1",
+            "--ckpt-compress-eb", "1e-4", "--ckpt-dir", str(tmp_path)]
+    with pytest.raises(SystemExit) as e:
+        train.main(base + ["--preempt-at", "3"])
+    assert e.value.code == 17
+    launches.reset()
+    first, last = train.main(base)
+    assert "resumed from step 3" in capsys.readouterr().out
+    assert K.count_subseq.launches > 0 and K.decode_tiles.launches > 0
+    assert np.isfinite(first) and np.isfinite(last)

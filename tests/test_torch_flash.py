@@ -12,6 +12,15 @@ its own bf16 products).  The port's ``blockwise_attn`` against the
 reference's: float32 1e-5; bfloat16 3e-2, since the reference rounds
 ``exp(s - m)`` to bfloat16 before ``e @ v`` and the port keeps it in
 float32.
+
+Training: ``flash_attention_trainable``'s gradients against ``jax.grad`` of
+the reference's ``flash_attention_trainable`` (interpret-mode forward, XLA
+backward) at the reference test's rtol 2e-4 / atol 2e-5 in float32 (GQA
+through the reference on kv rows repeated, whose gradient sums each
+group); in bfloat16 within 3e-2 of each gradient's scale (both round the
+float32 gradients to bfloat16 once, from inputs rounded alike); and the
+model's ``blockwise_attn`` gradients against ``jax.grad`` of the
+reference's in float32 at 1e-4.
 """
 
 import numpy as np
@@ -191,3 +200,137 @@ def test_unported_attention_options_raise():
     x = torch.zeros((1, 8, cfg.d_model))
     with pytest.raises(NotImplementedError, match="ROADMAP A10.*cross"):
         A.attn_block(x, {}, cfg, None, kv_x=x)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_trainable against the reference's
+# ---------------------------------------------------------------------------
+
+
+def _grads_port(q, k, v, w, dtype=torch.float32, fn=None, **kw):
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+          for a in (q, k, v)]
+    fn = fn or FA.flash_attention_trainable
+    before = FA.flash_attention.launches
+    out = fn(*ts, **kw)
+    (out.float() * torch.from_numpy(w)).sum().backward()
+    assert FA.flash_attention.launches == before    # CPU: the plain version
+    return out, [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bh,sq,skv,d,dv,groups", [
+    (2, 128, 128, 32, 32, 1),
+    (4, 128, 128, 64, 64, 2),      # GQA
+    (8, 64, 128, 32, 16, 4),       # Sq < Skv, Dv != D, GQA
+    (2, 128, 64, 16, 32, 1),       # Sq > Skv
+])
+def test_trainable_gradients_match_reference(causal, bh, sq, skv, d, dv,
+                                             groups):
+    from repro.kernels.flash_attn import flash_attention_trainable as jft
+
+    q, k, v = _inputs((bh, sq, d), (bh // groups, skv, d),
+                      (bh // groups, skv, dv), bh * sq + skv + groups)
+    w = np.random.default_rng(5).standard_normal((bh, sq, dv)).astype(
+        np.float32)
+
+    def loss(q, k, v):
+        rep = [jnp.repeat(a, groups, axis=0) for a in (k, v)]
+        return (jft(q, *rep, causal, 64, 64) * w).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    out, got = _grads_port(q, k, v, w, causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(
+        jflash(jnp.asarray(q), *(jnp.repeat(jnp.asarray(a), groups, 0)
+                                 for a in (k, v)), causal=causal,
+               block_q=64, block_k=64)), rtol=2e-5, atol=2e-5)
+    for g, ww in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ww), rtol=2e-4,
+                                   atol=2e-5)
+
+
+def test_trainable_gradients_bf16():
+    from repro.kernels.flash_attn import flash_attention_trainable as jft
+
+    q, k, v = _inputs((4, 128, 32), (2, 128, 32), (2, 128, 32), 21)
+    w = np.random.default_rng(6).standard_normal((4, 128, 32)).astype(
+        np.float32)
+
+    def loss(q, k, v):
+        rep = [jnp.repeat(a, 2, axis=0) for a in (k, v)]
+        return (jft(q, *rep, True, 64, 64).astype(jnp.float32) * w).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    _, got = _grads_port(q, k, v, w, torch.bfloat16)
+    for g, ww in zip(got, want):
+        assert g.dtype == torch.bfloat16 and ww.dtype == jnp.bfloat16
+        ww = np.asarray(ww, np.float32)
+        err = np.abs(g.float().numpy() - ww).max()
+        assert err <= 3e-2 * np.abs(ww).max(), err
+
+
+@pytest.mark.parametrize("chunk", [7, 16, 50, 512])
+def test_backward_chunks_agree(chunk):
+    """The backward's query chunk sets only how many score rows live at
+    once: every chunk size gives autograd's gradients through the dense
+    attention (within float32 rounding)."""
+    q, k, v = _inputs((4, 100, 32), (2, 120, 32), (2, 120, 24), 31)
+    w = np.random.default_rng(7).standard_normal((4, 100, 24)).astype(
+        np.float32)
+    _, got = _grads_port(q, k, v, w, causal=True, chunk=chunk)
+    _, want = _grads_port(q, k, v, w, fn=FA.dense_attention, causal=True)
+    for g, ww in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), ww.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_dense_attention_is_the_references_xla_attention():
+    from repro.kernels.flash_attn import _xla_attention
+
+    q, k, v = _inputs((2, 64, 32), (2, 64, 32), (2, 64, 32), 41)
+    for causal in (True, False):
+        want = _xla_attention(*map(jnp.asarray, (q, k, v)), causal)
+        got = FA.dense_attention(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("hq,hkv,sq", [(4, 4, 64), (4, 2, 96), (8, 1, 40)])
+def test_blockwise_attn_gradients_match_reference(hq, hkv, sq):
+    """The model's attention under autograd (through
+    flash_attention_trainable) against jax.grad of the reference's
+    blockwise_attn, float32."""
+    q, k, v = _inputs((2, sq, hq, 32), (2, sq, hkv, 32), (2, sq, hkv, 32),
+                      hq + hkv + sq)
+    w = np.random.default_rng(8).standard_normal((2, sq, hq, 32)).astype(
+        np.float32)
+    want = jax.grad(lambda *a: (JA.blockwise_attn(
+        *a, causal=True, chunk=32) * w).sum(), argnums=(0, 1, 2))(
+            *map(jnp.asarray, (q, k, v)))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    (A.blockwise_attn(*ts, causal=True, chunk=32)
+     * torch.from_numpy(w)).sum().backward()
+    for t, ww in zip(ts, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(ww),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_trainable_only_while_recording(monkeypatch):
+    """blockwise_attn goes through the autograd Function only when a
+    gradient is recorded; under no_grad or inference_mode it calls the
+    kernel wrapper alone."""
+    calls = []
+    real = FA.flash_attention_trainable
+    monkeypatch.setattr(FA, "flash_attention_trainable",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    q = torch.randn(1, 8, 2, 16, requires_grad=True)
+    A.blockwise_attn(q, q, q, causal=True)
+    assert calls == [1]
+    with torch.no_grad():
+        A.blockwise_attn(q, q, q, causal=True)
+    with torch.inference_mode():
+        A.blockwise_attn(q.detach(), q.detach(), q.detach(), causal=True)
+    A.blockwise_attn(q.detach(), q.detach(), q.detach(), causal=True)
+    assert calls == [1]

@@ -9,6 +9,15 @@ run it) and the port's wrapper on CPU tensors, which runs the plain version
 reference's ``models/rwkv.py`` functions under ``jax.jit`` and the port's.
 Tolerances: the recurrence 1e-4 (the reference test's; float32 sums over
 dk in another order); ``time_mix`` and ``channel_mix`` 1e-5 in float32.
+
+Training: ``gla_time_mix_trainable``'s six gradients (r, k, v, w, u and the
+state in) against autograd through the plain recurrence in one piece,
+1e-5 of their scale (the same recurrence, differentiated by hand, chunk
+by chunk: float32 sums in another order); ``time_mix``'s
+gradients against ``jax.grad`` through the reference's ``time_mix`` (its
+checkpointed chunk scan), rtol 1e-4 / atol 1e-6 of each gradient's
+largest value (random weights give gradients up to ~10, whose float32
+sums in another order move the entries near zero by a few 1e-6).
 """
 
 import numpy as np
@@ -210,3 +219,104 @@ def test_recurrence_inputs_layout():
     b, hh, t = 1, 1, 2
     torch.testing.assert_close(r[b * h + hh, t],
                                x[b, t, hh * dh:(hh + 1) * dh])
+
+
+# ---------------------------------------------------------------------------
+# Training: gla_time_mix_trainable and time_mix's gradients
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bh,s,dk,dv,h,chunk,with_state", [
+    (4, 150, 16, 8, 2, 64, True),      # three chunks, a ragged tail
+    (2, 40, 8, 8, 1, 64, False),       # one chunk, shorter than CHUNK
+    (6, 33, 16, 24, 3, 8, True),       # many chunks, dv != dk
+])
+def test_gla_trainable_matches_autograd_of_plain(bh, s, dk, dv, h, chunk,
+                                                 with_state):
+    r, k, v, w, _ = _inputs(bh, s, dk, dv, bh * s + chunk)
+    rng = np.random.default_rng(s)
+    u = rng.standard_normal((h, dk)).astype(np.float32)
+    state = rng.standard_normal((bh, dk, dv)).astype(np.float32)
+    dy = rng.standard_normal((bh, s, dv)).astype(np.float32)
+    dst = rng.standard_normal((bh, dk, dv)).astype(np.float32)
+
+    def run(fn, **kw):
+        ins = [torch.from_numpy(a).requires_grad_(True)
+               for a in (r, k, v, w, u)]
+        st = (torch.from_numpy(state).requires_grad_(True) if with_state
+              else None)
+        y, st_out = fn(*ins, st, **kw)
+        (y * torch.from_numpy(dy)).sum().add_(
+            (st_out * torch.from_numpy(dst)).sum()).backward()
+        grads = [t.grad for t in ins] + ([st.grad] if with_state else [])
+        return y.detach(), st_out.detach(), grads
+
+    before = GLA.gla_time_mix.launches
+    y, st, got = run(GLA.gla_time_mix_trainable, chunk=chunk)
+    assert GLA.gla_time_mix.launches == before       # CPU: the plain version
+    py, pst, want = run(GLA.gla_time_mix_plain)
+    np.testing.assert_array_equal(y.numpy(), py.numpy())
+    np.testing.assert_array_equal(st.numpy(), pst.numpy())
+    assert len(got) == 6 if with_state else 5
+    for g, ww in zip(got, want):
+        assert g.shape == ww.shape
+        np.testing.assert_allclose(g.numpy(), ww.numpy(), rtol=0,
+                                   atol=1e-5 * max(1, float(
+                                       ww.abs().max())))
+
+
+def test_time_mix_trainable_only_while_recording(monkeypatch):
+    cfg = PCFG.get_config("rwkv6-3b").reduced(compute_dtype="float32")
+    tmix, _ = _layer_params(cfg, 3)
+    p = {k: torch.from_numpy(v).requires_grad_(True)
+         for k, v in tmix.items()}
+    calls = []
+    real = GLA.gla_time_mix_trainable
+    monkeypatch.setattr(GLA, "gla_time_mix_trainable",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    x = torch.randn(1, 5, cfg.d_model)
+    prev = torch.zeros(1, cfg.d_model)
+    R.time_mix(x, prev, None, p, cfg)
+    assert calls == [1]
+    with torch.no_grad():
+        R.time_mix(x, prev, None, p, cfg)
+    assert calls == [1]
+
+
+@pytest.mark.parametrize("s", [24, 130])
+def test_time_mix_gradients_match_reference(s):
+    """Every parameter's, x's, x_prev's and the state's gradient through
+    time_mix against jax.grad of the reference's, for y and the state
+    out."""
+    jcfg = JCFG.get_config("rwkv6-3b").reduced(compute_dtype="float32")
+    pcfg = PCFG.get_config("rwkv6-3b").reduced(compute_dtype="float32")
+    tmix, _ = _layer_params(jcfg, 70 + s)
+    h, dh = JR.rwkv_dims(jcfg)
+    rng = np.random.default_rng(s + 2)
+    x = rng.standard_normal((2, s, jcfg.d_model)).astype(np.float32)
+    x_prev = rng.standard_normal((2, jcfg.d_model)).astype(np.float32)
+    state = rng.standard_normal((2, h, dh, dh)).astype(np.float32)
+    wy = rng.standard_normal((2, s, jcfg.d_model)).astype(np.float32)
+    ws = rng.standard_normal((2, h, dh, dh)).astype(np.float32)
+
+    def jloss(x, x_prev, state, p):
+        y, _, st = JR.time_mix(x, x_prev, state, p, jcfg)
+        return (y * wy).sum() + (st * ws).sum()
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3)))(
+        jnp.asarray(x), jnp.asarray(x_prev), jnp.asarray(state),
+        jax.tree.map(jnp.asarray, tmix))
+    tx, tprev, tst = (torch.from_numpy(a).requires_grad_(True)
+                      for a in (x, x_prev, state))
+    tp = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in tmix.items()}
+    y, _, st = R.time_mix(tx, tprev, tst, tp, pcfg)
+    ((y * torch.from_numpy(wy)).sum()
+     + (st * torch.from_numpy(ws)).sum()).backward()
+    pairs = [("x", tx.grad, want[0]), ("x_prev", tprev.grad, want[1]),
+             ("state", tst.grad, want[2])] + [
+        (k, t.grad, want[3][k]) for k, t in tp.items()]
+    for name, got, w in pairs:
+        w = np.asarray(w)
+        np.testing.assert_allclose(got.numpy(), w, rtol=1e-4, atol=1e-6 * max(
+            1.0, np.abs(w).max()), err_msg=name)

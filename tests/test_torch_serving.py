@@ -203,8 +203,10 @@ def test_scheduler_against_fetch_and_the_reference(tmp_path):
                         else:
                             assert as_bytes(direct[bid][name]) == \
                                 np.asarray(t).tobytes()
-            stats.append(dict(sched.stats))
-            cache_stats = dict(sched.cache.stats)
+        # Read once the worker has stopped: a tick resolves its requests'
+        # futures before it counts itself, in both packages.
+        stats.append(dict(sched.stats))
+        cache_stats = dict(sched.cache.stats)
     assert stats[0] == stats[1]
     assert stats[0]["blocks_decoded"] == 4
     assert cache_stats["inserts"] == 4
