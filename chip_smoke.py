@@ -71,6 +71,19 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     decode steps run ``gla_time_mix`` (one a layer a step) and whose dense
     decode runs no kernel; and step decode against the forward in float32
     (B 2, 256 tokens);
+  * families, the attention options: h2o-danube-1.8b (all 24 layers,
+    float32 parameters) prefilling B 1 x 8,192 tokens through the
+    windowed ``flash_attention`` (window 4,096; 24 launches), whisper-base
+    prefilling B 4 x 448 tokens over 1,500 stub frames (18 launches: 6
+    encoder, 6 decoder, 6 cross-attention) and qwen2-vl-72b at full width
+    cut to 8 of its 80 layers prefilling B 1 x (256 patches + 768 tokens)
+    with M-RoPE (8 launches); float32 step decode against the forward a
+    family; ``launch.serve.main`` of danube and of whisper
+    (``--compress-kv`` through a "cuda"-encode codec); the reduced
+    danube's decode past its ring buffer's wrap, the card against the CPU;
+    qwen3-0.6b's int8 KV cache against its bf16 cache (B 4, 32 steps);
+    one reduced train step of whisper-base and danube, the card against
+    the CPU;
   * train, A10's training half: qwen3-0.6b at full width trained by
     ``launch.train.main`` (4 steps at B 4 x 1024, float32 parameters,
     bf16 compute, remat, no checkpoint), whose attention runs
@@ -142,8 +155,12 @@ The script
     bit for bit; each model kernel equals its plain version at layer 0's
     inputs and on the random cases of ``repro_torch.testing.kernel_cases``
     (flash in bf16 within one bf16 ulp of the output's scale, in float32
-    within 2e-5; gla within 1e-4 of the output's scale); the prefill
-    logits are finite and of the expected shape; the float32 step-decode
+    within 2e-5; gla within 1e-4 of the output's scale), flash also at the
+    attention families' layer-0 inputs (danube's windowed); the prefill
+    logits are finite and of the expected shape; the reduced danube's
+    decode on the card within 1e-4 of the CPU's, logits and caches; the
+    int8 KV decode's logits within 0.25 of the bf16 cache's with equal
+    argmax wherever the bf16 top-2 gap exceeds 0.25; the float32 step-decode
     logits are within ``DECODE_F32_TOL`` of the forward's at every
     position, with equal argmax wherever the top-2 gap exceeds it;
     ``decode_chunked`` equals its plain version bit for bit at every block
@@ -187,7 +204,11 @@ The script
     "ref" and "cuda" encode backends; the gap and self-sync plan times, the
     passes and rounds of the self-sync and the decode throughput of ori and
     opt self-sync; the model phase's prefill ms and tokens/s, serve
-    tokens/s and peak memory a config, the model kernels' times beside
+    tokens/s and peak memory a config; the ``families`` row (each family's
+    prefill ms, launches, layer-0 kernel checks and times, decode checks,
+    serve row, peak memory; danube's windowed kernel beside its bound and
+    SDPA with the boolean window mask; the int8 and bf16 caches' decode
+    tokens a second); the model kernels' times beside
     their plain versions' and ``scaled_dot_product_attention``'s (the
     yardstick of ``flash_attention``, timed here and used nowhere in the
     port), ``torch.cumsum`` of hacc1d's int32 residuals (the yardstick of
@@ -219,7 +240,8 @@ The script
     repo (fourteen) and one for the yardstick ``decode_chunked``
     (``replaces`` null, ``yardstick`` the reference function), with rows
     5 and 7 on both N-D fields, rows 13 and 14 with their train phase
-    launches and backward ms, row 10 on all three
+    launches and backward ms, row 13 with its windowed shape and the
+    families' prefill launches, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
     their launches on the five consumer phases (``consumer_launches``).  Each
@@ -364,6 +386,24 @@ TRAIN_CHECK_LR = 1e-3
 TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 64
 #: The train row whose run each model kernel's ``train_launches`` counts.
 TRAIN_RUNS = {"flash_attention": "qwen3-0.6b", "gla_time_mix": "rwkv6-3b"}
+#: The attention-families phase: h2o-danube-1.8b (all 24 layers, float32
+#: parameters) prefilling B 1 x 8,192 tokens, past its 4,096-token window;
+#: whisper-base (full) prefilling B 4 x 448 tokens over 1,500 frames;
+#: qwen2-vl-72b at full width cut from 80 to VLM_LAYERS layers (80 layers
+#: are ~145 GB of bf16 weights, past one card's 80 GB), prefilling B 1 x
+#: (256 patches + 768 tokens).  Then float32 step decode against the
+#: forward (B 1, FAMILY_DECODE_LEN tokens) a family, the reduced danube's
+#: ring buffer past its wrap (window 32, WRAP_STEPS steps) on the card
+#: against the CPU, and qwen3-0.6b's int8 KV cache (B INT8_BATCH,
+#: INT8_STEPS steps) against its bf16 cache at the reference's tolerance
+#: (TestKVQuantFamilywide: logits within 0.25, equal argmax).
+DANUBE_BATCH, DANUBE_LEN = 1, 8192
+WHISPER_BATCH, WHISPER_LEN = 4, 448
+VLM_LAYERS, VLM_BATCH, VLM_PATCHES, VLM_LEN = 8, 1, 256, 768
+FAMILY_DECODE_LEN = 32
+WRAP_STEPS = 40
+INT8_BATCH, INT8_STEPS, INT8_TOL = 4, 32, 0.25
+FAMILY_ARCHS = ("h2o-danube-1.8b", "whisper-base", "qwen2-vl-72b")
 
 
 def make_fields(seed: int):
@@ -2265,12 +2305,26 @@ def run_sharded(seed: int) -> dict:
     return row
 
 
-def model_kernel_bound(kname: str, args, out) -> tuple:
+def flash_pairs(sq: int, skv: int, causal: bool = True, window=None,
+                q_offset: int = 0) -> int:
+    """The (query, key) pairs ``flash_attention``'s mask keeps: for query
+    position ``p = q_offset + i``, keys ``max(0, p - window + 1)`` to
+    ``min(skv - 1, p)`` (causal) or ``skv - 1``."""
+    import numpy as np
+
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    lo = np.zeros_like(p) if window is None else np.maximum(0, p - window + 1)
+    hi = np.minimum(skv - 1, p) if causal else np.full_like(p, skv - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def model_kernel_bound(kname: str, args, out, mask=None) -> tuple:
     """``(bound_ms, bound_by)`` of one launch at these inputs: the larger of
     the bytes (each input read once, each output written once) at the HBM
     rate and the operations at the card's peak for their type.  flash:
-    2 (D + Dv) FLOP for each (query, key) pair the causal mask keeps, at the
-    bf16 tensor-core peak; gla: 7 float32 FLOP a state element a step
+    2 (D + Dv) FLOP for each (query, key) pair the mask keeps (``mask``:
+    the causal, window and q_offset keywords; causal alone by default), at
+    the bf16 tensor-core peak; gla: 7 float32 FLOP a state element a step
     (k v, u (k v) + S, r (...) summed, w S + k v), at the float32 peak."""
     nbytes = sum(t.numel() * t.element_size() for t in args
                  if t is not None)
@@ -2279,7 +2333,9 @@ def model_kernel_bound(kname: str, args, out) -> tuple:
         q, k, v = args
         bh, sq, d = q.shape
         skv, dv = k.shape[1], v.shape[2]
-        pairs = sum(min(i + 1, skv) for i in range(sq))
+        mask = {"causal": True} if mask is None else mask
+        pairs = flash_pairs(sq, skv, **{key: mask[key] for key in (
+            "causal", "window", "q_offset") if key in mask})
         ops_s = 2 * bh * pairs * (d + dv) / PEAK_FLOPS[_dtype_name(q)]
     else:
         r, _, v = args[:3]
@@ -2333,10 +2389,9 @@ def check_model_kernel(kname, args, stage: str) -> float:
     from repro_torch.testing import kernel_cases as KC
 
     if kname == "flash_attention":
-        q, k, v, causal, scale = args
-        got = [FA.flash_attention(q, k, v, causal=causal, scale=scale)]
-        want = [FA.flash_attention_plain(q, k, v, causal=causal,
-                                         scale=scale)]
+        q, k, v, kw = args
+        got = [FA.flash_attention(q, k, v, **kw)]
+        want = [FA.flash_attention_plain(q, k, v, **kw)]
         if q.dtype == torch.bfloat16:
             tol = KC.bf16_ulp(float(want[0].float().abs().max()))
         else:
@@ -2362,7 +2417,6 @@ def run_model(seed: int) -> dict:
     the forward in float32.  Prints one ``model`` row per config and
     returns ``{"rows": ..., "kernels": {name: entry}}``."""
     import contextlib
-    import dataclasses
     import io
     import re
 
@@ -2390,7 +2444,7 @@ def run_model(seed: int) -> dict:
             q, k, v = KC.flash_inputs(case, dtype, "cuda", seed)
             case_errs["flash_attention"] = max(
                 case_errs["flash_attention"], check_model_kernel(
-                    "flash_attention", (q, k, v, case[7], case[8]),
+                    "flash_attention", (q, k, v, KC.flash_kwargs(case)),
                     f"flash case {case[0]} {dtype}"))
     for case in KC.GLA_CASES:
         case_errs["gla_time_mix"] = max(
@@ -2445,8 +2499,9 @@ def run_model(seed: int) -> dict:
         args = layer0_kernel_inputs(cfg, params, tokens)
         if kname == "flash_attention":
             q, k, v = args
-            err = check_model_kernel(kname, (q, k, v, True, 1.0),
-                                     f"{arch} layer 0")
+            err = check_model_kernel(
+                kname, (q, k, v, {"causal": True, "scale": 1.0}),
+                f"{arch} layer 0")
             out = FA.flash_attention(q, k, v, causal=True, scale=1.0)
             b, hq, hkv = PREFILL_BATCH, cfg.n_heads, cfg.n_kv_heads
             q4, k4, v4 = (t.view(b, h, PREFILL_LEN, t.shape[-1])
@@ -2507,44 +2562,20 @@ def run_model(seed: int) -> dict:
             del q, k, v, q4, k4, v4, out
 
         # step decode against the forward, float32, B 2, 256 tokens
-        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         toks = torch.randint(0, cfg.vocab, (CONSIST_BATCH, CONSIST_LEN),
                              generator=gen, device="cuda")
-        full = St.make_prefill_step(cfg32)(params, toks)
-        cache = D.init_cache(cfg32, CONSIST_BATCH, CONSIST_LEN, "cuda")
-        step = St.make_serve_step(cfg32)
         t0 = time.perf_counter()
-        steps = []
-        for t in range(CONSIST_LEN):
-            lg, cache = step(params, toks[:, t:t + 1], cache, t)
-            steps.append(lg[:, 0])
+        row["decode_vs_forward_f32"] = decode_against_forward(
+            cfg, params, toks, arch)
         torch.cuda.synchronize()
-        row["decode_f32_steps_s"] = time.perf_counter() - t0
+        row["decode_check_f32_s"] = time.perf_counter() - t0
         # one bf16 serve step at the serve phase's shape (B 4, a 64-slot
         # cache), as serve.main runs it
         scache = D.init_cache(cfg, 4, 64, "cuda")
         stok = toks[:, :1].repeat(2, 1)
         row["serve_step_profile"] = profile_breakdown(
             lambda: St.make_serve_step(cfg)(params, stok, scache, 40))
-        del scache
-        stepped = torch.stack(steps, 1)
-        diff = float((stepped - full).abs().max())
-        top2 = full.topk(2, dim=-1).values
-        clear = (top2[..., 0] - top2[..., 1]) > DECODE_F32_TOL
-        agree = stepped.argmax(-1) == full.argmax(-1)
-        row["decode_vs_forward_f32"] = {
-            "max_abs_diff": diff, "tol": DECODE_F32_TOL,
-            "logit_scale": float(full.abs().max()),
-            "positions": int(clear.numel()),
-            "clear_top2": int(clear.sum()),
-            "argmax_agree": int(agree.sum())}
-        require(diff <= DECODE_F32_TOL,
-                f"{arch}: step decode differs from the forward by {diff} > "
-                f"{DECODE_F32_TOL} (float32)")
-        require(bool(agree[clear].all()),
-                f"{arch}: step decode's argmax differs from the forward's "
-                f"where the top-2 gap exceeds {DECODE_F32_TOL}")
-        del full, stepped, steps, cache, lg, params
+        del scache, params
         torch.cuda.empty_cache()
 
         # serve.main at the reference's defaults, counts zeroed just
@@ -2583,6 +2614,364 @@ def run_model(seed: int) -> dict:
         print(f"model {json.dumps(row)}")
         print(f"model kernel {kname} {json.dumps(entry)}")
     return {"rows": rows, "kernels": kernels}
+
+
+def check_flash_at(q, k, v, kw, stage: str) -> dict:
+    """``flash_attention`` at one of a path's shapes: the kernel against
+    its plain version (``check_model_kernel``), its time, its bound from
+    the pairs its mask keeps, and its inputs' shapes."""
+    from repro_torch.kernels import flash_attn as FA
+
+    err = check_model_kernel("flash_attention", (q, k, v, kw), stage)
+    out = FA.flash_attention(q, k, v, **kw)
+    bound, by = model_kernel_bound("flash_attention", (q, k, v), (out,),
+                                   kw)
+    return {"shape": [list(t.shape) for t in (q, k, v)],
+            "dtype": _dtype_name(q), **kw,
+            "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            "ms": cuda_ms(lambda: FA.flash_attention(q, k, v, **kw), 10)}
+
+
+def decode_against_forward(cfg, params, tokens, stage: str, frames=None):
+    """float32 step decode of ``tokens`` (B, S) against the forward's
+    logits at every position, within ``DECODE_F32_TOL`` with equal argmax
+    wherever the top-2 gap exceeds it; encdec's cross entries from
+    ``frames`` through its encoder.  Returns the check's row."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import decode as D
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    b, n = tokens.shape
+    full = St.make_prefill_step(cfg32)(params, tokens, frames)
+    cache = D.init_cache(cfg32, b, n, "cuda")
+    if frames is not None:
+        with torch.inference_mode():
+            cache.update(D.cross_cache(params, T.encode(params, frames,
+                                                        cfg32), cfg32))
+    step = St.make_serve_step(cfg32)
+    steps = []
+    for t in range(n):
+        lg, cache = step(params, tokens[:, t:t + 1], cache, t)
+        steps.append(lg[:, 0])
+    stepped = torch.stack(steps, 1)
+    diff = float((stepped - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > DECODE_F32_TOL
+    agree = stepped.argmax(-1) == full.argmax(-1)
+    require(diff <= DECODE_F32_TOL, f"{stage}: step decode differs from "
+            f"the forward by {diff} > {DECODE_F32_TOL} (float32)")
+    require(bool(agree[clear].all()), f"{stage}: step decode's argmax "
+            f"differs from the forward's where the top-2 gap exceeds "
+            f"{DECODE_F32_TOL}")
+    return {"max_abs_diff": diff, "tol": DECODE_F32_TOL,
+            "logit_scale": float(full.abs().max()),
+            "positions": int(clear.numel()), "clear_top2": int(clear.sum()),
+            "argmax_agree": int(agree.sum())}
+
+
+def serve_row(arch: str, argv, kernels, seed: int) -> tuple:
+    """``launch.serve.main`` of ``arch`` at B 4, 32 + 32 with ``argv``
+    added, counts zeroed just before and read just after: (its row, its
+    launch counts)."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import serve
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        served, counts = run_path(f"{arch} serve", kernels, lambda: serve.main(
+            ["--arch", arch, "--batch", "4", "--prompt-len", "32",
+             "--gen-len", "32", "--seed", str(seed), *argv]))
+    print(printed.getvalue(), end="")
+    require(served["tokens"].shape == (4, 33),
+            f"{arch}: serve tokens {served['tokens'].shape}")
+    m = re.search(r"prefill \d+ toks in ([\d.]+)s; generated (\d+) "
+                  r"tokens in ([\d.]+)s \(([\d.]+) tok/s\)",
+                  printed.getvalue())
+    require(m is not None, f"{arch}: serve printed no summary")
+    return {"argv": list(argv), "prefill_32_steps_s": float(m.group(1)),
+            "generated": int(m.group(2)), "gen_s": float(m.group(3)),
+            "tok_per_s": float(m.group(4)), "kv_err": served["kv_err"],
+            "ratio": served["ratio"],
+            "launches": {k: v for k, v in counts.items() if v}}, counts
+
+
+def run_families(seed: int) -> dict:
+    """The attention-families phase (slice 18): h2o-danube-1.8b (the
+    sliding window), whisper-base (encoder, decoder, cross-attention) and
+    qwen2-vl-72b (M-RoPE, patch stubs; full width, ``VLM_LAYERS`` of its
+    80 layers) on the card with weights from ``seed``, each path with its
+    own launch check.  A family's prefill (``make_prefill_step``) launches
+    ``flash_attention`` once an attention: danube 24 windowed launches,
+    whisper 18 (6 encoder, non-causal; 6 decoder self; 6 cross, Sq 448
+    over Skv 1,500), qwen2-vl 8.  The kernel against its plain version at
+    each path's layer-0 inputs (danube's beside its bound from the pairs
+    inside the window and SDPA with the equivalent boolean mask, the
+    yardstick); float32 step decode against the forward a family;
+    ``serve.main`` of danube and of whisper (``--compress-kv`` through a
+    "cuda"-encode codec, its cross K/V from zero frames); the reduced
+    danube's ring buffer past its wrap, the card against the CPU;
+    qwen3-0.6b's int8 KV cache against its bf16 one; one reduced train
+    step of whisper-base and danube on the card against the CPU.  Prints
+    and returns one ``families`` row."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    row = {}
+    gen = T.generator(seed + 2, "cuda")
+
+    def tokens_of(cfg, b, n):
+        return torch.randint(0, cfg.vocab, (b, n), generator=gen,
+                             device="cuda")
+
+    def prefill(arch, cfg, params, tokens, extra, want):
+        step = St.make_prefill_step(cfg)
+        logits, counts = run_path(f"{arch} prefill", ("flash_attention",),
+                                  lambda: step(params, tokens, extra))
+        n = counts["flash_attention"]
+        require(n == want, f"{arch}: {n} flash_attention launches in the "
+                f"prefill, not {want}")
+        s_total = tokens.shape[1] + (extra.shape[1] if cfg.family == "vlm"
+                                     else 0)
+        require(tuple(logits.shape) == (tokens.shape[0], s_total, cfg.vocab)
+                and logits.dtype == torch.bfloat16
+                and bool(torch.isfinite(logits).all()),
+                f"{arch}: prefill logits {logits.dtype}{list(logits.shape)}")
+        del logits
+        ms = cuda_ms(lambda: step(params, tokens, extra), 2)
+        return {"prefill_launches": n, "prefill_shape": [
+                    tokens.shape[0], s_total], "prefill_ms": ms,
+                "prefill_tok_per_s": tokens.numel() / (ms * 1e-3)}
+
+    def sizes(params):
+        leaves = list(_leaves(params))
+        return {"params": sum(t.numel() for t in leaves),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves)}
+
+    def layer_qkv(cfg, lp, x, positions, kv_x=None, ln="ln1", key="attn"):
+        with torch.inference_mode():
+            return A.attn_kernel_inputs(*A._project_qkv(
+                L.rms_norm(x, lp[ln]), lp[key], cfg, positions, kv_x=kv_x))
+
+    # -- h2o-danube-1.8b: 24 layers, the window at 4,096 of 8,192 ---------
+    arch = "h2o-danube-1.8b"
+    cfg = configs.get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, cfg, "cuda")
+    r = {**sizes(params), "window": cfg.swa_window}
+    tokens = tokens_of(cfg, DANUBE_BATCH, DANUBE_LEN)
+    r.update(prefill(arch, cfg, params, tokens, None, cfg.n_layers))
+    x = params["embed"][tokens].to(cfg.cdt)
+    q, k, v = layer_qkv(cfg, params["layers"][0], x, torch.arange(
+        DANUBE_LEN, dtype=torch.int32, device="cuda"))
+    kw = {"causal": True, "scale": 1.0, "window": cfg.swa_window}
+    win = check_flash_at(q, k, v, kw, f"{arch} layer 0")
+    win["plain_ms"] = cuda_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                              1)
+    b, s = DANUBE_BATCH, DANUBE_LEN
+    q4, k4, v4 = (t.view(b, t.shape[0] // b, s, t.shape[-1])
+                  for t in (q, k, v))
+    mask = FA.visible_mask(s, s, causal=True, window=cfg.swa_window,
+                           device="cuda")
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, scale=1.0, enable_gqa=True)
+
+    out = FA.flash_attention(q, k, v, **kw)
+    win["library_max_abs_err"] = max_abs_err(library().reshape(out.shape),
+                                             out)
+    win["library_ms"] = cuda_ms(library, 5)
+    win["library_call"] = ("F.scaled_dot_product_attention(q, k, v, "
+                           "attn_mask=<bool (S, S) window mask>, scale=1.0, "
+                           "enable_gqa=True)")
+    win["no_window_ms"] = cuda_ms(lambda: FA.flash_attention(
+        q, k, v, causal=True, scale=1.0), 10)
+    win["pairs"] = flash_pairs(s, s, True, cfg.swa_window)
+    win["causal_pairs"] = flash_pairs(s, s, True)
+    r["layer0_kernel"] = win
+    del q, k, v, q4, k4, v4, mask, out, x
+    r["decode_vs_forward_f32"] = decode_against_forward(
+        cfg, params, tokens_of(cfg, 1, FAMILY_DECODE_LEN), arch)
+    del params
+    torch.cuda.empty_cache()
+    r["serve"], _ = serve_row(arch, [], (), seed)
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row[arch] = r
+    torch.cuda.empty_cache()
+
+    # -- whisper-base: encoder 1,500 frames, decoder 448 tokens ----------
+    arch = "whisper-base"
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, cfg, "cuda")
+    r = sizes(params)
+    frames = torch.randn((WHISPER_BATCH, cfg.encoder_seq, cfg.d_model),
+                         generator=gen, device="cuda")
+    tokens = tokens_of(cfg, WHISPER_BATCH, WHISPER_LEN)
+    want = cfg.encoder_layers + 2 * cfg.n_layers
+    r.update(prefill(arch, cfg, params, tokens, frames, want))
+    enc_in = frames.to(cfg.cdt)
+    pos_e = torch.arange(cfg.encoder_seq, dtype=torch.int32, device="cuda")
+    pos_d = torch.arange(WHISPER_LEN, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        enc = T.encode(params, frames, cfg)
+    x = params["embed"][tokens].to(cfg.cdt)
+    lp = params["layers"][0]
+    r["layer0_kernel"] = {
+        name: check_flash_at(*qkv, {"causal": causal, "scale": 1.0},
+                             f"{arch} {name} layer 0")
+        for name, qkv, causal in (
+            ("encoder", layer_qkv(cfg, params["encoder"][0], enc_in, pos_e),
+             False),
+            ("self", layer_qkv(cfg, lp, x, pos_d), True),
+            ("cross", layer_qkv(cfg, lp, x, None, kv_x=enc, ln="ln_x",
+                                key="xattn"), False))}
+    del enc, x, enc_in
+    r["decode_vs_forward_f32"] = decode_against_forward(
+        cfg, params, tokens_of(cfg, 1, FAMILY_DECODE_LEN), arch,
+        frames=frames[:1])
+    del params, frames
+    torch.cuda.empty_cache()
+    r["serve"], scounts = serve_row(
+        arch, ["--compress-kv", "--kv-encode-backend", "cuda"],
+        SERVE_KV_KERNELS, seed)
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    row[arch] = r
+    torch.cuda.empty_cache()
+
+    # -- qwen2-vl-72b at full width, 8 of its 80 layers ------------------
+    arch = "qwen2-vl-72b"
+    cfg = dataclasses.replace(configs.get_config(arch), n_layers=VLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, cfg, "cuda")
+    r = {**sizes(params), "layers": VLM_LAYERS,
+         "cut": f"n_layers 80 -> {VLM_LAYERS}: the 80 layers hold ~145 GB "
+                f"of bf16 weights, past one card's 80 GB"}
+    patches = torch.randn((VLM_BATCH, VLM_PATCHES, cfg.d_model),
+                          generator=gen, device="cuda") * 0.02
+    tokens = tokens_of(cfg, VLM_BATCH, VLM_LEN)
+    r.update(prefill(arch, cfg, params, tokens, patches, cfg.n_layers))
+    x = torch.cat([patches.to(cfg.cdt), params["embed"][tokens].to(cfg.cdt)],
+                  dim=1)
+    r["layer0_kernel"] = check_flash_at(
+        *layer_qkv(cfg, params["layers"][0], x,
+                   T._positions(cfg, x.shape[1], "cuda")),
+        {"causal": True, "scale": 1.0}, f"{arch} layer 0")
+    del x, patches
+    r["decode_vs_forward_f32"] = decode_against_forward(
+        cfg, params, tokens_of(cfg, 1, FAMILY_DECODE_LEN), arch)
+    r["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    row[arch] = r
+    torch.cuda.empty_cache()
+
+    # -- the reduced danube's ring buffer past its wrap, card vs CPU ----
+    rcfg = configs.get_config("h2o-danube-1.8b").reduced(
+        compute_dtype="float32")
+    cpu = T.init_model(seed, rcfg, "cpu")
+    card = St.adamw.tree_map(lambda t: t.cuda(), cpu)
+    toks = torch.randint(0, rcfg.vocab, (2, WRAP_STEPS),
+                         generator=torch.Generator().manual_seed(seed))
+    caches = [D.init_cache(rcfg, 2, 2 * WRAP_STEPS, dev)
+              for dev in ("cpu", "cuda")]
+    step = St.make_serve_step(rcfg)
+    wrap_err = 0.0
+    for t in range(WRAP_STEPS):
+        a, caches[0] = step(cpu, toks[:, t:t + 1], caches[0], t)
+        g, caches[1] = step(card, toks[:, t:t + 1].cuda(), caches[1], t)
+        wrap_err = max(wrap_err, max_abs_err(g.cpu(), a))
+    cache_err = max(max_abs_err(caches[1][n].cpu(), caches[0][n])
+                    for n in caches[0])
+    require(caches[0]["k"].shape[2] == rcfg.swa_window
+            and wrap_err <= 1e-4 and cache_err <= 1e-4,
+            f"reduced danube wrap: card against CPU logits {wrap_err}, "
+            f"cache {cache_err}")
+    row["danube_wrap"] = {"window": rcfg.swa_window, "steps": WRAP_STEPS,
+                          "max_logit_err": wrap_err,
+                          "max_cache_err": cache_err, "tol": 1e-4}
+    del cpu, card, caches
+
+    # -- qwen3-0.6b's int8 KV cache against its bf16 one ------------------
+    qcfg = configs.get_config("qwen3-0.6b")
+    qq = dataclasses.replace(qcfg, kv_quant=True)
+    params = T.init_model(seed, qcfg, "cuda")
+    toks = tokens_of(qcfg, INT8_BATCH, INT8_STEPS)
+
+    def decode(cfg):
+        cache = D.init_cache(cfg, INT8_BATCH, INT8_STEPS, "cuda")
+        step = St.make_serve_step(cfg)
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(INT8_STEPS):
+            lg, cache = step(params, toks[:, t:t + 1], cache, t)
+            out.append(lg[:, 0].float())
+        torch.cuda.synchronize()
+        return torch.stack(out, 1), cache, time.perf_counter() - t0
+
+    (a, ca, _), _ = run_path("qwen3 bf16 kv decode", (),
+                             lambda: decode(qcfg))
+    (b_, cb, _), _ = run_path("qwen3 int8 kv decode", (), lambda: decode(qq))
+    require(cb["k"].dtype == torch.int8 and cb["k_scale"].dtype
+            == torch.float32, "qwen3 int8 cache dtypes")
+    diff = float((a - b_).abs().max())
+    top2 = a.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > INT8_TOL
+    agree = a.argmax(-1) == b_.argmax(-1)
+    require(diff < INT8_TOL and bool(agree[clear].all()),
+            f"qwen3 int8 KV decode differs from the bf16 cache's by {diff} "
+            f"(tol {INT8_TOL}) or in argmax where the top-2 gap exceeds it")
+    times = {name: [decode(c)[2] for _ in range(2)][-1]
+             for name, c in (("bf16", qcfg), ("int8", qq))}
+    row["int8_kv"] = {
+        "arch": "qwen3-0.6b", "batch": INT8_BATCH, "steps": INT8_STEPS,
+        "max_abs_diff": diff, "tol": INT8_TOL,
+        "positions": int(clear.numel()), "clear_top2": int(clear.sum()),
+        "argmax_agree": int(agree.sum()),
+        "cache_bytes": {"bf16": sum(t.numel() * t.element_size()
+                                    for t in ca.values()),
+                        "int8": sum(t.numel() * t.element_size()
+                                    for t in cb.values())},
+        "tok_per_s": {n: INT8_BATCH * INT8_STEPS / t_
+                      for n, t_ in times.items()}}
+    del params, ca, cb, a, b_
+    torch.cuda.empty_cache()
+
+    # -- one reduced train step, the card against the CPU ----------------
+    row["train_card_vs_cpu"] = {
+        arch: check_train_step(arch, seed)
+        for arch in ("whisper-base", "h2o-danube-1.8b")}
+    row["launches"] = {arch: row[arch]["prefill_launches"]
+                       for arch in FAMILY_ARCHS}
+    row["serve_launches"] = {arch: row[arch]["serve"]["launches"]
+                             for arch in ("h2o-danube-1.8b",
+                                          "whisper-base")}
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"families {json.dumps(row)}")
+    return row
 
 
 def _grads(fn, inputs, cotangents, **kw):
@@ -2669,7 +3058,9 @@ def check_train_step(arch: str, seed: int) -> dict:
     norm within 1e-5, and every updated parameter within a quarter of the
     learning rate (AdamW's first step moves a parameter by about ``lr *
     sign(g)``: a gradient cut at a kernel moves it by ``lr`` the other
-    way).  Fails unless the card's step launched the kernel."""
+    way).  Fails unless the card's step launched the kernel.  encdec gets
+    seeded stub frames; the reduced danube's 64 tokens pass its window of
+    32."""
     import torch
 
     from repro_torch import configs
@@ -2679,14 +3070,18 @@ def check_train_step(arch: str, seed: int) -> dict:
     from repro_torch.optim import adamw as O
 
     cfg = configs.get_config(arch).reduced(compute_dtype="float32")
-    kname = ("flash_attention" if cfg.family == "dense"
-             else "gla_time_mix")
+    kname = ("gla_time_mix" if cfg.family == "rwkv"
+             else "flash_attention")
     ocfg = O.AdamWConfig(lr=TRAIN_CHECK_LR)
     cpu = T.init_model(seed, cfg, "cpu")
     card = O.tree_map(lambda t: t.cuda(), cpu)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_CHECK_SEQ,
                                    global_batch=TRAIN_CHECK_BATCH,
                                    seed=seed), device="cpu").batch_at(0)
+    if cfg.family == "encdec":   # seeded stub frames for the encoder
+        gen = torch.Generator().manual_seed(seed)
+        batch["extra_embeds"] = torch.randn(
+            (TRAIN_CHECK_BATCH, cfg.encoder_seq, cfg.d_model), generator=gen)
     before = launches.counts()[kname]
     lg, gg, ng, mg = _train_step_on(
         cfg, card, {k: v.cuda() for k, v in batch.items()}, ocfg)
@@ -2786,8 +3181,7 @@ def run_train(seed: int) -> dict:
                 grad_errs["flash_attention"], check_trainable(
                     "flash_attention", KC.flash_inputs(case, dtype, "cuda",
                                                        seed),
-                    f"flash case {case[0]} {dtype}", causal=case[7],
-                    scale=case[8]))
+                    f"flash case {case[0]} {dtype}", **KC.flash_kwargs(case)))
     rcfg = dataclasses.replace(configs.get_config("rwkv6-3b"),
                                n_layers=RWKV_TRAIN_LAYERS)
     rbh = RWKV_TRAIN_BATCH * rcfg.d_model // 64
@@ -3615,6 +4009,7 @@ def main() -> int:
     del xs, results, fused, padded, padded_fused, tuned
     torch.cuda.empty_cache()
     model = run_model(args.seed)
+    families = run_families(args.seed)
     trained = run_train(args.seed)
     pager = run_pager(args.seed)
     consumers = {"checkpoint": run_checkpoint(args.seed),
@@ -3742,6 +4137,12 @@ def main() -> int:
             "dtype": k["dtype"], **{key: k[key] for key in (
                 "decode_shape", "decode_ms", "decode_device_ms",
                 "decode_bound_ms") if key in k}})
+        if kname == "flash_attention":
+            # the windowed shape (danube's layer 0) and the attention
+            # families' prefill launches
+            kernels[-1]["windowed"] = families["h2o-danube-1.8b"][
+                "layer0_kernel"]
+            kernels[-1]["family_launches"] = families["launches"]
     require(len(kernels) == len(REPLACES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
     # The yardsticks: kernels of the port that replace no TPU kernel.

@@ -10,14 +10,28 @@
 // across blocks.  Tiles wholly above the causal diagonal are never loaded
 // (Pallas skips them with pl.when); masking is top-left aligned (key j is
 // seen by query i iff j <= i, as Pallas masks).  Any Sq and Skv work: the
-// ragged last tiles are masked.  GQA: query row bh reads kv row bh / groups,
-// so the caller does not repeat the kv heads.  The output is
-// acc / max(l, 1e-30), cast once to the input type.
+// ragged last tiles are masked.
+//
+// Beyond the Pallas kernel, the two masking arguments of the reference's
+// XLA blockwise_attn (src/repro/models/attention.py, which the port runs
+// through this kernel): query i sits at qpos = q_offset + i and sees key j
+// iff (!causal || j <= qpos) && (window == 0 || j > qpos - window).  The kv
+// loop of a block runs from the first tile any of its rows can see (tiles
+// wholly below the window are never loaded, the double-buffer prologue
+// loads that first tile) to the last.  A row may see nothing in the tile
+// it starts with; its running max stays -inf there and the rescale takes
+// mu = 0, so exp2(-inf - mu) is 0 and no NaN arises.  The wrapper refuses
+// shapes with a row that sees no key at all.  GQA: query row bh reads kv
+// row bh / groups, so the caller does not repeat the kv heads.  The output
+// is acc / max(l, 1e-30), cast once to the input type.
 //
 // What bounds it on the H100: the products.  At the qwen3-0.6b prefill
 // shape (B 4, 16 query heads, 8 kv heads, S 1024, D 128, causal) the floor
 // is 17.2 GFLOP at 989 TFLOP/s bf16 = 0.017 ms against 50 MB of Q, K, V
-// and O at 3.35 TB/s = 0.015 ms.  Two kernels:
+// and O at 3.35 TB/s = 0.015 ms; at h2o-danube's (B 1, 32 query heads, 8
+// kv heads, S 8192, D 80, window 4096) the window keeps 25.2 M of the 33.6
+// M causal pairs a head, 258 GFLOP = 0.26 ms, and D 80 runs padded to 128
+// (the template widths below).  Two kernels:
 //
 // bfloat16 (the prefill), flash_attn_mma_kernel, FlashAttention-2's shape
 // on the tensor cores (mma.sync m16n8k16, bf16 in, float32 accumulate):
@@ -184,8 +198,8 @@ template <int DP, int DVP>
 __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, bf16* __restrict__ out, int n_qt, int bh_n,
-    int groups, int sq, int skv, int d, int dv, int causal,
-    float scale_log2, int vec) {
+    int groups, int sq, int skv, int d, int dv, int causal, int window,
+    int q_offset, float scale_log2, int vec) {
   using Tile = MmaTile<DP, DVP>;
   constexpr int QS = Tile::QS, VS = Tile::VS;
   constexpr int NT = kMmaBK / 8;   // n8 tiles of S a kv tile
@@ -219,15 +233,21 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
       sv[r * VS + dv + idx - r * (DVP - dv)] = zero;
     }
 
+  // kv tiles [kt0, n_kt): the loop bounds come from the tile's rows alone,
+  // not from the block order
+  const int qa = q_offset + q0;  // absolute position of the tile's row 0
   int n_kt = (skv + kMmaBK - 1) / kMmaBK;
   if (causal) {
-    const int last_row = min(q0 + kMmaBQ, sq) - 1;
-    n_kt = min(n_kt, last_row / kMmaBK + 1);
+    const int last_key = qa + min(kMmaBQ, sq - q0) - 1;
+    n_kt = last_key < 0 ? 0 : min(n_kt, last_key / kMmaBK + 1);
   }
+  const int kt0 = window > 0 && qa - window + 1 > 0
+                      ? (qa - window + 1) / kMmaBK
+                      : 0;
   load_tile<DP>(sq_, QS, qb, q0, sq, d, vec, tid);
   cp_async_commit();
-  load_tile<DP>(sk, QS, kb, 0, skv, d, vec, tid);
-  load_tile<DVP>(sv, VS, vb, 0, skv, dv, vec, tid);
+  load_tile<DP>(sk, QS, kb, kt0 * kMmaBK, skv, d, vec, tid);
+  load_tile<DVP>(sv, VS, vb, kt0 * kMmaBK, skv, dv, vec, tid);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -244,10 +264,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int row_a = q0 + warp * 16 + g, row_b = row_a + 8;
+  const int row_a = qa + warp * 16 + g, row_b = row_a + 8;  // absolute
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int buf = kt & 1;
+  for (int kt = kt0; kt < n_kt; ++kt) {
+    const int buf = (kt - kt0) & 1;
     if (kt + 1 < n_kt) {
       load_tile<DP>(sk + (buf ^ 1) * kMmaBK * QS, QS, kb, (kt + 1) * kMmaBK,
                     skv, d, vec, tid);
@@ -282,7 +302,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
     }
 
     // online softmax in log2 units; rows g and g + 8 of the warp's 16
-    const bool masked = k0 + kMmaBK > skv || (causal && k0 + kMmaBK - 1 > q0);
+    const bool masked = k0 + kMmaBK > skv ||
+                        (causal && k0 + kMmaBK - 1 > qa) ||
+                        (window > 0 && k0 <= qa + kMmaBQ - 1 - window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -292,7 +314,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
         if (masked) {
           const int key = k0 + j * 8 + 2 * t + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          if (key >= skv || (causal && key > row)) x = -INFINITY;
+          if (key >= skv || (causal && key > row) ||
+              (window > 0 && key <= row - window))
+            x = -INFINITY;
         }
         s[j][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -344,6 +368,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
     }
     __syncthreads();  // this buffer is consumed before it is refilled
   }
+  if (kt0 >= n_kt) {  // no tile: the prologue's copies land before reuse
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 
   // epilogue: O / max(l, 1e-30) in float32, rounded once, staged in the
   // first V buffer (every copy has landed and every warp is past its reads)
@@ -383,7 +411,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attn_mma_kernel(
 template <int DP, int DVP>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
                int bh, int groups, int sq, int skv, int d, int dv,
-               int causal, float scale, cudaStream_t stream) {
+               int causal, int window, int q_offset, float scale,
+               cudaStream_t stream) {
   const int n_qt = (sq + kMmaBQ - 1) / kMmaBQ;
   const long long n_blocks = static_cast<long long>(n_qt) * bh;
   if (n_blocks >= (1ll << 31)) return -1;
@@ -401,22 +430,28 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       <<<static_cast<unsigned>(n_blocks), kMmaThreads, smem, stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<bf16*>(out), n_qt, bh,
-          groups, sq, skv, d, dv, causal, scale * kLog2e, vec);
+          groups, sq, skv, d, dv, causal, window, q_offset, scale * kLog2e,
+          vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int bh, int groups, int sq, int skv, int d, int dv,
-                int causal, float scale, cudaStream_t s) {
+                int causal, int window, int q_offset, float scale,
+                cudaStream_t s) {
   if (d <= 64)
     return dv <= 64 ? launch_mma<64, 64>(q, k, v, out, bh, groups, sq, skv,
-                                         d, dv, causal, scale, s)
+                                         d, dv, causal, window, q_offset,
+                                         scale, s)
                     : launch_mma<64, 128>(q, k, v, out, bh, groups, sq, skv,
-                                          d, dv, causal, scale, s);
+                                          d, dv, causal, window, q_offset,
+                                          scale, s);
   return dv <= 64 ? launch_mma<128, 64>(q, k, v, out, bh, groups, sq, skv, d,
-                                        dv, causal, scale, s)
+                                        dv, causal, window, q_offset, scale,
+                                        s)
                   : launch_mma<128, 128>(q, k, v, out, bh, groups, sq, skv,
-                                         d, dv, causal, scale, s);
+                                         d, dv, causal, window, q_offset,
+                                         scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -445,7 +480,8 @@ inline size_t flash_smem(int d, int dv) {
 __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ out, int n_qt,
-    int groups, int sq, int skv, int d, int dv, int causal, float scale) {
+    int groups, int sq, int skv, int d, int dv, int causal, int window,
+    int q_offset, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ds = d + 1;                     // padded row: no bank conflicts
   float* sq_ = smem;                        // [kBQ][ds]
@@ -478,12 +514,16 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(
     for (int c = 0; c < kAccCols; ++c) acc[i][c] = 0.f;
   }
 
+  // kv tiles [kt0, n_kt), as the bf16 kernel bounds them
+  const int qa = q_offset + q0;
   int n_kt = (skv + kBK - 1) / kBK;
   if (causal) {
-    const int last_row = min(q0 + kBQ, sq) - 1;
-    n_kt = min(n_kt, last_row / kBK + 1);
+    const int last_key = qa + min(kBQ, sq - q0) - 1;
+    n_kt = last_key < 0 ? 0 : min(n_kt, last_key / kBK + 1);
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int kt0 =
+      window > 0 && qa - window + 1 > 0 ? (qa - window + 1) / kBK : 0;
+  for (int kt = kt0; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();                        // the previous tile is consumed
     for (int idx = tid; idx < kBK * d; idx += kThreads) {
@@ -516,13 +556,14 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + 4 * ty + i;
+      const int qpos = qa + 4 * ty + i;
       bool valid[2];
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        valid[j] = kpos < skv && (!causal || kpos <= qpos);
+        valid[j] = kpos < skv && (!causal || kpos <= qpos) &&
+                   (window <= 0 || kpos > qpos - window);
         if (valid[j]) mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -580,7 +621,8 @@ __global__ void __launch_bounds__(kThreads) flash_attn_f32_kernel(
 
 int launch_f32(const void* q, const void* k, const void* v, void* out,
                int bh, int groups, int sq, int skv, int d, int dv,
-               int causal, float scale, cudaStream_t stream) {
+               int causal, int window, int q_offset, float scale,
+               cudaStream_t stream) {
   const int n_qt = (sq + kBQ - 1) / kBQ;
   const long long n_blocks = static_cast<long long>(n_qt) * bh;
   if (n_blocks >= (1ll << 31)) return -1;
@@ -595,7 +637,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                           stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n_qt, groups,
-      sq, skv, d, dv, causal, scale);
+      sq, skv, d, dv, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,20 +645,25 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // C entry point.  q (bh, sq, d), k (bh / groups, skv, d), v (bh / groups,
 // skv, dv) and out (bh, sq, dv), contiguous, all float32 (bf16 = 0) or all
-// bfloat16 (bf16 = 1).  Launches on `stream`, allocates nothing, does not
-// synchronize; returns cudaGetLastError() (0 on success), or -1 for a shape
-// the kernel does not take.
+// bfloat16 (bf16 = 1).  window: the sliding window, 0 for none; q_offset:
+// the absolute position of query 0 (the wrapper keeps |q_offset|, window
+// and q_offset + sq below 2**30).  Launches on `stream`, allocates nothing,
+// does not synchronize; returns cudaGetLastError() (0 on success), or -1
+// for a shape the kernel does not take.
 extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 void* out, int bh, int groups, int sq,
                                 int skv, int d, int dv, int causal,
-                                float scale, int bf16, void* stream) {
+                                int window, int q_offset, float scale,
+                                int bf16, void* stream) {
   using namespace repro_torch;
   if (bh < 1 || groups < 1 || bh % groups != 0 || sq < 1 || skv < 1 ||
-      d < 1 || d > kMaxD || dv < 1 || dv > kMaxD)
+      d < 1 || d > kMaxD || dv < 1 || dv > kMaxD || window < 0 ||
+      window >= (1 << 30) || q_offset <= -(1 << 30) ||
+      q_offset >= (1 << 30) - sq)
     return -1;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_bf16(q, k, v, out, bh, groups, sq, skv, d, dv, causal,
-                            scale, s)
+                            window, q_offset, scale, s)
               : launch_f32(q, k, v, out, bh, groups, sq, skv, d, dv, causal,
-                           scale, s);
+                           window, q_offset, scale, s);
 }

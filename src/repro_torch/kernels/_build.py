@@ -69,8 +69,8 @@ SIGNATURES = {
                        [_P, _L, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _P, _P, _P, _P, _P]),
     "flash_attn": ("repro_flash_attn",
-                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                    _P]),
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                    _I, _P]),
     "gla_time_mix": ("repro_gla_time_mix",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _P]),

@@ -32,6 +32,8 @@ Usage:
       --kv-offload --concurrency 8 --batch-window 0.002
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --compress-kv
 """
 
 from __future__ import annotations
@@ -55,6 +57,12 @@ def _sync(device):
 
 def _max_err(a, b) -> float:
     return float((a.to(torch.float32) - b.to(torch.float32)).abs().max())
+
+
+def _prompt(cfg, batch, prompt_len, seed, device):
+    """The prompt tokens, drawn from ``seed`` on ``device``."""
+    return torch.randint(0, cfg.vocab, (batch, prompt_len),
+                         generator=T.generator(seed, device), device=device)
 
 
 def main(argv=None):
@@ -128,10 +136,15 @@ def main(argv=None):
 
     params = T.init_model(args.seed, cfg, device)
     serve = S.make_serve_step(cfg)
-    gen = T.generator(args.seed, device)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=gen, device=device)
+    prompt = _prompt(cfg, args.batch, args.prompt_len, args.seed, device)
     cache = D.init_cache(cfg, args.batch, kv_len, device)
+    if cfg.family == "encdec":
+        # cross-attention K/V from the (stubbed) encoder features: zero
+        # frames, as the reference's serve.py makes them (so the decode's
+        # cross-attention adds zero)
+        enc = torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                          dtype=cfg.cdt, device=device)
+        cache.update(D.cross_cache(params, enc, cfg))
 
     # --- prefill by stepping the decoder over the prompt ------------------
     _sync(device)

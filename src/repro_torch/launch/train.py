@@ -19,8 +19,10 @@ Port of ``src/repro/launch/train.py``, with its flags and output lines:
 and the batches live; on the card the dense family's attention runs the
 ``flash_attention`` kernel and the rwkv family's time-mix ``gla_time_mix``,
 each inside its ``torch.autograd.Function``.  A step's time is read after
-a device synchronize.  The ``vlm`` and ``encdec`` families (their
-``extra_embeds`` stubs) and the other unported families raise
+a device synchronize.  The ``vlm`` and ``encdec`` families get the
+reference's modality stubs in each batch (``extra_embeds``): 8 zero patch
+embeddings for vlm, its labels left-padded by -1 over them, and
+``encoder_seq`` zero frames for encdec.  The unported families raise
 ``NotImplementedError`` naming ROADMAP A10.
 
 Usage:
@@ -144,6 +146,18 @@ def main(argv=None):
     t0 = time.time()
     for step in range(start_step, args.steps):
         batch = data.batch_at(step)
+        if cfg.family in ("vlm", "encdec"):
+            extra_len = 8 if cfg.family == "vlm" else cfg.encoder_seq
+            batch = dict(batch)
+            batch["extra_embeds"] = torch.zeros(
+                (args.batch, extra_len, cfg.d_model), dtype=cfg.cdt,
+                device=device)
+            if cfg.family == "vlm":
+                labels = batch["labels"]
+                batch["labels"] = torch.cat(
+                    [torch.full((args.batch, extra_len), -1,
+                                dtype=labels.dtype, device=device), labels],
+                    dim=1)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:

@@ -4,8 +4,9 @@ The reference's parameter tree (``src/repro/models/transformer.py``
 ``init_model``) stacks each per-layer leaf on axis 0; the port keeps a list
 of per-layer dicts.  So a tree crosses by a rename and an unstack:
 ``params["layers"]["attn"]["wq"][i]`` there is ``params["layers"][i]["attn"]
-["wq"]`` here, and ``stack_layers`` goes back.  The trees come and go as
-numpy arrays (``jax.tree.map(np.asarray, ...)`` on the other side);
+["wq"]`` here (the encdec family's ``params["encoder"]`` likewise), and
+``stack_layers`` goes back.  The trees come and go as numpy arrays
+(``jax.tree.map(np.asarray, ...)`` on the other side);
 bfloat16 arrays (``ml_dtypes``) cross through their 16-bit patterns.
 Decode caches keep the same keys and stacked layouts on both sides.
 """
@@ -49,17 +50,25 @@ def _unstack(tree, i):
     return np.asarray(tree)[i]
 
 
+#: The parameter groups whose leaves stack a layer on axis 0 in the
+#: reference's tree (a list of per-layer dicts here), and the config field
+#: that counts their layers.
+STACKED = {"layers": "n_layers", "encoder": "encoder_layers"}
+#: The groups that cross as they are.
+PLAIN = ("embed", "unembed", "final_norm", "enc_norm")
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
     """The port's parameters from the reference's tree of numpy arrays.
     A leaf may be a dict of arrays (an int8 optimizer-state leaf, ``{"q",
     "scale"}`` or ``{"f"}``): each of its arrays crosses the same way."""
     out = {}
     for key, sub in np_tree.items():
-        if key == "layers":
+        if key in STACKED:
             out[key] = [_map(_unstack(sub, i),
                              lambda a: to_torch(a, device))
-                        for i in range(cfg.n_layers)]
-        elif key in ("embed", "unembed", "final_norm"):
+                        for i in range(getattr(cfg, STACKED[key]))]
+        elif key in PLAIN:
             out[key] = _map(sub, lambda a: to_torch(a, device))
         else:
             raise NotImplementedError(
@@ -69,25 +78,25 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
 
 
 def stack_layers(params):
-    """The port's parameters in the reference's layout: the list of
-    per-layer dicts stacked into one dict whose leaves carry the layer on
-    axis 0 (``torch.stack``, on the leaves' device); the other groups
-    unchanged.  The inverse of ``params_from_jax``'s unstack: a checkpoint
-    of it has the reference's entry names (``params.layers.attn.wq``, shape
-    ``[n_layers, ...]``)."""
+    """The port's parameters in the reference's layout: each list of
+    per-layer dicts (``layers``, and ``encoder`` for encdec) stacked into
+    one dict whose leaves carry the layer on axis 0 (``torch.stack``, on
+    the leaves' device); the other groups unchanged.  The inverse of
+    ``params_from_jax``'s unstack: a checkpoint of it has the reference's
+    entry names (``params.layers.attn.wq``, shape ``[n_layers, ...]``)."""
     def stack(items):
         if isinstance(items[0], dict):
             return {k: stack([it[k] for it in items]) for k in items[0]}
         return torch.stack(items)
 
-    return {key: stack(sub) if key == "layers" else sub
+    return {key: stack(sub) if key in STACKED else sub
             for key, sub in params.items()}
 
 
 def unstack_layers(tree):
-    """The inverse of ``stack_layers``: the ``"layers"`` group's stacked
-    leaves (dicts of them included) split along axis 0 into the port's list
-    of per-layer dicts; the other groups unchanged.  A tree restored from a
+    """The inverse of ``stack_layers``: each stacked group's leaves (dicts
+    of them included) split along axis 0 into the port's list of per-layer
+    dicts; the other groups unchanged.  A tree restored from a
     checkpoint crosses back this way."""
     def first(t):
         while isinstance(t, dict):
@@ -100,9 +109,10 @@ def unstack_layers(tree):
         return t[i]
 
     out = dict(tree)
-    if "layers" in tree:
-        n = first(tree["layers"]).shape[0]
-        out["layers"] = [pick(tree["layers"], i) for i in range(n)]
+    for key in STACKED:
+        if key in tree:
+            n = first(tree[key]).shape[0]
+            out[key] = [pick(tree[key], i) for i in range(n)]
     return out
 
 
@@ -153,10 +163,13 @@ def opt_state_to_numpy(state):
 
 
 def cache_from_jax(np_cache, device="cuda"):
-    """A decode cache (same keys and layouts) from numpy arrays."""
+    """A decode cache (same keys and layouts) from numpy arrays: int8 codes
+    and float32 scales (``kv_quant``) as they are, bfloat16 through its
+    bits."""
     return {k: to_torch(v, device) for k, v in np_cache.items()}
 
 
 def cache_to_numpy(cache):
-    """A decode cache as numpy arrays (bfloat16 as float32)."""
+    """A decode cache as numpy arrays (bfloat16 as float32; int8 codes and
+    float32 scales as they are)."""
     return {k: to_numpy(v) for k, v in cache.items()}

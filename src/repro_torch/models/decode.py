@@ -1,11 +1,16 @@
 """Single-token decode with per-layer caches (the serve step's substrate).
 
-Port of ``src/repro/models/decode.py`` for the ``dense`` and ``rwkv``
-families.  The caches keep the reference's keys and stacked layouts:
+Port of ``src/repro/models/decode.py`` for the ``dense``, ``vlm``,
+``encdec`` and ``rwkv`` families.  The caches keep the reference's keys and
+stacked layouts:
 
-  dense : k, v  (L, B, S_kv, Hkv, Dh) in the compute type
-  rwkv  : state (L, B, H, dk, dv) float32 + shift carries tshift, cshift
-          (L, B, d) in the compute type
+  dense/vlm : k, v  (L, B, S_kv, Hkv, Dh) in the compute type, S_kv capped
+              at the window for SWA (a ring buffer); under ``kv_quant`` k,
+              v int8 and k_scale, v_scale (L, B, S_kv, Hkv) float32
+  encdec    : self k, v (L, B, S_kv, Hkv, Dh) + cross xk, xv (L, B, T_enc,
+              Hkv, Dh), precomputed from encoder features (``cross_cache``)
+  rwkv      : state (L, B, H, dk, dv) float32 + shift carries tshift,
+              cshift (L, B, d) in the compute type
 
 ``forward_decode`` writes each step into the given cache tensors in place
 (the reference returns updated copies) and returns the same dict.  The
@@ -28,9 +33,20 @@ def cache_spec(cfg: ModelConfig, batch: int, kv_len: int, dtype=None):
     """Shape/dtype of each cache tensor: ``{name: (shape, dtype)}``."""
     T.check_family(cfg)
     dt = dtype or cfg.cdt
-    if cfg.family == "dense":
-        shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.swa_window:
+        kv_len = min(kv_len, cfg.swa_window)
+    shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family in ("dense", "vlm"):
+        if cfg.kv_quant:
+            return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                    "k_scale": (shape[:-1], torch.float32),
+                    "v_scale": (shape[:-1], torch.float32)}
         return {"k": (shape, dt), "v": (shape, dt)}
+    if cfg.family == "encdec":
+        cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k": (shape, dt), "v": (shape, dt), "xk": (cross, dt),
+                "xv": (cross, dt)}
     h, dh = RWKV.rwkv_dims(cfg)
     return {
         "state": ((cfg.n_layers, batch, h, dh, dh), torch.float32),
@@ -44,6 +60,15 @@ def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device="cuda"):
             for k, (shape, dt) in cache_spec(cfg, batch, kv_len).items()}
 
 
+def cross_cache(params, enc, cfg: ModelConfig):
+    """The encdec cache's cross-attention entries from encoder features
+    ``enc`` (B, T_enc, d): ``{"xk", "xv"}``, each (L, B, T_enc, Hkv, Dh) in
+    enc's type, every decoder layer's ``xattn`` K and V of ``enc``."""
+    kv = [A.cross_kv(enc, lp["xattn"]) for lp in params["layers"]]
+    return {"xk": torch.stack([k for k, _ in kv]),
+            "xv": torch.stack([v for _, v in kv])}
+
+
 def forward_decode(params, token, cache, pos, cfg: ModelConfig):
     """token: (B, 1) integer; pos: the current absolute position (int).
 
@@ -52,11 +77,25 @@ def forward_decode(params, token, cache, pos, cfg: ModelConfig):
     T.check_family(cfg)
     pos = int(pos)
     x = params["embed"][token].to(cfg.cdt)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm") and cfg.kv_quant:
+        names = ("k", "v", "k_scale", "v_scale")
+        for i, lp in enumerate(params["layers"]):
+            h, _ = A.decode_attn_int8(
+                L.rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+                {n: cache[n][i] for n in names}, pos, window=cfg.swa_window)
+            x = x + h
+            x = x + L.mlp_apply(L.rms_norm(x, lp["ln2"]), lp["mlp"],
+                                cfg.act)
+    elif cfg.family != "rwkv":
         for i, lp in enumerate(params["layers"]):
             h, _, _ = A.decode_attn(L.rms_norm(x, lp["ln1"]), lp["attn"],
-                                    cfg, cache["k"][i], cache["v"][i], pos)
+                                    cfg, cache["k"][i], cache["v"][i], pos,
+                                    window=cfg.swa_window)
             x = x + h
+            if cfg.family == "encdec":
+                x = x + A.cross_decode_attn(
+                    L.rms_norm(x, lp["ln_x"]), lp["xattn"], cfg,
+                    cache["xk"][i], cache["xv"][i])
             x = x + L.mlp_apply(L.rms_norm(x, lp["ln2"]), lp["mlp"],
                                 cfg.act)
     else:

@@ -2,8 +2,9 @@
 
 Port of ``src/repro/models/layers.py``, with the reference's dtype steps:
 ``rms_norm`` reduces in float32 and multiplies in the working type,
-``apply_rope`` rotates in float32 and casts once.  M-RoPE comes with
-qwen2-vl (ROADMAP A10).  The init helpers draw from a ``torch.Generator``,
+``layer_norm`` normalises in float32, ``apply_rope`` and ``apply_mrope``
+rotate in float32 and cast once.  The init helpers draw from a
+``torch.Generator``,
 whose numbers differ from ``jax.random``'s: shapes, dtypes and scales match
 the reference's, values do not.
 """
@@ -20,6 +21,18 @@ def rms_norm(x, scale, eps: float = 1e-6):
     var = x.float().square().sum(-1) / x.shape[-1]
     inv = torch.rsqrt(var + eps).to(dt)
     return x * inv[..., None] * scale.to(dt)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """LayerNorm: mean and (population) variance in float32, the normalised
+    value cast to x's type, then ``* scale + bias`` in x's type.  No model
+    of the reference calls it; it is kept as the reference keeps it."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return y.to(dt) * scale.to(dt) + bias.to(dt)
 
 
 def act_fn(name: str):
@@ -50,7 +63,7 @@ def mlp_apply(x, p, act: str = "silu"):
 
 
 # ---------------------------------------------------------------------------
-# Rotary embeddings
+# Rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
 
@@ -66,6 +79,33 @@ def apply_rope(x, positions, theta: float = 1e4):
     inv = rope_freqs(d, theta, x.device)                  # (D/2,)
     ang = positions[..., None].to(torch.float32) * inv    # (..., S, D/2)
     sin = torch.sin(ang)[..., None, :]                    # (..., S, 1, D/2)
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions3, sections, theta: float = 1e4):
+    """Qwen2-VL multimodal RoPE.
+
+    x: (..., S, H, D); positions3: (..., 3, S), the temporal, height and
+    width position ids.  The rotary half-dims are split into ``sections``
+    (summing to D / 2); each section rotates with its own position stream.
+    For text tokens all three streams are equal and this is ``apply_rope``.
+    """
+    d = x.shape[-1]
+    half = d // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    inv = rope_freqs(d, theta, x.device)                   # (D/2,)
+    # the position stream of each frequency slot
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(list(sections), device=x.device))     # (D/2,)
+    pos = positions3.index_select(-2, sec_id).movedim(-2, -1)  # (..., S, D/2)
+    ang = pos.to(torch.float32) * inv
+    sin = torch.sin(ang)[..., None, :]
     cos = torch.cos(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

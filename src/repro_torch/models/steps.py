@@ -210,9 +210,10 @@ def make_serve_step(cfg: ModelConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """Prefill: the forward over a prompt, (params, tokens (B, S)) ->
-    logits (B, S, V); the dense family's attention runs the
-    ``flash_attention`` kernel, the rwkv family's time-mix ``gla_time_mix``."""
+    """Prefill: the forward over a prompt, (params, tokens (B, S),
+    extra_embeds=None) -> logits (B, S_total, V); the attention of the
+    dense, vlm and encdec families runs the ``flash_attention`` kernel, the
+    rwkv family's time-mix ``gla_time_mix``."""
 
     def prefill_step(params, tokens, extra_embeds=None):
         with torch.inference_mode():

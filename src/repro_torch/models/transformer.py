@@ -1,19 +1,21 @@
 """Model assembly: init, ``forward_hidden`` and ``forward``.
 
-Port of ``src/repro/models/transformer.py`` for the ``dense`` family (GQA
-attention with qk-norm / QKV bias, gated or plain MLP; qwen3-0.6b) and the
-``rwkv`` family (RWKV-6 time-mix + channel-mix; rwkv6-3b).  The other
-families raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Port of ``src/repro/models/transformer.py`` for the ``dense`` and ``vlm``
+families (GQA attention with qk-norm / QKV bias / a sliding window / M-RoPE,
+gated or plain MLP; qwen3-0.6b, h2o-danube-1.8b, qwen2-vl-72b), the
+``encdec`` family (a bidirectional encoder over stub frame embeddings and a
+causal decoder with cross-attention; whisper-base) and the ``rwkv`` family
+(RWKV-6 time-mix + channel-mix; rwkv6-3b).  The other families raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 
 Parameters are a dict shaped like the reference's tree, except that the
 per-layer stack is a list: ``params["layers"][i]["attn"]["wq"]`` here is
 ``params["layers"]["attn"]["wq"][i]`` there (``models/convert.py`` moves a
-tree across).  The layers run as a Python loop (the reference's
-``lax.scan``).  With ``cfg.remat``, while autograd records, each layer body
-runs under ``torch.utils.checkpoint`` (non-reentrant): its activations are
-recomputed in the backward, as the reference's ``jax.checkpoint``
-(``_maybe_remat``) has them.
+tree across; ``params["encoder"]`` likewise).  The layers run as a
+Python loop (the reference's ``lax.scan``).  With ``cfg.remat``, while
+autograd records, each layer body runs under ``torch.utils.checkpoint``
+(non-reentrant): its activations are recomputed in the backward, as the
+reference's ``jax.checkpoint`` (``_maybe_remat``) has them.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ UNPORTED_FAMILIES = {
     "moe": "A10 (the moe family, qwen2-moe)",
     "mla_moe": "A10 (the mla_moe family, deepseek-v3)",
     "hybrid_ssm": "A10 (the hybrid_ssm family, zamba2)",
-    "encdec": "A10 (the encdec family, whisper)",
-    "vlm": "A10 (the vlm family, qwen2-vl)",
 }
+#: The families the port runs.
+FAMILIES = ("dense", "vlm", "encdec", "rwkv")
 
 
 def check_family(cfg: ModelConfig):
@@ -42,9 +44,9 @@ def check_family(cfg: ModelConfig):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP "
             f"{UNPORTED_FAMILIES[cfg.family]}")
-    if cfg.family not in ("dense", "rwkv"):
+    if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
-    if cfg.family == "dense":
+    if cfg.family != "rwkv":
         A.check_config(cfg)
 
 
@@ -78,13 +80,17 @@ def _init_mlp(gen, cfg: ModelConfig, d_ff=None):
             "wd": L.dense_init(gen, (ff, d), cfg.pdt)}
 
 
-def _init_dense_layer(gen, cfg: ModelConfig):
-    return {
+def _init_dense_layer(gen, cfg: ModelConfig, cross: bool = False):
+    p = {
         "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
         "attn": A.init_attn(gen, cfg),
         "ln2": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
         "mlp": _init_mlp(gen, cfg),
     }
+    if cross:
+        p["ln_x"] = L.full(gen, (cfg.d_model,), 1.0, cfg.pdt)
+        p["xattn"] = A.init_attn(gen, cfg)
+    return p
 
 
 def _init_rwkv_layer(gen, cfg: ModelConfig):
@@ -111,8 +117,15 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
     if not cfg.tie_embeddings:
         params["unembed"] = L.dense_init(gen, (cfg.vocab, d), cfg.pdt,
                                          scale=0.02)
-    layer_init = (_init_dense_layer if cfg.family == "dense"
-                  else _init_rwkv_layer)
+    if cfg.family == "encdec":
+        params["encoder"] = [_init_dense_layer(gen, cfg)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = L.full(gen, (d,), 1.0, cfg.pdt)
+        params["layers"] = [_init_dense_layer(gen, cfg, cross=True)
+                            for _ in range(cfg.n_layers)]
+        return params
+    layer_init = (_init_rwkv_layer if cfg.family == "rwkv"
+                  else _init_dense_layer)
     params["layers"] = [layer_init(gen, cfg) for _ in range(cfg.n_layers)]
     return params
 
@@ -122,9 +135,15 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def _dense_layer(x, p, cfg: ModelConfig, positions):
-    h = A.attn_block(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions)
+def _dense_layer(x, p, cfg: ModelConfig, positions, *, causal=True,
+                 enc_out=None, window=None):
+    h = A.attn_block(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions,
+                     causal=causal, window=window)
     x = x + h
+    if enc_out is not None:
+        h = A.attn_block(L.rms_norm(x, p["ln_x"]), p["xattn"], cfg, None,
+                         causal=False, kv_x=enc_out)
+        x = x + h
     return x + L.mlp_apply(L.rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
 
 
@@ -145,8 +164,8 @@ def _maybe_remat(f, cfg: ModelConfig):
     if not (cfg.remat and torch.is_grad_enabled()):
         return f
 
-    def body(*args):
-        return _checkpoint.checkpoint(f, *args, use_reentrant=False)
+    def body(*args, **kw):
+        return _checkpoint.checkpoint(f, *args, use_reentrant=False, **kw)
 
     return body
 
@@ -156,26 +175,54 @@ def _maybe_remat(f, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+def _positions(cfg: ModelConfig, s: int, device):
+    """Batch-free positions 0 .. s - 1: (S,), or (3, S) for M-RoPE, where
+    the three streams coincide (text tokens; the vision stub's patches
+    take text-linear ids too)."""
+    pos = torch.arange(s, dtype=torch.int32, device=device)
+    return pos[None, :].expand(3, s) if cfg.mrope else pos
+
+
+def encode(params, frames, cfg: ModelConfig):
+    """The encdec family's encoder: the bidirectional dense stack over the
+    stub frame embeddings ``frames`` (B, T, d), then ``enc_norm``.  Returns
+    (B, T, d) in the compute type."""
+    enc = frames.to(cfg.cdt)
+    enc_pos = _positions(cfg, enc.shape[1], enc.device)
+    body = _maybe_remat(_dense_layer, cfg)
+    for lp in params["encoder"]:
+        enc = body(enc, lp, cfg, enc_pos, causal=False)
+    return L.rms_norm(enc, params["enc_norm"])
+
+
 def forward_hidden(params, tokens, cfg: ModelConfig, extra_embeds=None):
-    """tokens: (B, S) integer.  Returns (hidden (B, S, d) post-final-norm,
-    aux_loss 0-dim float32).  ``extra_embeds`` (the vlm and encdec stubs)
-    comes with those families."""
+    """tokens: (B, S) integer; extra_embeds: (B, P, d) modality-stub
+    embeddings, prepended to the token embeddings (vlm patches), or the
+    encoder's input frames (encdec, which needs them).
+
+    Returns (hidden (B, S_total, d) post-final-norm, aux_loss 0-dim
+    float32); for encdec S_total is the token count.
+    """
     check_family(cfg)
-    if extra_embeds is not None:
-        raise NotImplementedError("extra_embeds is not ported yet: ROADMAP "
-                                  "A10 (the vlm and encdec families)")
     x = params["embed"][tokens].to(cfg.cdt)
-    s = x.shape[1]
+    if extra_embeds is not None and cfg.family != "encdec":
+        x = torch.cat([extra_embeds.to(cfg.cdt), x], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "dense":
-        positions = torch.arange(s, dtype=torch.int32, device=x.device)
-        body = _maybe_remat(_dense_layer, cfg)
-        for lp in params["layers"]:
-            x = body(x, lp, cfg, positions)
-    else:
+    if cfg.family == "rwkv":
         body = _maybe_remat(_rwkv_layer, cfg)
         for lp in params["layers"]:
             x = body(x, lp, cfg)
+        return L.rms_norm(x, params["final_norm"]), aux
+    enc = None
+    if cfg.family == "encdec":
+        if extra_embeds is None:
+            raise ValueError("the encdec family needs stub frame embeddings "
+                             "(extra_embeds)")
+        enc = encode(params, extra_embeds, cfg)
+    positions = _positions(cfg, x.shape[1], x.device)
+    body = _maybe_remat(_dense_layer, cfg)
+    for lp in params["layers"]:
+        x = body(x, lp, cfg, positions, enc_out=enc)
     return L.rms_norm(x, params["final_norm"]), aux
 
 
@@ -186,6 +233,6 @@ def unembed(params, x):
 
 
 def forward(params, tokens, cfg: ModelConfig, extra_embeds=None):
-    """Full forward: (logits (B, S, V), aux)."""
+    """Full forward: (logits (B, S_total, V), aux)."""
     x, aux = forward_hidden(params, tokens, cfg, extra_embeds=extra_embeds)
     return unembed(params, x), aux

@@ -8,7 +8,10 @@ and a non-zero initial state.  The edges of the kernels' tiles: for flash,
 ``D`` and ``Dv`` that are no multiple of 16 (zero-padded in shared memory)
 or of 8 (staged by plain loads, not 16-byte copies), ``Skv`` shorter than
 one 64-row kv tile, ``Sq`` and ``Skv`` one off a multiple of 64, and a
-scale other than the default; for the recurrence, ``dv`` that is no
+scale other than the default; the sliding window at 1, 16 (inside one
+tile), 63, 64 and 65 (one off the tile), at least ``Skv`` (no window),
+without the causal mask, with ``q_offset`` and with GQA 8; for the
+recurrence, ``dv`` that is no
 multiple of the 16 columns a block owns, ``dk`` 8 and widths that are no
 multiple of 4 floats.  Inputs are made with numpy from a seed, then
 moved to the device asked for.
@@ -19,22 +22,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-#: (name, BH, Sq, Skv, D, Dv, groups, causal, scale); scale None is the
-#: default ``D ** -0.5``.
+#: (name, BH, Sq, Skv, D, Dv, groups, causal, scale, window, q_offset);
+#: scale None is the default ``D ** -0.5``, window None no window.
 FLASH_CASES = [
-    ("square", 2, 128, 128, 32, 32, 1, True, None),
-    ("full", 2, 128, 128, 32, 32, 1, False, None),
-    ("rect_sq_gt_skv", 1, 256, 128, 64, 64, 1, True, None),
-    ("rect_sq_lt_skv", 2, 70, 200, 64, 64, 1, False, None),
-    ("dv_ne_d", 3, 128, 128, 16, 32, 1, True, None),
-    ("gqa2_ragged", 8, 77, 77, 128, 128, 2, True, None),
-    ("gqa8_ragged", 16, 1000, 1000, 128, 128, 8, True, None),
-    ("one_query", 4, 1, 33, 128, 128, 2, False, None),
-    ("d40_dv72", 2, 100, 100, 40, 72, 1, True, None),
-    ("d33_dv20_plain_loads", 3, 65, 70, 33, 20, 1, True, None),
-    ("skv_shorter_than_tile", 2, 96, 20, 64, 64, 1, False, None),
-    ("off_by_one_gqa2", 4, 127, 129, 128, 128, 2, True, None),
-    ("scale_2", 2, 130, 130, 64, 64, 2, True, 2.0),
+    ("square", 2, 128, 128, 32, 32, 1, True, None, None, 0),
+    ("full", 2, 128, 128, 32, 32, 1, False, None, None, 0),
+    ("rect_sq_gt_skv", 1, 256, 128, 64, 64, 1, True, None, None, 0),
+    ("rect_sq_lt_skv", 2, 70, 200, 64, 64, 1, False, None, None, 0),
+    ("dv_ne_d", 3, 128, 128, 16, 32, 1, True, None, None, 0),
+    ("gqa2_ragged", 8, 77, 77, 128, 128, 2, True, None, None, 0),
+    ("gqa8_ragged", 16, 1000, 1000, 128, 128, 8, True, None, None, 0),
+    ("one_query", 4, 1, 33, 128, 128, 2, False, None, None, 0),
+    ("d40_dv72", 2, 100, 100, 40, 72, 1, True, None, None, 0),
+    ("d33_dv20_plain_loads", 3, 65, 70, 33, 20, 1, True, None, None, 0),
+    ("skv_shorter_than_tile", 2, 96, 20, 64, 64, 1, False, None, None, 0),
+    ("off_by_one_gqa2", 4, 127, 129, 128, 128, 2, True, None, None, 0),
+    ("scale_2", 2, 130, 130, 64, 64, 2, True, 2.0, None, 0),
+    ("window_1", 2, 130, 130, 64, 64, 1, True, None, 1, 0),
+    ("window_16_gqa2", 4, 200, 200, 64, 64, 2, True, None, 16, 0),
+    ("window_63", 2, 257, 257, 128, 128, 1, True, None, 63, 0),
+    ("window_64", 2, 257, 257, 64, 64, 1, True, None, 64, 0),
+    ("window_65_d80", 4, 300, 300, 80, 80, 2, True, None, 65, 0),
+    ("window_ge_skv", 2, 130, 130, 32, 32, 1, True, None, 130, 0),
+    ("window_not_causal", 2, 150, 150, 64, 64, 1, False, None, 40, 0),
+    ("q_offset", 2, 70, 200, 64, 64, 1, True, None, None, 130),
+    ("q_offset_window_gqa2", 4, 70, 200, 64, 64, 2, True, None, 48, 130),
+    ("window_gqa8", 16, 300, 300, 128, 128, 8, True, None, 100, 0),
 ]
 
 #: (name, BH, S, dk, dv, H, w_low, w_high, with_u, with_state)
@@ -52,9 +65,14 @@ GLA_CASES = [
 ]
 
 
+def flash_kwargs(case) -> dict:
+    """The masking and scale keywords of a ``FLASH_CASES`` entry."""
+    return dict(zip(("causal", "scale", "window", "q_offset"), case[7:]))
+
+
 def flash_inputs(case, dtype, device, seed: int = 0):
     """(q, k, v) of a ``FLASH_CASES`` entry, standard normal, in ``dtype``."""
-    _, bh, sq, skv, d, dv, groups, _, _ = case
+    _, bh, sq, skv, d, dv, groups = case[:7]
     rng = np.random.default_rng(seed + bh * sq + skv + d)
 
     def t(shape):

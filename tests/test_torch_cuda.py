@@ -1822,13 +1822,14 @@ def test_flash_attention_matches_plain(cuda, full_f32_matmul, case, dtype):
     """float32: within 2e-5 (the sums run in another order); bfloat16: the
     kernel rounds p to bf16 for its tensor-core P V product (a term moves
     by at most 2**-9 of |v|) and both round the output once, so within one
-    bf16 ulp of the output's scale."""
+    bf16 ulp of the output's scale.  The window cases: rows that see no
+    key in their block's first tile give no NaN."""
     q, k, v = KC.flash_inputs(case, dtype, cuda)
-    causal, scale = case[7], case[8]
+    kw = KC.flash_kwargs(case)
     before = FA.flash_attention.launches
-    out = FA.flash_attention(q, k, v, causal=causal, scale=scale)
+    out = FA.flash_attention(q, k, v, **kw)
     assert FA.flash_attention.launches == before + 1
-    ref = FA.flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    ref = FA.flash_attention_plain(q, k, v, **kw)
     assert out.dtype == dtype and out.shape == ref.shape
     assert bool(torch.isfinite(out).all())
     err = (out.double() - ref.double()).abs().max().item()
@@ -1836,7 +1837,7 @@ def test_flash_attention_matches_plain(cuda, full_f32_matmul, case, dtype):
         torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
     else:
         assert err <= KC.bf16_ulp(ref.float().abs().max().item()), err
-    again = FA.flash_attention(q, k, v, causal=causal, scale=scale)
+    again = FA.flash_attention(q, k, v, **kw)
     assert torch.equal(out, again)
 
 
@@ -1852,6 +1853,68 @@ def test_flash_attention_scale_and_extreme_logits(cuda, full_f32_matmul):
     out = FA.flash_attention(q * 0.125, k, v, causal=True, scale=1.0)
     ref = FA.flash_attention_plain(q, k, v, causal=True, scale=0.125)
     torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_window_at_danube_shape(cuda, full_f32_matmul,
+                                                dtype):
+    """h2o-danube's layer shape (D 80, GQA 4) cut to 2 heads and 1,100
+    tokens, window 512: the kernel skips the tiles below the window and
+    agrees with its plain version; a window of at least Skv equals no
+    window, bit for bit; a fully masked row raises."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((8, 1100, 80), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 1100, 80), generator=gen, device=cuda).to(dtype)
+            for _ in "kv")
+    out = FA.flash_attention(q, k, v, causal=True, window=512)
+    ref = FA.flash_attention_plain(q, k, v, causal=True, window=512)
+    assert bool(torch.isfinite(out).all())
+    tol = (2e-5 if dtype == torch.float32
+           else KC.bf16_ulp(ref.float().abs().max().item()))
+    assert float((out.float() - ref.float()).abs().max()) <= tol
+    assert torch.equal(FA.flash_attention(q, k, v, causal=True, window=1100),
+                       FA.flash_attention(q, k, v, causal=True))
+    with pytest.raises(ValueError, match="sees no key"):
+        FA.flash_attention(q, k, v, causal=True, q_offset=-1)
+
+
+def test_decode_attn_int8_on_card(cuda, full_f32_matmul):
+    """decode_attn_int8 on the card against the CPU, 40 steps of the
+    reduced danube's attention (ring buffer of 32, wrapping).  The int8
+    products are exact in float32 on both; the projections' float32 sums
+    run in another order, so a key a rounding away from a half-way point
+    may take the next code: the codes equal at all but a thousandth and
+    within one, the scales within 1e-6 relative, the output within 1e-3
+    (a code one off moves its key or value by a quantization step)."""
+    from repro_torch import configs
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(
+        configs.get_config("h2o-danube-1.8b").reduced(
+            compute_dtype="float32"), kv_quant=True)
+    p = T.init_model(0, cfg, "cpu")["layers"][0]["attn"]
+    pc = {k: t.to(cuda) for k, t in p.items()}
+    shape = (2, 32, cfg.n_kv_heads, cfg.head_dim)
+    caches = [{"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+               "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+               "k_scale": torch.zeros(shape[:3], device=dev),
+               "v_scale": torch.zeros(shape[:3], device=dev)}
+              for dev in ("cpu", cuda)]
+    gen = torch.Generator().manual_seed(6)
+    for pos in range(40):
+        x = torch.randn((2, 1, cfg.d_model), generator=gen)
+        a, _ = A.decode_attn_int8(x, p, cfg, caches[0], pos, window=32)
+        b, _ = A.decode_attn_int8(x.to(cuda), pc, cfg, caches[1], pos,
+                                  window=32)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-3, atol=1e-3)
+    for name in ("k", "v"):
+        d = (caches[1][name].cpu().int() - caches[0][name].int()).abs()
+        assert int(d.max()) <= 1 and int((d > 0).sum()) <= 1e-3 * d.numel()
+    for name in ("k_scale", "v_scale"):
+        torch.testing.assert_close(caches[1][name].cpu(), caches[0][name],
+                                   rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("case", KC.GLA_CASES, ids=lambda c: c[0])
@@ -2347,7 +2410,7 @@ def test_flash_trainable_gradients_on_card(cuda, full_f32_matmul, case,
     round once), 1e-4 of it in float32."""
     q, k, v = KC.flash_inputs(case, dtype, cuda)
     cot = [torch.randn((q.shape[0], q.shape[1], v.shape[2]), device=cuda)]
-    kw = {"causal": case[7], "scale": case[8]}
+    kw = KC.flash_kwargs(case)
     before = FA.flash_attention.launches
     got = _autograd(FA.flash_attention_trainable, (q, k, v), cot, **kw)
     assert FA.flash_attention.launches == before + 1

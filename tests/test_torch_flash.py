@@ -21,6 +21,13 @@ group); in bfloat16 within 3e-2 of each gradient's scale (both round the
 float32 gradients to bfloat16 once, from inputs rounded alike); and the
 model's ``blockwise_attn`` gradients against ``jax.grad`` of the
 reference's in float32 at 1e-4.
+
+The sliding window and ``q_offset`` (the masking arguments of the
+reference's XLA ``blockwise_attn``; the Pallas kernel has neither): the
+wrapper on CPU tensors (its plain version), on every case of
+``repro_torch.testing.kernel_cases.FLASH_CASES``, against the reference's
+``blockwise_attn`` in float32 at 1e-5; the windowed backward against
+autograd through ``dense_attention`` at 1e-5 / 1e-6 (as the chunk test).
 """
 
 import numpy as np
@@ -35,6 +42,7 @@ from repro.models import attention as JA
 
 from repro_torch.kernels import flash_attn as FA
 from repro_torch.models import attention as A
+from repro_torch.testing import kernel_cases as KC
 
 
 def _inputs(shape_q, shape_k, shape_v, seed):
@@ -190,16 +198,76 @@ def test_attn_kernel_inputs_keep_the_reference_rounding():
     np.testing.assert_array_equal(q3.float().numpy(), want)
 
 
-def test_unported_attention_options_raise():
-    """Sliding windows and cross-attention name their ROADMAP item."""
-    q = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.*sliding"):
-        A.blockwise_attn(q, q, q, causal=True, window=4)
-    from repro_torch import configs
-    cfg = configs.get_config("qwen3-0.6b").reduced()
-    x = torch.zeros((1, 8, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10.*cross"):
-        A.attn_block(x, {}, cfg, None, kv_x=x)
+def _reference_rows(q, k, v, **kw):
+    """The reference's blockwise_attn on (BH, S, D) rows laid out as one
+    batch of BH heads (its repeat_kv maps head h to kv head h // G, as the
+    kernel does), in one query chunk."""
+    out = JA.blockwise_attn(*(jnp.asarray(a)[None].transpose(0, 2, 1, 3)
+                              for a in (q, k, v)),
+                            chunk=q.shape[1], **kw)
+    return np.asarray(out)[0].transpose(1, 0, 2)
+
+
+@pytest.mark.parametrize("case", [c for c in KC.FLASH_CASES
+                                  if c[8] is None], ids=lambda c: c[0])
+def test_flash_cases_match_reference_blockwise(case):
+    """Every kernel case (the window ones included) through the wrapper's
+    plain version against the reference's blockwise_attn with the same
+    causal, window and q_offset, float32."""
+    q, k, v = (t.numpy() for t in KC.flash_inputs(case, torch.float32,
+                                                  "cpu"))
+    kw = KC.flash_kwargs(case)
+    want = _reference_rows(q, k, v, causal=kw["causal"],
+                           window=kw["window"], q_offset=kw["q_offset"])
+    got = _port(q, k, v, **kw)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window,q_offset,sq,skv", [
+    (True, 16, 0, 96, 96), (True, 1, 0, 64, 64), (True, 200, 0, 96, 96),
+    (False, 16, 0, 96, 96), (True, 32, 64, 32, 96), (True, None, 64, 32,
+                                                      96)])
+def test_blockwise_attn_window_matches_reference(dtype, causal, window,
+                                                 q_offset, sq, skv):
+    """The model's attention with a window and q_offset, GQA 2, against
+    the reference's: float32 1e-5, bfloat16 3e-2 (as above)."""
+    q, k, v = _inputs((2, sq, 4, 32), (2, skv, 2, 32), (2, skv, 2, 32),
+                      sq + skv + (window or 0))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = JA.blockwise_attn(*(jnp.asarray(a, jdt) for a in (q, k, v)),
+                             causal=causal, chunk=32, window=window,
+                             q_offset=q_offset)
+    got = A.blockwise_attn(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                           causal=causal, window=window, q_offset=q_offset)
+    tol = 1e-5 if dtype == "float32" else 3e-2
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+    if window is not None and window >= skv and q_offset == 0:
+        np.testing.assert_array_equal(
+            got.float().numpy(), A.blockwise_attn(
+                *(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                causal=causal).float().numpy())
+
+
+def test_fully_masked_rows_raise_and_plain_is_the_reference():
+    """A query row that sees no key: the wrapper raises (the kernel takes
+    no such shape); the plain version gives the reference's answer, the
+    mean of v (its mask is a finite -1e30)."""
+    q, k, v = _inputs((2, 40, 32), (2, 24, 32), (2, 24, 32), 51)
+    for kw in ({"causal": True, "q_offset": -3},
+               {"causal": True, "window": 8, "q_offset": 40},
+               {"causal": False, "window": 4, "q_offset": 20}):
+        with pytest.raises(ValueError, match="sees no key"):
+            _port(q, k, v, **kw)
+        got = FA.flash_attention_plain(*map(torch.from_numpy, (q, k, v)),
+                                       **kw).numpy()
+        np.testing.assert_allclose(got, _reference_rows(q, k, v, **kw),
+                                   rtol=1e-5, atol=1e-5)
+    for bad in ({"window": 0}, {"window": 2.5}, {"q_offset": 1 << 30}):
+        with pytest.raises(ValueError):
+            _port(q, k, v, **bad)
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +353,23 @@ def test_backward_chunks_agree(chunk):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("causal,window,q_offset,chunk", [
+    (True, 16, 0, 50), (True, 1, 0, 512), (False, 24, 0, 33),
+    (True, 40, 70, 16), (True, None, 70, 7)])
+def test_backward_window_matches_autograd(causal, window, q_offset, chunk):
+    """The recomputed backward under a window and q_offset: the gradients
+    of autograd through the dense attention under the same mask."""
+    q, k, v = _inputs((4, 100, 32), (2, 170, 32), (2, 170, 24), 61)
+    w = np.random.default_rng(9).standard_normal((4, 100, 24)).astype(
+        np.float32)
+    kw = {"causal": causal, "window": window, "q_offset": q_offset}
+    _, got = _grads_port(q, k, v, w, chunk=chunk, **kw)
+    _, want = _grads_port(q, k, v, w, fn=FA.dense_attention, **kw)
+    for g, ww in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), ww.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_dense_attention_is_the_references_xla_attention():
     from repro.kernels.flash_attn import _xla_attention
 
@@ -302,15 +387,24 @@ def test_blockwise_attn_gradients_match_reference(hq, hkv, sq):
     """The model's attention under autograd (through
     flash_attention_trainable) against jax.grad of the reference's
     blockwise_attn, float32."""
+    _blockwise_gradients(hq, hkv, sq, None)
+
+
+def test_blockwise_attn_window_gradients_match_reference():
+    """As above, under a window of 20 (GQA 2, 96 tokens)."""
+    _blockwise_gradients(4, 2, 96, 20)
+
+
+def _blockwise_gradients(hq, hkv, sq, window):
     q, k, v = _inputs((2, sq, hq, 32), (2, sq, hkv, 32), (2, sq, hkv, 32),
                       hq + hkv + sq)
     w = np.random.default_rng(8).standard_normal((2, sq, hq, 32)).astype(
         np.float32)
     want = jax.grad(lambda *a: (JA.blockwise_attn(
-        *a, causal=True, chunk=32) * w).sum(), argnums=(0, 1, 2))(
-            *map(jnp.asarray, (q, k, v)))
+        *a, causal=True, chunk=32, window=window) * w).sum(),
+        argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
-    (A.blockwise_attn(*ts, causal=True, chunk=32)
+    (A.blockwise_attn(*ts, causal=True, chunk=32, window=window)
      * torch.from_numpy(w)).sum().backward()
     for t, ww in zip(ts, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(ww),
