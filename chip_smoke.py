@@ -84,6 +84,17 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     qwen3-0.6b's int8 KV cache against its bf16 cache (B 4, 32 steps);
     one reduced train step of whisper-base and danube, the card against
     the CPU;
+  * moe, qwen2-moe-a2.7b (60 routed experts of width 1,408, top 4, 4
+    shared; all 24 layers, float32 parameters) prefilling B 4 x 1,024
+    tokens (capacity 341 an expert; 24 ``flash_attention`` launches and
+    no other kernel: routing, dispatch and the expert GEMMs are torch
+    ops), its aux loss and dropped share; float32 step decode against the
+    forward at capacity factor 15 (no drop); ``launch.serve.main`` plain
+    and with ``--compress-kv`` through a "cuda"-encode codec; 2 of its
+    layers trained 2 ``make_train_step`` steps at B 2 x 512 (4
+    ``flash_attention`` launches a step); the reduced train step,
+    ``moe_block`` at capacity factor 0.5 (drops) and ``route``, the card
+    against the CPU;
   * train, A10's training half: qwen3-0.6b at full width trained by
     ``launch.train.main`` (4 steps at B 4 x 1024, float32 parameters,
     bf16 compute, remat, no checkpoint), whose attention runs
@@ -194,7 +205,11 @@ The script
     random cases, the reduced train step's loss, gradients, grad norm and
     updated parameters on the card those on the CPU (1e-5 relative, 1e-4
     of each gradient's scale, 1e-5, a quarter of the learning rate), the
-    training losses finite, 56 ``flash_attention`` launches a qwen3 step
+    training losses finite, 24 ``flash_attention`` launches in the moe
+    prefill and 4 a 2-layer moe train step, its aux above 0, the reduced
+    ``moe_block`` with drops on the card within 1e-5 of its scale of the
+    CPU's (aux 1e-6 relative) and ``route`` on the card equal to the CPU's
+    on the same logits, 56 ``flash_attention`` launches a qwen3 step
     and 32 ``gla_time_mix`` launches a 2-layer rwkv6 step, the preempted
     run's exit code 17 and the resumed run's steps 4 and 5;
   * prints CUDA-event times of each kernel, its plain version and its byte
@@ -208,7 +223,11 @@ The script
     prefill ms, launches, layer-0 kernel checks and times, decode checks,
     serve row, peak memory; danube's windowed kernel beside its bound and
     SDPA with the boolean window mask; the int8 and bf16 caches' decode
-    tokens a second); the model kernels' times beside
+    tokens a second); the ``moe`` row (prefill ms, tokens a second, peak
+    memory, aux, dropped share, the kernel at layer 0 beside its bound and
+    SDPA, the float32 decode check, serve tokens a second plain and with
+    ``--compress-kv``, the 2-layer train steps' ms, losses and peak
+    memory, the card-against-CPU checks); the model kernels' times beside
     their plain versions' and ``scaled_dot_product_attention``'s (the
     yardstick of ``flash_attention``, timed here and used nowhere in the
     port), ``torch.cumsum`` of hacc1d's int32 residuals (the yardstick of
@@ -240,8 +259,9 @@ The script
     repo (fourteen) and one for the yardstick ``decode_chunked``
     (``replaces`` null, ``yardstick`` the reference function), with rows
     5 and 7 on both N-D fields, rows 13 and 14 with their train phase
-    launches and backward ms, row 13 with its windowed shape and the
-    families' prefill launches, row 10 on all three
+    launches and backward ms, row 13 with its windowed shape, the
+    families' prefill launches and the moe phase's launches and layer-0
+    shape, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
     their launches on the five consumer phases (``consumer_launches``).  Each
@@ -404,6 +424,22 @@ FAMILY_DECODE_LEN = 32
 WRAP_STEPS = 40
 INT8_BATCH, INT8_STEPS, INT8_TOL = 4, 32, 0.25
 FAMILY_ARCHS = ("h2o-danube-1.8b", "whisper-base", "qwen2-vl-72b")
+#: The moe phase: qwen2-moe-a2.7b at full width, all 24 layers, float32
+#: parameters (14,315,487,232: 57.26 GB), prefilling B MOE_BATCH x
+#: MOE_LEN; float32 step decode against the forward (B 1 x
+#: FAMILY_DECODE_LEN) at capacity factor n_experts / top_k (every token
+#: fits its experts, nothing drops); serve.main, plain and --compress-kv;
+#: MOE_TRAIN_LAYERS of its layers trained MOE_TRAIN_STEPS steps at B
+#: MOE_TRAIN_BATCH x MOE_TRAIN_SEQ; on the reduced config the train step,
+#: moe_block at MOE_DROP_CF (drops) and route, the card against the CPU.
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_BATCH, MOE_LEN = 4, 1024
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 2, 2
+MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 2, 512
+MOE_DROP_CF = 0.5
+#: The card-against-CPU moe_block check holds when no token's k-th and
+#: (k+1)-th gates lie this close (the two float32 routers sum apart).
+MOE_TIE_GAP = 1e-5
 
 
 def make_fields(seed: int):
@@ -2974,6 +3010,255 @@ def run_families(seed: int) -> dict:
     return row
 
 
+def check_moe_block(seed: int) -> dict:
+    """``moe_block`` of the reduced qwen2-moe (float32) at capacity factor
+    ``MOE_DROP_CF``, where assignments drop, on the card and on the CPU
+    from the same weights and inputs: out within 1e-5 of its scale, aux
+    within 1e-6 relative, the card's out the same on a second call; then
+    ``route`` on the card, fed the CPU's logits, gives the CPU's integer
+    outputs (topi, ranks, keep, tok_ids, assign) exactly.  Fails if a
+    token's k-th and (k+1)-th gates lie within ``MOE_TIE_GAP``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import adamw as O
+
+    cfg = configs.get_config(MOE_ARCH).reduced(compute_dtype="float32",
+                                               capacity_factor=MOE_DROP_CF)
+    cpu = MOE.init_moe(torch.Generator().manual_seed(seed), cfg)
+    card = O.tree_map(lambda t: t.cuda(), cpu)
+    x = torch.randn((TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed))
+    logits = x.reshape(-1, cfg.d_model) @ cpu["router"]
+    top = torch.softmax(logits.double(), -1).sort(-1, descending=True)[0]
+    gap = float((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).min())
+    require(gap > MOE_TIE_GAP, f"moe_block check: a token's gates lie "
+            f"{gap} apart at the top-k boundary")
+    want, want_aux = MOE.moe_block(x, cpu, cfg)
+    got, aux = MOE.moe_block(x.cuda(), card, cfg)
+    again, _ = MOE.moe_block(x.cuda(), card, cfg)
+    scale = max(1.0, float(want.abs().max()))
+    err = max_abs_err(got.cpu(), want)
+    aux_err = abs(float(aux) - float(want_aux)) / float(want_aux)
+    require(err <= 1e-5 * scale and aux_err <= 1e-6
+            and bool(torch.equal(got, again)),
+            f"moe_block on the card against the CPU: out {err} (scale "
+            f"{scale}), aux {aux_err} relative, or a second call differs")
+    rc, rg = MOE.route(logits, cfg), MOE.route(logits.cuda(), cfg)
+    names = ("topi", "rank", "keep", "tok_ids", "assign")
+    require(all(torch.equal(getattr(rg, n).cpu(), getattr(rc, n))
+                for n in names),
+            "route on the card differs from the CPU's on the same logits")
+    dropped = 1.0 - float(rc.keep.float().mean())
+    require(dropped > 0, f"no assignment dropped at capacity factor "
+            f"{MOE_DROP_CF}")
+    return {"capacity_factor": MOE_DROP_CF,
+            "capacity": MOE.capacity(logits.shape[0], cfg),
+            "tokens": logits.shape[0], "dropped_share": dropped,
+            "max_abs_err": err, "out_scale": scale, "aux_rel_err": aux_err,
+            "min_topk_gap": gap, "route_equal": list(names)}
+
+
+def run_moe(seed: int) -> dict:
+    """The moe phase: qwen2-moe-a2.7b on the card with weights
+    from ``seed``, each path with its own launch check.  The prefill
+    (``make_prefill_step``, B ``MOE_BATCH`` x ``MOE_LEN``, bf16, capacity
+    factor 1.25) launches ``flash_attention`` once a layer (24) and no
+    other kernel: routing, dispatch and the expert GEMMs are torch ops, as
+    the reference's are jnp; the forward once more with ``moe.route``
+    watched gives the share of assignments dropped, and its aux loss.
+    The kernel against its plain version at layer 0's inputs, beside its
+    bound and SDPA.  float32 step decode against the forward at capacity
+    factor ``n_experts / top_k`` (no drop); ``serve.main`` (no kernel) and
+    with ``--compress-kv`` through a "cuda"-encode codec; ``MOE_TRAIN_LAYERS``
+    layers at full width trained ``MOE_TRAIN_STEPS`` ``make_train_step``
+    steps (remat: 2 launches a layer a step); the reduced train step, the
+    reduced ``moe_block`` with drops and ``route``, the card against the
+    CPU.  Every parameter of a path is freed before the next path makes
+    its own (two float32 copies would take 115 GB).  Prints and returns
+    one ``moe`` row."""
+    import dataclasses
+    import gc
+    import math
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw as O
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(MOE_ARCH)
+    gen = T.generator(seed + 3, "cuda")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, cfg, "cuda")
+    leaves = list(_leaves(params))
+    row = {"params": sum(t.numel() for t in leaves),
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "layers": cfg.n_layers, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor}
+    del leaves
+
+    # -- the prefill: 24 flash_attention launches, nothing else ----------
+    tokens = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_LEN), generator=gen,
+                           device="cuda")
+    n_tok = tokens.numel()
+    step = St.make_prefill_step(cfg)
+    logits, counts = run_path(f"{MOE_ARCH} prefill", ("flash_attention",),
+                              lambda: step(params, tokens))
+    require(counts["flash_attention"] == cfg.n_layers,
+            f"{MOE_ARCH}: {counts['flash_attention']} flash_attention "
+            f"launches in the prefill, not {cfg.n_layers}")
+    require(tuple(logits.shape) == (MOE_BATCH, MOE_LEN, cfg.vocab)
+            and logits.dtype == torch.bfloat16
+            and bool(torch.isfinite(logits).all()),
+            f"{MOE_ARCH}: prefill logits {logits.dtype}{list(logits.shape)}")
+    del logits
+    ms = cuda_ms(lambda: step(params, tokens), 2)
+    row.update(prefill_launches=counts["flash_attention"],
+               prefill_shape=[MOE_BATCH, MOE_LEN], prefill_ms=ms,
+               prefill_tok_per_s=n_tok / (ms * 1e-3),
+               capacity=MOE.capacity(n_tok, cfg))
+
+    # -- the forward again, route watched: aux and the dropped share -----
+    kept = []
+    real = MOE.route
+
+    def watched(lg, c):
+        r = real(lg, c)
+        kept.append(r.keep.sum())
+        return r
+
+    MOE.route = watched
+    try:
+        with torch.inference_mode():
+            _, aux = T.forward_hidden(params, tokens, cfg)
+    finally:
+        MOE.route = real
+    aux = float(aux)
+    require(len(kept) == cfg.n_layers and math.isfinite(aux) and aux > 0,
+            f"{MOE_ARCH}: forward aux {aux} over {len(kept)} routed layers")
+    row["aux"] = aux
+    row["dropped_share"] = 1.0 - float(torch.stack(kept).sum()) / (
+        cfg.n_layers * n_tok * cfg.top_k)
+
+    # -- layer 0's attention: the kernel, its bound, plain and SDPA ------
+    with torch.inference_mode():
+        x = params["embed"][tokens].to(cfg.cdt)
+        lp = params["layers"][0]
+        q, k, v = A.attn_kernel_inputs(*A._project_qkv(
+            L.rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+            T._positions(cfg, MOE_LEN, "cuda")))
+    kw = {"causal": True, "scale": 1.0}
+    layer0 = check_flash_at(q, k, v, kw, f"{MOE_ARCH} layer 0")
+    layer0["plain_ms"] = cuda_ms(
+        lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
+    q4, k4, v4 = (t.view(MOE_BATCH, t.shape[0] // MOE_BATCH, MOE_LEN,
+                         t.shape[-1]) for t in (q, k, v))
+    layer0["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=1.0), 5)
+    layer0["library_call"] = ("F.scaled_dot_product_attention(q, k, v, "
+                              "is_causal=True, scale=1.0)")
+    row["layer0_kernel"] = layer0
+    del x, q, k, v, q4, k4, v4
+
+    # -- float32 step decode against the forward, nothing dropped --------
+    dcfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                               / cfg.top_k)
+    caps = (MOE.capacity(FAMILY_DECODE_LEN, dcfg), MOE.capacity(1, dcfg))
+    require(caps == (FAMILY_DECODE_LEN, 1), f"{MOE_ARCH}: capacities {caps} "
+            f"at capacity factor {dcfg.capacity_factor}")
+    print(f"{MOE_ARCH} decode check: capacity factor "
+          f"{dcfg.capacity_factor} gives the forward {caps[0]} slots an "
+          f"expert for its {FAMILY_DECODE_LEN} tokens and a step {caps[1]} "
+          f"for its 1: no assignment drops")
+    row["decode_vs_forward_f32"] = {
+        **decode_against_forward(dcfg, params, torch.randint(
+            0, cfg.vocab, (1, FAMILY_DECODE_LEN), generator=gen,
+            device="cuda"), MOE_ARCH),
+        "capacity_factor": dcfg.capacity_factor,
+        "capacity_forward": caps[0], "capacity_step": caps[1]}
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, tokens, step
+    free()
+
+    # -- serve.main: plain (no kernel), then --compress-kv ---------------
+    torch.cuda.reset_peak_memory_stats()
+    row["serve"], _ = serve_row(MOE_ARCH, [], (), seed)
+    free()
+    row["serve_compress_kv"], _ = serve_row(
+        MOE_ARCH, ["--compress-kv", "--kv-encode-backend", "cuda"],
+        SERVE_KV_KERNELS, seed)
+    row["serve_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    free()
+
+    # -- MOE_TRAIN_LAYERS layers at full width through make_train_step ---
+    tcfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    ocfg = O.AdamWConfig()
+    params = T.init_model(seed, tcfg, "cuda")
+    opt = O.init(params, ocfg)
+    n_params = sum(t.numel() for t in _leaves(params))
+    data = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=MOE_TRAIN_SEQ,
+                                  global_batch=MOE_TRAIN_BATCH, seed=seed),
+                       device="cuda")
+    step_fn = St.make_train_step(tcfg, ocfg)
+    times, losses, auxes = [], [], []
+
+    def train_steps():
+        nonlocal params, opt
+        for s in range(MOE_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, data.batch_at(s))
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+
+    _, tcounts = run_path(f"{MOE_ARCH} train", ("flash_attention",),
+                          train_steps)
+    want = MOE_TRAIN_STEPS * tcfg.n_layers * 2
+    require(tcounts["flash_attention"] == want,
+            f"{MOE_ARCH} train: {tcounts['flash_attention']} flash_attention "
+            f"launches, not {want} (forward and recompute a layer a step)")
+    require(all(np.isfinite(losses)) and all(a > 0 for a in auxes),
+            f"{MOE_ARCH} train: losses {losses}, aux {auxes}")
+    row["train"] = {
+        "layers": tcfg.n_layers, "params": n_params,
+        "steps": MOE_TRAIN_STEPS, "batch": MOE_TRAIN_BATCH,
+        "seq": MOE_TRAIN_SEQ,
+        "capacity": MOE.capacity(MOE_TRAIN_BATCH * MOE_TRAIN_SEQ, tcfg),
+        "step_ms": times, "losses": losses, "aux": auxes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_launches": tcounts["flash_attention"]}
+    del params, opt, data, step_fn
+    free()
+
+    # -- the reduced config, the card against the CPU --------------------
+    row["train_card_vs_cpu"] = check_train_step(MOE_ARCH, seed)
+    row["moe_block_card_vs_cpu"] = check_moe_block(seed)
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"moe {json.dumps(row)}")
+    return row
+
+
 def _grads(fn, inputs, cotangents, **kw):
     """``fn(*inputs, **kw)`` under autograd from fresh leaves: (outputs,
     the inputs' gradients) for the loss ``sum(out_i * cotangent_i)``."""
@@ -4010,6 +4295,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     model = run_model(args.seed)
     families = run_families(args.seed)
+    moe = run_moe(args.seed)
     trained = run_train(args.seed)
     pager = run_pager(args.seed)
     consumers = {"checkpoint": run_checkpoint(args.seed),
@@ -4143,6 +4429,12 @@ def main() -> int:
             kernels[-1]["windowed"] = families["h2o-danube-1.8b"][
                 "layer0_kernel"]
             kernels[-1]["family_launches"] = families["launches"]
+            # qwen2-moe-a2.7b: its prefill's and its 2-layer training's
+            # launches, and the kernel at its layer 0 (GQA 1)
+            kernels[-1]["moe_launches"] = {
+                "prefill": moe["prefill_launches"],
+                "train": moe["train"]["train_launches"]}
+            kernels[-1]["moe_layer0"] = moe["layer0_kernel"]
     require(len(kernels) == len(REPLACES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
     # The yardsticks: kernels of the port that replace no TPU kernel.

@@ -34,6 +34,8 @@ Usage:
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
       --compress-kv
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --reduced --device cpu
 """
 
 from __future__ import annotations

@@ -16,9 +16,10 @@ Port of ``src/repro/launch/train.py``, with its flags and output lines:
     rerunning resumes)
 
 ``--device`` (default ``cuda``) is where the weights, the optimizer state
-and the batches live; on the card the dense family's attention runs the
-``flash_attention`` kernel and the rwkv family's time-mix ``gla_time_mix``,
-each inside its ``torch.autograd.Function``.  A step's time is read after
+and the batches live; on the card the attention of the dense, vlm, moe and
+encdec families runs the ``flash_attention`` kernel and the rwkv family's
+time-mix ``gla_time_mix``, each inside its ``torch.autograd.Function``;
+the moe family's loss adds its router's aux loss.  A step's time is read after
 a device synchronize.  The ``vlm`` and ``encdec`` families get the
 reference's modality stubs in each batch (``extra_embeds``): 8 zero patch
 embeddings for vlm, its labels left-padded by -1 over them, and
@@ -29,6 +30,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+      --reduced --steps 6 --batch 2 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
       --reduced --steps 6 --batch 2 --seq 32 --device cpu
 """
 

@@ -4,8 +4,9 @@ The reference's parameter tree (``src/repro/models/transformer.py``
 ``init_model``) stacks each per-layer leaf on axis 0; the port keeps a list
 of per-layer dicts.  So a tree crosses by a rename and an unstack:
 ``params["layers"]["attn"]["wq"][i]`` there is ``params["layers"][i]["attn"]
-["wq"]`` here (the encdec family's ``params["encoder"]`` likewise), and
-``stack_layers`` goes back.  The trees come and go as numpy arrays
+["wq"]`` here (the encdec family's ``params["encoder"]`` and the moe
+family's ``params["dense_layers"]`` likewise), and ``stack_layers`` goes
+back.  The trees come and go as numpy arrays
 (``jax.tree.map(np.asarray, ...)`` on the other side);
 bfloat16 arrays (``ml_dtypes``) cross through their 16-bit patterns.
 Decode caches keep the same keys and stacked layouts on both sides.
@@ -44,6 +45,13 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _first(tree):
+    """The first leaf of a tree of dicts."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
 def _unstack(tree, i):
     if isinstance(tree, dict):
         return {k: _unstack(v, i) for k, v in tree.items()}
@@ -51,23 +59,27 @@ def _unstack(tree, i):
 
 
 #: The parameter groups whose leaves stack a layer on axis 0 in the
-#: reference's tree (a list of per-layer dicts here), and the config field
-#: that counts their layers.
-STACKED = {"layers": "n_layers", "encoder": "encoder_layers"}
+#: reference's tree (a list of per-layer dicts here): the layers, the
+#: encdec family's encoder and the moe family's dense prefix
+#: (``first_k_dense``).  A group's layer count is its arrays' leading
+#: dimension.
+STACKED = ("layers", "encoder", "dense_layers")
 #: The groups that cross as they are.
 PLAIN = ("embed", "unembed", "final_norm", "enc_norm")
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
-    """The port's parameters from the reference's tree of numpy arrays.
-    A leaf may be a dict of arrays (an int8 optimizer-state leaf, ``{"q",
-    "scale"}`` or ``{"f"}``): each of its arrays crosses the same way."""
+    """The port's parameters from the reference's tree of numpy arrays,
+    made for ``cfg``; each stacked group crosses as many layers as its
+    arrays' leading dimension holds.  A leaf may be a dict of arrays (an
+    int8 optimizer-state leaf, ``{"q", "scale"}`` or ``{"f"}``): each of
+    its arrays crosses the same way."""
     out = {}
     for key, sub in np_tree.items():
         if key in STACKED:
             out[key] = [_map(_unstack(sub, i),
                              lambda a: to_torch(a, device))
-                        for i in range(getattr(cfg, STACKED[key]))]
+                        for i in range(np.shape(_first(sub))[0])]
         elif key in PLAIN:
             out[key] = _map(sub, lambda a: to_torch(a, device))
         else:
@@ -79,7 +91,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
 
 def stack_layers(params):
     """The port's parameters in the reference's layout: each list of
-    per-layer dicts (``layers``, and ``encoder`` for encdec) stacked into
+    per-layer dicts (``layers``, ``encoder`` for encdec, ``dense_layers``
+    for a moe model with a dense prefix) stacked into
     one dict whose leaves carry the layer on axis 0 (``torch.stack``, on
     the leaves' device); the other groups unchanged.  The inverse of
     ``params_from_jax``'s unstack: a checkpoint of it has the reference's
@@ -98,11 +111,6 @@ def unstack_layers(tree):
     of them included) split along axis 0 into the port's list of per-layer
     dicts; the other groups unchanged.  A tree restored from a
     checkpoint crosses back this way."""
-    def first(t):
-        while isinstance(t, dict):
-            t = next(iter(t.values()))
-        return t
-
     def pick(t, i):
         if isinstance(t, dict):
             return {k: pick(v, i) for k, v in t.items()}
@@ -111,7 +119,7 @@ def unstack_layers(tree):
     out = dict(tree)
     for key in STACKED:
         if key in tree:
-            n = first(tree[key]).shape[0]
+            n = _first(tree[key]).shape[0]
             out[key] = [pick(tree[key], i) for i in range(n)]
     return out
 

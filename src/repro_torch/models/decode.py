@@ -1,12 +1,16 @@
 """Single-token decode with per-layer caches (the serve step's substrate).
 
 Port of ``src/repro/models/decode.py`` for the ``dense``, ``vlm``,
-``encdec`` and ``rwkv`` families.  The caches keep the reference's keys and
-stacked layouts:
+``moe``, ``encdec`` and ``rwkv`` families.  The caches keep the
+reference's keys and stacked layouts:
 
   dense/vlm : k, v  (L, B, S_kv, Hkv, Dh) in the compute type, S_kv capped
               at the window for SWA (a ring buffer); under ``kv_quant`` k,
               v int8 and k_scale, v_scale (L, B, S_kv, Hkv) float32
+  moe       : k, v as dense (``kv_quant`` ignored, as the reference ignores
+              it); a step runs the experts on its B tokens, so their
+              capacity is computed from B; a ``first_k_dense`` prefix
+              raises ``NotImplementedError``, as in the reference
   encdec    : self k, v (L, B, S_kv, Hkv, Dh) + cross xk, xv (L, B, T_enc,
               Hkv, Dh), precomputed from encoder features (``cross_cache``)
   rwkv      : state (L, B, H, dk, dv) float32 + shift carries tshift,
@@ -24,6 +28,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -36,11 +41,11 @@ def cache_spec(cfg: ModelConfig, batch: int, kv_len: int, dtype=None):
     if cfg.swa_window:
         kv_len = min(kv_len, cfg.swa_window)
     shape = (cfg.n_layers, batch, kv_len, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.family in ("dense", "vlm"):
-        if cfg.kv_quant:
-            return {"k": (shape, torch.int8), "v": (shape, torch.int8),
-                    "k_scale": (shape[:-1], torch.float32),
-                    "v_scale": (shape[:-1], torch.float32)}
+    if cfg.family in ("dense", "vlm") and cfg.kv_quant:
+        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "k_scale": (shape[:-1], torch.float32),
+                "v_scale": (shape[:-1], torch.float32)}
+    if cfg.family in ("dense", "vlm", "moe"):
         return {"k": (shape, dt), "v": (shape, dt)}
     if cfg.family == "encdec":
         cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
@@ -76,6 +81,10 @@ def forward_decode(params, token, cache, pos, cfg: ModelConfig):
     """
     T.check_family(cfg)
     pos = int(pos)
+    if cfg.family == "moe" and "dense_layers" in params:
+        raise NotImplementedError(
+            "decode of a moe model with a dense prefix (first_k_dense): "
+            "the reference's forward_decode has none either")
     x = params["embed"][token].to(cfg.cdt)
     if cfg.family in ("dense", "vlm") and cfg.kv_quant:
         names = ("k", "v", "k_scale", "v_scale")
@@ -96,8 +105,12 @@ def forward_decode(params, token, cache, pos, cfg: ModelConfig):
                 x = x + A.cross_decode_attn(
                     L.rms_norm(x, lp["ln_x"]), lp["xattn"], cfg,
                     cache["xk"][i], cache["xv"][i])
-            x = x + L.mlp_apply(L.rms_norm(x, lp["ln2"]), lp["mlp"],
-                                cfg.act)
+            if cfg.family == "moe":
+                x = x + MOE.moe_block(L.rms_norm(x, lp["ln2"]), lp["moe"],
+                                      cfg)[0]
+            else:
+                x = x + L.mlp_apply(L.rms_norm(x, lp["ln2"]), lp["mlp"],
+                                    cfg.act)
     else:
         for i, lp in enumerate(params["layers"]):
             y, ts, st = RWKV.time_mix(L.rms_norm(x, lp["ln1"]),

@@ -6,7 +6,8 @@ Port of ``src/repro/models/steps.py``: ``cross_entropy``,
 serve and prefill steps run under ``torch.inference_mode()``; the train
 step takes its gradients with ``torch.autograd.grad`` from parameters
 detached from the caller's, so it is functional as the reference's is.
-The MTP head belongs to the ``mla_moe`` family, which raises (ROADMAP A10).
+The loss adds the forward's ``aux``, the moe family's router loss.  The
+MTP head belongs to the ``mla_moe`` family, which raises (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -212,8 +213,8 @@ def make_serve_step(cfg: ModelConfig):
 def make_prefill_step(cfg: ModelConfig):
     """Prefill: the forward over a prompt, (params, tokens (B, S),
     extra_embeds=None) -> logits (B, S_total, V); the attention of the
-    dense, vlm and encdec families runs the ``flash_attention`` kernel, the
-    rwkv family's time-mix ``gla_time_mix``."""
+    dense, vlm, moe and encdec families runs the ``flash_attention``
+    kernel, the rwkv family's time-mix ``gla_time_mix``."""
 
     def prefill_step(params, tokens, extra_embeds=None):
         with torch.inference_mode():

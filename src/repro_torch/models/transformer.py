@@ -2,16 +2,20 @@
 
 Port of ``src/repro/models/transformer.py`` for the ``dense`` and ``vlm``
 families (GQA attention with qk-norm / QKV bias / a sliding window / M-RoPE,
-gated or plain MLP; qwen3-0.6b, h2o-danube-1.8b, qwen2-vl-72b), the
-``encdec`` family (a bidirectional encoder over stub frame embeddings and a
-causal decoder with cross-attention; whisper-base) and the ``rwkv`` family
-(RWKV-6 time-mix + channel-mix; rwkv6-3b).  The other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+gated or plain MLP; qwen3-0.6b, h2o-danube-1.8b, qwen2-vl-72b), the ``moe``
+family (GQA attention + shared and routed top-k experts, the router's aux
+loss, an optional ``first_k_dense`` prefix of dense layers;
+qwen2-moe-a2.7b), the ``encdec`` family (a bidirectional encoder over stub
+frame embeddings and a causal decoder with cross-attention; whisper-base)
+and the ``rwkv`` family (RWKV-6 time-mix + channel-mix; rwkv6-3b).  The
+other families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 
 Parameters are a dict shaped like the reference's tree, except that the
 per-layer stack is a list: ``params["layers"][i]["attn"]["wq"]`` here is
 ``params["layers"]["attn"]["wq"][i]`` there (``models/convert.py`` moves a
-tree across; ``params["encoder"]`` likewise).  The layers run as a
+tree across; ``params["encoder"]`` and ``params["dense_layers"]``
+likewise).  The layers run as a
 Python loop (the reference's ``lax.scan``).  With ``cfg.remat``, while
 autograd records, each layer body runs under ``torch.utils.checkpoint``
 (non-reentrant): its activations are recomputed in the backward, as the
@@ -25,17 +29,17 @@ from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models.config import ModelConfig
 
 #: The ROADMAP item that ports each model family not ported yet.
 UNPORTED_FAMILIES = {
-    "moe": "A10 (the moe family, qwen2-moe)",
     "mla_moe": "A10 (the mla_moe family, deepseek-v3)",
     "hybrid_ssm": "A10 (the hybrid_ssm family, zamba2)",
 }
 #: The families the port runs.
-FAMILIES = ("dense", "vlm", "encdec", "rwkv")
+FAMILIES = ("dense", "vlm", "moe", "encdec", "rwkv")
 
 
 def check_family(cfg: ModelConfig):
@@ -93,6 +97,15 @@ def _init_dense_layer(gen, cfg: ModelConfig, cross: bool = False):
     return p
 
 
+def _init_moe_layer(gen, cfg: ModelConfig):
+    return {
+        "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
+        "attn": A.init_attn(gen, cfg),
+        "ln2": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
+        "moe": MOE.init_moe(gen, cfg),
+    }
+
+
 def _init_rwkv_layer(gen, cfg: ModelConfig):
     return {
         "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
@@ -124,6 +137,15 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
         params["layers"] = [_init_dense_layer(gen, cfg, cross=True)
                             for _ in range(cfg.n_layers)]
         return params
+    if cfg.family == "moe":
+        # the first_k_dense layers run a dense MLP in place of the experts
+        nk = cfg.first_k_dense
+        if nk:
+            params["dense_layers"] = [_init_dense_layer(gen, cfg)
+                                      for _ in range(nk)]
+        params["layers"] = [_init_moe_layer(gen, cfg)
+                            for _ in range(cfg.n_layers - nk)]
+        return params
     layer_init = (_init_rwkv_layer if cfg.family == "rwkv"
                   else _init_dense_layer)
     params["layers"] = [layer_init(gen, cfg) for _ in range(cfg.n_layers)]
@@ -145,6 +167,13 @@ def _dense_layer(x, p, cfg: ModelConfig, positions, *, causal=True,
                          causal=False, kv_x=enc_out)
         x = x + h
     return x + L.mlp_apply(L.rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
+
+
+def _moe_layer(x, p, cfg: ModelConfig, positions):
+    """(x, aux): attention, then the experts on the normed residual."""
+    x = x + A.attn_block(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions)
+    mo, aux = MOE.moe_block(L.rms_norm(x, p["ln2"]), p["moe"], cfg)
+    return x + mo, aux
 
 
 def _rwkv_layer(x, p, cfg: ModelConfig):
@@ -221,6 +250,16 @@ def forward_hidden(params, tokens, cfg: ModelConfig, extra_embeds=None):
         enc = encode(params, extra_embeds, cfg)
     positions = _positions(cfg, x.shape[1], x.device)
     body = _maybe_remat(_dense_layer, cfg)
+    if cfg.family == "moe":
+        for lp in params.get("dense_layers", ()):
+            x = body(x, lp, cfg, positions)
+        body = _maybe_remat(_moe_layer, cfg)
+        auxs = []
+        for lp in params["layers"]:
+            x, a = body(x, lp, cfg, positions)
+            auxs.append(a)
+        aux = aux + torch.stack(auxs).sum() * cfg.router_aux_coef
+        return L.rms_norm(x, params["final_norm"]), aux
     for lp in params["layers"]:
         x = body(x, lp, cfg, positions, enc_out=enc)
     return L.rms_norm(x, params["final_norm"]), aux

@@ -10,8 +10,9 @@ or of 8 (staged by plain loads, not 16-byte copies), ``Skv`` shorter than
 one 64-row kv tile, ``Sq`` and ``Skv`` one off a multiple of 64, and a
 scale other than the default; the sliding window at 1, 16 (inside one
 tile), 63, 64 and 65 (one off the tile), at least ``Skv`` (no window),
-without the causal mask, with ``q_offset`` and with GQA 8; for the
-recurrence, ``dv`` that is no
+without the causal mask, with ``q_offset`` and with GQA 8; qwen2-moe's
+layer shape (GQA 1, D 128, causal, no window); for the recurrence, ``dv``
+that is no
 multiple of the 16 columns a block owns, ``dk`` 8 and widths that are no
 multiple of 4 floats.  Inputs are made with numpy from a seed, then
 moved to the device asked for.
@@ -48,6 +49,8 @@ FLASH_CASES = [
     ("q_offset", 2, 70, 200, 64, 64, 1, True, None, None, 130),
     ("q_offset_window_gqa2", 4, 70, 200, 64, 64, 2, True, None, 48, 130),
     ("window_gqa8", 16, 300, 300, 128, 128, 8, True, None, 100, 0),
+    # qwen2-moe-a2.7b's layer: 16 heads over 16 KV heads of 128, causal
+    ("moe_layer_gqa1_d128", 4, 256, 256, 128, 128, 1, True, None, None, 0),
 ]
 
 #: (name, BH, S, dk, dv, H, w_low, w_high, with_u, with_state)

@@ -660,3 +660,54 @@ def test_reduced_qwen3_parameters_round_trip(tmp_path):
             else:
                 bound = ar.read_chunk(name).eb_effective
                 assert float((got[k] - w).abs().max()) <= bound, k
+
+
+@pytest.mark.parametrize("first_k_dense", [0, 1])
+def test_moe_step_directories_byte_identical(tmp_path, first_k_dense):
+    """A reduced qwen2-moe's parameters (the reference's init; with
+    ``first_k_dense=1`` its ``dense_layers`` group too) and a float32 AdamW
+    state saved by each package's manager through a codec: the same files
+    byte for byte; each package restores the other's directory to the same
+    leaves, and ``convert.unstack_layers`` gives back the port's groups."""
+    from repro.optim import adamw as JO
+
+    from repro_torch.optim import adamw as O
+
+    jcfg = JCFG.get_config("qwen2-moe-a2.7b").reduced(
+        first_k_dense=first_k_dense)
+    pcfg = PCFG.get_config("qwen2-moe-a2.7b").reduced(
+        first_k_dense=first_k_dense)
+    tree = jax.tree.map(np.asarray, JT.init_model(jax.random.PRNGKey(0),
+                                                  jcfg))
+    params = convert.params_from_jax(tree, pcfg, "cpu")
+    state = O.init(params, O.AdamWConfig())
+    tm = man.CheckpointManager(str(tmp_path / "port"), device="cpu")
+    jm = jman.CheckpointManager(str(tmp_path / "jax"))
+    tm.save(1, convert.sorted_tree(convert.stack_layers(params)),
+            convert.opt_state_stacked(state))
+    # keys sorted, as a jitted train step returns the state
+    jstate = jax.tree.map(jnp.asarray, JO.init(
+        jax.tree.map(jnp.asarray, tree), JO.AdamWConfig()))
+    jm.save(1, jax.tree.map(jnp.asarray, tree), jstate)
+    got, want = (_files(os.path.join(m.dir, STEP)) for m in (tm, jm))
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name] == want[name], name
+    entries = json.loads(want["manifest.json"])["entries"]
+    assert entries["params.layers.moe.wg"]["shape"] == [
+        pcfg.n_layers - first_k_dense, pcfg.n_experts, pcfg.d_model,
+        pcfg.d_expert]
+    assert ("params.dense_layers.mlp.wg" in entries) == bool(first_k_dense)
+    for src in (tm.dir, jm.dir):
+        r = jman.CheckpointManager(src).restore()
+        p = man.CheckpointManager(src, device="cpu").restore()
+        a = _flat(jax.tree.map(np.asarray, {"params": r["params"],
+                                            "opt": r["opt"]}))
+        b = _flat({"params": p["params"], "opt": p["opt"]})
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert _bytes(b[k]) == _bytes(a[k]), k
+        back = convert.unstack_layers(p["params"])
+        assert len(back["layers"]) == pcfg.n_layers - first_k_dense
+        assert len(back.get("dense_layers", [])) == first_k_dense
+

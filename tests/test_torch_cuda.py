@@ -1969,7 +1969,8 @@ def test_model_kernels_refuse_not_fall_back(cuda):
     assert GLA.gla_time_mix.launches == g0
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b",
+                                  "qwen2-moe-a2.7b"])
 def test_model_forward_and_decode_on_card(cuda, full_f32_matmul, arch):
     """A reduced model in float32 on the card against the same weights on
     the CPU: the forward through the kernel (one launch a layer) and eight
@@ -1981,14 +1982,11 @@ def test_model_forward_and_decode_on_card(cuda, full_f32_matmul, arch):
 
     cfg = configs.get_config(arch).reduced(compute_dtype="float32")
     params = T.init_model(0, cfg, cuda)
-    cpu = {k: ([{g: ({n: t.cpu() for n, t in d.items()}
-                     if isinstance(d, dict) else d.cpu())
-                 for g, d in lp.items()} for lp in v]
-               if k == "layers" else v.cpu()) for k, v in params.items()}
+    cpu = St.adamw.tree_map(lambda t: t.cpu(), params)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 40)))
-    kernel = FA.flash_attention if cfg.family == "dense" else \
-        GLA.gla_time_mix
+    kernel = GLA.gla_time_mix if cfg.family == "rwkv" else \
+        FA.flash_attention
     launches.reset()
     got = St.make_prefill_step(cfg)(params, toks.to(cuda))
     assert kernel.launches == cfg.n_layers
@@ -2441,7 +2439,8 @@ def test_gla_trainable_gradients_on_card(cuda, case):
         assert float((g - w).abs().max()) <= 1e-4 * scale
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-3b",
+                                  "qwen2-moe-a2.7b"])
 def test_train_step_on_card_matches_cpu(cuda, full_f32_matmul, arch):
     """One reduced train step (float32 compute) on the card and on the CPU
     from the same parameters and batch: the loss within 1e-5 relative,
@@ -2460,8 +2459,8 @@ def test_train_step_on_card_matches_cpu(cuda, full_f32_matmul, arch):
     card = O.tree_map(lambda t: t.to(cuda), cpu)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=48,
                                    global_batch=4), device="cpu").batch_at(0)
-    kernel = FA.flash_attention if cfg.family == "dense" else \
-        GLA.gla_time_mix
+    kernel = GLA.gla_time_mix if cfg.family == "rwkv" else \
+        FA.flash_attention
     before = kernel.launches
     (lg, _), gg = St.grads_of(card, {k: v.to(cuda) for k, v in
                                      batch.items()}, cfg)
@@ -2478,6 +2477,61 @@ def test_train_step_on_card_matches_cpu(cuda, full_f32_matmul, arch):
         1e-5 * float(mc["grad_norm"])
     for a, b in zip(O.tree_leaves(ng), O.tree_leaves(nc)):
         assert float((a.cpu() - b).abs().max()) <= 0.25 * ocfg.lr
+
+
+def _moe_inputs(cf, seed=0):
+    """The reduced qwen2-moe at capacity factor ``cf`` (float32), its
+    experts from the port's init on the CPU, and unit-normal inputs (2, 48,
+    d) from numpy."""
+    from repro_torch import configs
+    from repro_torch.models import moe as MOE
+
+    cfg = configs.get_config("qwen2-moe-a2.7b").reduced(
+        compute_dtype="float32", capacity_factor=cf)
+    p = MOE.init_moe(torch.Generator().manual_seed(seed), cfg)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, 48, cfg.d_model)).astype(np.float32))
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.5])
+def test_moe_route_on_card_equals_cpu(cuda, full_f32_matmul, cf):
+    """``route`` on the card, fed the CPU's logits: topi, the ranks, keep
+    and tok_ids equal the CPU's exactly (the stable sort's tie order, the
+    int32 cumsum, the slot table through its dump slot)."""
+    from repro_torch.models import moe as MOE
+
+    cfg, p, x = _moe_inputs(cf)
+    logits = x.reshape(-1, cfg.d_model) @ p["router"]
+    want = MOE.route(logits, cfg)
+    got = MOE.route(logits.to(cuda), cfg)
+    for name in ("topi", "rank", "keep", "tok_ids", "assign"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), \
+            name
+    assert float((got.topv.cpu() - want.topv).abs().max()) <= 1e-6
+    if cf == 0.5:
+        assert not bool(want.keep.all())
+
+
+@pytest.mark.parametrize("cf", [4.0, 0.5])
+def test_moe_block_on_card_equals_cpu(cuda, full_f32_matmul, cf):
+    """``moe_block`` (float32) on the card against its CPU run from the
+    same weights and inputs: out within 1e-5 of its scale, aux within 1e-6
+    relative; the same routing on both (the combine is a gather, so the
+    card's output is the same from run to run)."""
+    from repro_torch.models import moe as MOE
+
+    from repro_torch.optim import adamw as O
+
+    cfg, p, x = _moe_inputs(cf, seed=1)
+    want, want_aux = MOE.moe_block(x, p, cfg)
+    card = O.tree_map(lambda t: t.to(cuda), p)
+    got, aux = MOE.moe_block(x.to(cuda), card, cfg)
+    again, _ = MOE.moe_block(x.to(cuda), card, cfg)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * float(want_aux)
+    assert torch.equal(got, again)
 
 
 def test_train_main_preempts_and_resumes_on_card(cuda, tmp_path, capsys):

@@ -55,10 +55,9 @@ from repro_torch.models import steps as S
 from repro_torch.models import transformer as T
 
 ARCHS = ["qwen3-0.6b", "rwkv6-3b", "h2o-danube-1.8b", "whisper-base",
-         "qwen2-vl-72b"]
+         "qwen2-vl-72b", "qwen2-moe-a2.7b"]
 DTYPES = ["float32", "bfloat16"]
-UNPORTED = {"qwen2-moe-a2.7b": "moe", "deepseek-v3-671b": "mla_moe",
-            "zamba2-7b": "hybrid_ssm"}
+UNPORTED = {"deepseek-v3-671b": "mla_moe", "zamba2-7b": "hybrid_ssm"}
 #: Tokens of the forward tests: past the reduced danube's window (32).
 SEQ = 40
 
@@ -67,10 +66,10 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _pair(arch, dtype, seed=0, random_u=True):
+def _pair(arch, dtype, seed=0, random_u=True, **over):
     """The reference's reduced config and weights, and the port's."""
-    jcfg = JCFG.get_config(arch).reduced(compute_dtype=dtype)
-    pcfg = PCFG.get_config(arch).reduced(compute_dtype=dtype)
+    jcfg = JCFG.get_config(arch).reduced(compute_dtype=dtype, **over)
+    pcfg = PCFG.get_config(arch).reduced(compute_dtype=dtype, **over)
     tree = jax.tree.map(np.asarray, JT.init_model(jax.random.PRNGKey(seed),
                                                   jcfg))
     if jcfg.family == "rwkv" and random_u:
@@ -412,10 +411,53 @@ def test_forward_matches_reference(arch, dtype):
     got, want = convert.to_numpy(got), np.asarray(want, np.float32)
     _close(got, want, dtype)
     _same_argmax(got, want, 1e-4 if dtype == "float32" else 5e-2)
+    _check_aux(jcfg, jparams, pcfg, pparams, toks, extra)
+
+
+def _check_aux(jcfg, jparams, pcfg, pparams, toks, extra=None):
+    """The forward's aux loss: the moe family's router loss (the layers'
+    Switch losses summed, times ``router_aux_coef``) within 1e-6 relative
+    of the reference's in float32; in bfloat16 within 1e-3 relative (the
+    routers past the first layer see hidden states that the frameworks
+    round to bfloat16 at other places, 2**-8 relative an element); 0 for
+    every other family."""
     _, jaux = JT.forward(jparams, jnp.asarray(toks), jcfg,
                          extra_embeds=_jx(extra))
     _, paux = T.forward(pparams, _t(toks), pcfg, extra_embeds=_tx(extra))
-    assert float(paux) == float(jaux) == 0.0
+    assert paux.dtype == torch.float32 and paux.shape == ()
+    if pcfg.family != "moe":
+        assert float(paux) == float(jaux) == 0.0
+        return
+    assert float(jaux) > 0
+    tol = 1e-6 if pcfg.compute_dtype == "float32" else 1e-3
+    assert abs(float(paux) - float(jaux)) <= tol * float(jaux)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_with_a_dense_prefix_matches_reference(dtype):
+    """The reduced qwen2-moe with ``first_k_dense=1`` (deepseek's layout:
+    a dense-MLP layer before the expert layers): the forward's logits and
+    aux against the reference's; its decode raises on both sides."""
+    jcfg, jparams, pcfg, pparams = _pair("qwen2-moe-a2.7b", dtype,
+                                         first_k_dense=1)
+    assert len(pparams["dense_layers"]) == 1 and len(pparams["layers"]) == 1
+    assert "mlp" in pparams["dense_layers"][0]
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab, (2, SEQ),
+                                             dtype=np.int32)
+    want = jax.jit(JS.make_prefill_step(jcfg))(jparams, jnp.asarray(toks))
+    got = S.make_prefill_step(pcfg)(pparams, _t(toks))
+    got, want = convert.to_numpy(got), np.asarray(want, np.float32)
+    _close(got, want, dtype)
+    _same_argmax(got, want, 1e-4 if dtype == "float32" else 5e-2)
+    _check_aux(jcfg, jparams, pcfg, pparams, toks)
+    jcache = JD.init_cache(jcfg, 2, 8)
+    with pytest.raises(NotImplementedError):
+        JD.forward_decode(jparams, jnp.asarray(toks[:, :1]), jcache,
+                          jnp.int32(0), jcfg)
+    pcache = D.init_cache(pcfg, 2, 8, "cpu")
+    with pytest.raises(NotImplementedError, match="first_k_dense"):
+        D.forward_decode(pparams, _t(toks[:, :1]), pcache, 0, pcfg)
+    assert not any(bool(v.any()) for v in pcache.values())
 
 
 def _decode_against_reference(jcfg, jparams, pcfg, pparams, toks, kv_len,
@@ -580,11 +622,12 @@ def test_cache_spec_matches_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "h2o-danube-1.8b",
-                                  "qwen2-vl-72b", "whisper-base"])
+                                  "qwen2-vl-72b", "whisper-base",
+                                  "qwen2-moe-a2.7b"])
 def test_cache_spec_kv_quant_and_window_match_reference(arch):
-    """kv_quant (int8 k, v and float32 scales; ignored by encdec, as the
-    reference ignores it) on the reduced configs, whose danube window (32)
-    caps a 64-token cache."""
+    """kv_quant (int8 k, v and float32 scales; ignored by encdec and moe,
+    as the reference ignores it) on the reduced configs, whose danube
+    window (32) caps a 64-token cache."""
     jcfg = dataclasses.replace(JCFG.get_config(arch).reduced(),
                                kv_quant=True)
     pcfg = dataclasses.replace(PCFG.get_config(arch).reduced(),

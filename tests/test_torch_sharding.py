@@ -121,6 +121,40 @@ def test_param_and_opt_specs_as_the_reference(arch, reduced, ref_specs,
     assert n_sharded > 0                    # the rules fire
 
 
+@pytest.mark.parametrize("first_k_dense", [0, 1])
+def test_moe_specs_of_the_ports_own_tree(first_k_dense, ref_specs,
+                                         monkeypatch):
+    """The reduced qwen2-moe made by the port's ``init_model`` and stacked
+    by ``convert.stack_layers`` (with ``first_k_dense=1`` its dense
+    prefix too; keys sorted, the reference's flattening order) takes the
+    reference's specs on every layout, under expert-TP and
+    expert-parallel (``REPRO_MOE_SHARDING``): the router (d, E), the
+    experts (E, d, de) and (E, de, d) and the shared expert (d, ds) and
+    (ds, d) split as the reference splits them."""
+    from repro_torch import configs as PCFG
+    from repro_torch.models import convert
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config("qwen2-moe-a2.7b").reduced(
+        first_k_dense=first_k_dense)
+    own = convert.sorted_tree(convert.stack_layers(T.init_model(
+        0, PCFG.get_config("qwen2-moe-a2.7b").reduced(
+            first_k_dense=first_k_dense), "cpu")))
+    ps = _shape_tree(cfg)
+    experts = set()
+    for moe in (None, "ep"):
+        if moe is None:
+            monkeypatch.delenv("REPRO_MOE_SHARDING", raising=False)
+        else:
+            monkeypatch.setenv("REPRO_MOE_SHARDING", moe)
+        for name in LAYOUTS:
+            mesh = _layout(name)
+            got = sh.param_shardings(own, mesh)
+            _assert_same(got, jsh.param_shardings(ps, mesh))
+            experts.add(tuple(got["layers"]["moe"]["wg"].spec))
+    assert len(experts) > 1              # the two layouts differ
+
+
 @pytest.mark.parametrize("arch", list(configs.REGISTRY))
 def test_cache_and_batch_specs_as_the_reference(arch, ref_specs):
     cfg = configs.get_config(arch)

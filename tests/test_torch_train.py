@@ -63,7 +63,8 @@ from repro_torch.optim import adamw as O
 ARCHS = ["qwen3-0.6b", "rwkv6-3b"]
 #: The families of the attention options (sliding window, encdec, vlm):
 #: their loss, gradients and a train step against the reference's.
-NEW_ARCHS = ["h2o-danube-1.8b", "whisper-base", "qwen2-vl-72b"]
+NEW_ARCHS = ["h2o-danube-1.8b", "whisper-base", "qwen2-vl-72b",
+             "qwen2-moe-a2.7b"]
 LR = 1e-3
 
 
@@ -143,10 +144,11 @@ def _leaves_with_keys(np_tree, prefix=""):
 def _ref_grads(arch, dtype):
     jcfg, _, tree = _pair(arch, dtype)
     batch = _batch_of(jcfg)
-    (loss, _), grads = jax.jit(jax.value_and_grad(
+    (loss, metrics), grads = jax.jit(jax.value_and_grad(
         lambda p, b: JS.loss_fn(p, b, jcfg), has_aux=True))(
             jax.tree.map(jnp.asarray, tree), _jb(batch))
-    return float(loss), _leaves_with_keys(jax.tree.map(np.asarray, grads))
+    return (float(loss), _leaves_with_keys(jax.tree.map(np.asarray, grads)),
+            float(metrics["aux"]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -440,12 +442,20 @@ def test_chunked_softmax_xent_matches_reference(dtype, s, chunk):
 @pytest.mark.parametrize("arch", ARCHS + NEW_ARCHS)
 def test_loss_and_grads_match_reference(arch, dtype):
     jcfg, pcfg, tree = _pair(arch, dtype)
-    want_loss, want = _ref_grads(arch, dtype)
+    want_loss, want, want_aux = _ref_grads(arch, dtype)
     params = convert.params_from_jax(tree, pcfg, "cpu")
     (loss, metrics), grads = S.grads_of(params, _pb(_batch_of(pcfg)), pcfg)
     got = _leaves_with_keys(convert.params_to_numpy(grads))
     assert sorted(got) == sorted(want)
-    assert float(metrics["aux"]) == 0.0
+    if pcfg.family == "moe":
+        # the router's aux loss, which the loss adds: float32 1e-6
+        # relative, bfloat16 1e-3 (the routers past the first layer see
+        # hidden states rounded to bfloat16 at other places)
+        assert want_aux > 0
+        tol = 1e-6 if dtype == "float32" else 1e-3
+        assert abs(float(metrics["aux"]) - want_aux) <= tol * want_aux
+    else:
+        assert float(metrics["aux"]) == want_aux == 0.0
     if dtype == "float32":
         np.testing.assert_allclose(float(loss), want_loss, rtol=1e-5)
         for k, w in want.items():
@@ -457,6 +467,13 @@ def test_loss_and_grads_match_reference(arch, dtype):
                                        rtol=tol, atol=1e-6, err_msg=k)
     else:
         np.testing.assert_allclose(float(loss), want_loss, rtol=5e-4)
+        if pcfg.family == "moe":
+            # Not comparable leaf by leaf: the second layer's router sees
+            # hidden states the frameworks round to bfloat16 apart, and on
+            # this batch 2 of its 128 tokens take another expert on each
+            # side, which moves every leaf's gradient by up to a third of
+            # its scale.  The float32 case holds the moe gradients.
+            return
         for k, w in want.items():
             assert np.abs(got[k] - w).max() <= 6e-2 * np.abs(w).max(), k
 
@@ -467,8 +484,9 @@ def test_eval_step_is_the_loss(arch):
     params = convert.params_from_jax(tree, pcfg, "cpu")
     batch = _pb(_batch_of(pcfg))
     metrics = S.make_eval_step(pcfg)(params, batch)
-    want_loss, _ = _ref_grads(arch, "float32")
-    np.testing.assert_allclose(float(metrics["ce"]), want_loss, rtol=1e-5)
+    want_loss, _, _ = _ref_grads(arch, "float32")
+    np.testing.assert_allclose(float(metrics["ce"]) + float(metrics["aux"]),
+                               want_loss, rtol=1e-5)
     assert not metrics["ce"].requires_grad
 
 
@@ -784,7 +802,8 @@ def test_reference_resumes_a_port_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("arch,extra", [
     ("qwen3-0.6b", ["--ckpt-compress-eb", "1e-4"]),
-    ("rwkv6-3b", ["--opt-int8", "--n-micro", "2"])])
+    ("rwkv6-3b", ["--opt-int8", "--n-micro", "2"]),
+    ("qwen2-moe-a2.7b", [])])
 def test_train_main_preempts_and_resumes(tmp_path, capsys, arch, extra):
     """--preempt-at 1 exits with 17 after step 1's checkpoint; a rerun
     resumes at step 2.  From a raw checkpoint the resumed run prints the
@@ -838,8 +857,7 @@ def test_train_main_sharded_resume(tmp_path, capsys, cpu_world):
     assert np.isfinite(first)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
-                                  "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "zamba2-7b"])
 def test_unported_families_raise(arch, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         train.main(["--arch", arch, "--reduced", "--steps", "1",
