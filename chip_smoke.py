@@ -95,6 +95,22 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     ``flash_attention`` launches a step); the reduced train step,
     ``moe_block`` at capacity factor 0.5 (drops) and ``route``, the card
     against the CPU;
+  * mla, deepseek-v3-671b (multi-head latent attention, 256 routed
+    experts of 2,048, top 8, one shared, the MTP head) at its published
+    widths cut to 4 of its 61 layers (the 3 dense-prefix layers and one
+    MoE layer; bf16 parameters, 32.2 GB) prefilling B 2 x 2,048 tokens
+    (4 ``flash_attention`` launches at D 192 over Dv 128, one a layer,
+    and no other kernel), its aux loss and dropped share; the kernel at
+    layer 0's inputs beside its bound and each SDPA backend that takes D
+    != Dv; a greedy decode loop through ``make_serve_step`` at B 4 (the
+    latent cache attended in torch ops, no kernel); float32 step decode
+    against the forward (float32 parameters, 64.3 GB; the float32 kernel
+    at D 192) at capacity factor 32; ``launch.serve.main`` of the reduced
+    config plain and with ``--compress-kv`` (the latent cache through a
+    "cuda"-encode codec); the gradient of 2 layers (1 dense, 1 MoE) and
+    the MTP head at B 1 x 512 (remat: 5 ``flash_attention`` launches, the
+    MTP block's outside remat); the reduced train step (AdamW, float32
+    parameters), the card against the CPU;
   * train, A10's training half: qwen3-0.6b at full width trained by
     ``launch.train.main`` (4 steps at B 4 x 1024, float32 parameters,
     bf16 compute, remat, no checkpoint), whose attention runs
@@ -227,7 +243,10 @@ The script
     memory, aux, dropped share, the kernel at layer 0 beside its bound and
     SDPA, the float32 decode check, serve tokens a second plain and with
     ``--compress-kv``, the 2-layer train steps' ms, losses and peak
-    memory, the card-against-CPU checks); the model kernels' times beside
+    memory, the card-against-CPU checks); the ``mla`` row (the same for
+    deepseek-v3-671b's 4 layers, the decode loop's tokens a second, the
+    2-layer gradient's ms, peak memory and metrics); the model kernels'
+    times beside
     their plain versions' and ``scaled_dot_product_attention``'s (the
     yardstick of ``flash_attention``, timed here and used nowhere in the
     port), ``torch.cumsum`` of hacc1d's int32 residuals (the yardstick of
@@ -260,8 +279,8 @@ The script
     (``replaces`` null, ``yardstick`` the reference function), with rows
     5 and 7 on both N-D fields, rows 13 and 14 with their train phase
     launches and backward ms, row 13 with its windowed shape, the
-    families' prefill launches and the moe phase's launches and layer-0
-    shape, row 10 on all three
+    families' prefill launches and the moe and mla phases' launches and
+    layer-0 shapes, row 10 on all three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
     their launches on the five consumer phases (``consumer_launches``).  Each
@@ -440,6 +459,23 @@ MOE_DROP_CF = 0.5
 #: The card-against-CPU moe_block check holds when no token's k-th and
 #: (k+1)-th gates lie this close (the two float32 routers sum apart).
 MOE_TIE_GAP = 1e-5
+#: The mla phase: deepseek-v3-671b at its published widths cut in depth
+#: to MLA_LAYERS layers (its 3 dense-prefix layers and 1 MoE layer, with
+#: the MTP head: 16.1 B parameters, 32.2 GB in bf16; 61 layers are ~1.34
+#: TB), prefilling B MLA_BATCH x MLA_LEN through flash_attention at a
+#: 192-wide query/key head over a 128-wide value head; a greedy decode
+#: loop of MLA_DECODE_STEPS steps at B MLA_DECODE_BATCH; float32 step
+#: decode against the forward (float32 parameters, 64.3 GB; B 1 x
+#: FAMILY_DECODE_LEN) at capacity factor n_experts / top_k; serve.main of
+#: the reduced config, plain and --compress-kv; the gradient of
+#: MLA_TRAIN_LAYERS layers (1 dense, 1 MoE) with the MTP head at B
+#: MLA_TRAIN_BATCH x MLA_TRAIN_SEQ (AdamW's state would not fit beside
+#: the bf16 parameters and gradients); the reduced train step (AdamW, the
+#: card against the CPU).
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS, MLA_BATCH, MLA_LEN = 4, 2, 2048
+MLA_DECODE_BATCH, MLA_DECODE_STEPS = 4, 32
+MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 2, 1, 512
 
 
 def make_fields(seed: int):
@@ -3259,6 +3295,298 @@ def run_moe(seed: int) -> dict:
     return row
 
 
+def sdpa_backends(q, k, v, **kw) -> dict:
+    """``scaled_dot_product_attention`` on (B, H, S, D) inputs under each
+    fused backend alone (flash, memory-efficient, cuDNN): its ms, or the
+    first line of its refusal (a backend takes D != Dv or does not).  The
+    yardstick only: the port calls none of them."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION)):
+        with sdpa_kernel(backend):
+            try:
+                F.scaled_dot_product_attention(q, k, v, **kw)
+            except RuntimeError as e:
+                out[name] = "refused: " + str(e).strip().splitlines()[0][:160]
+                continue
+            out[name] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, **kw), 5)
+    return out
+
+
+def run_mla(seed: int) -> dict:
+    """The mla phase: deepseek-v3-671b at its published widths cut to
+    ``MLA_LAYERS`` layers, weights from ``seed`` on the card, each path
+    with its own launch check.  The prefill (``make_prefill_step``, B
+    ``MLA_BATCH`` x ``MLA_LEN``, bf16) launches ``flash_attention`` once a
+    layer at D 192 over Dv 128 and no other kernel (the latents, routing
+    and experts are torch ops, as the reference's are jnp); the forward
+    again with ``moe.route`` watched gives the dropped share, and its aux
+    loss.  The kernel against its plain version at layer 0's inputs,
+    beside its bound, its plain version and each SDPA backend that takes
+    D != Dv.  A greedy decode loop through ``make_serve_step`` (no
+    kernel: ``mla_decode`` attends the latent cache in torch ops).  float32
+    step decode against the forward (float32 parameters, capacity factor
+    ``n_experts / top_k``: nothing drops), whose forward runs the float32
+    kernel at D 192; ``serve.main`` of the reduced config, plain and with
+    ``--compress-kv``; the gradient (``grads_of``) of ``MLA_TRAIN_LAYERS``
+    layers and the MTP head, remat on; the reduced train step, the card
+    against the CPU.  Every parameter of a path is freed before the next
+    path makes its own.  Prints and returns one ``mla`` row."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import mla as MLA
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    full = configs.get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=MLA_LAYERS)
+    gen = T.generator(seed + 4, "cuda")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sizes(params):
+        leaves = list(_leaves(params))
+        return {"params": sum(t.numel() for t in leaves),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves)}
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, cfg, "cuda")
+    row = {**sizes(params), "layers": cfg.n_layers,
+           "dense_layers": cfg.first_k_dense, "experts": cfg.n_experts,
+           "top_k": cfg.top_k, "capacity_factor": cfg.capacity_factor,
+           "head": {"d": cfg.qk_nope_dim + cfg.qk_rope_dim,
+                    "dv": cfg.v_head_dim, "heads": cfg.n_heads}}
+
+    # -- the prefill: a flash_attention launch a layer, nothing else -----
+    tokens = torch.randint(0, cfg.vocab, (MLA_BATCH, MLA_LEN), generator=gen,
+                           device="cuda")
+    n_tok = tokens.numel()
+    step = St.make_prefill_step(cfg)
+    logits, counts = run_path(f"{MLA_ARCH} prefill", ("flash_attention",),
+                              lambda: step(params, tokens))
+    require(counts["flash_attention"] == cfg.n_layers,
+            f"{MLA_ARCH}: {counts['flash_attention']} flash_attention "
+            f"launches in the prefill, not {cfg.n_layers}")
+    require(tuple(logits.shape) == (MLA_BATCH, MLA_LEN, cfg.vocab)
+            and logits.dtype == torch.bfloat16
+            and bool(torch.isfinite(logits).all()),
+            f"{MLA_ARCH}: prefill logits {logits.dtype}{list(logits.shape)}")
+    del logits
+    ms = cuda_ms(lambda: step(params, tokens), 2)
+    row.update(prefill_launches=counts["flash_attention"],
+               prefill_shape=[MLA_BATCH, MLA_LEN], prefill_ms=ms,
+               prefill_tok_per_s=n_tok / (ms * 1e-3),
+               capacity=MOE.capacity(n_tok, cfg))
+
+    # -- the forward again, route watched: aux and the dropped share -----
+    kept, loads = [], []
+    real = MOE.route
+
+    def watched(lg, c):
+        r = real(lg, c)
+        kept.append(r.keep.sum())
+        loads.append(r.assign.sum(0))
+        return r
+
+    MOE.route = watched
+    try:
+        with torch.inference_mode():
+            _, aux = T.forward_hidden(params, tokens, cfg)
+    finally:
+        MOE.route = real
+    aux = float(aux)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    require(len(kept) == n_moe and math.isfinite(aux) and aux > 0,
+            f"{MLA_ARCH}: forward aux {aux} over {len(kept)} routed layers")
+    row["aux"] = aux
+    row["dropped_share"] = 1.0 - float(torch.stack(kept).sum()) / (
+        n_moe * n_tok * cfg.top_k)
+    # each expert's assignments before the drops: how the router spreads
+    # the tokens over the experts' row["capacity"] slots
+    load = torch.stack(loads).float()
+    row["expert_load"] = {
+        "max": int(load.max()), "median": float(load.median()),
+        "experts_routed_to": int((load > 0).sum()),
+        "experts_over_capacity": int((load > row["capacity"]).sum())}
+    row["prefill_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # -- layer 0's attention: the kernel, its bound, plain and SDPA ------
+    with torch.inference_mode():
+        lp = params["dense_layers"][0]
+        xn = L.rms_norm(params["embed"][tokens].to(cfg.cdt), lp["ln1"])
+        q, c_kv, k_rope = MLA._latents(xn, lp["attn"], cfg,
+                                       T._positions(cfg, MLA_LEN, "cuda"))
+        k, v = MLA._expand_kv(c_kv, k_rope, lp["attn"], cfg, cfg.cdt)
+        q, k, v = A.attn_kernel_inputs(q, k, v)
+        del xn, c_kv, k_rope
+    kw = {"causal": True, "scale": 1.0}
+    layer0 = check_flash_at(q, k, v, kw, f"{MLA_ARCH} layer 0")
+    require(layer0["shape"] == [[MLA_BATCH * cfg.n_heads, MLA_LEN, 192],
+                                [MLA_BATCH * cfg.n_heads, MLA_LEN, 192],
+                                [MLA_BATCH * cfg.n_heads, MLA_LEN, 128]],
+            f"{MLA_ARCH}: layer 0's kernel inputs {layer0['shape']}")
+    layer0["plain_ms"] = cuda_ms(
+        lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
+    q4, k4, v4 = (t.view(MLA_BATCH, cfg.n_heads, MLA_LEN, t.shape[-1])
+                  for t in (q, k, v))
+    layer0["sdpa"] = sdpa_backends(q4, k4, v4, is_causal=True, scale=1.0)
+    taken = [ms for ms in layer0["sdpa"].values() if not isinstance(ms, str)]
+    layer0["library_ms"] = min(taken) if taken else None
+    layer0["library_call"] = (
+        "F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=1.0)"
+        " under the fastest fused backend that takes D 192 != Dv 128"
+        if taken else "none: no fused SDPA backend takes D 192 != Dv 128")
+    row["layer0_kernel"] = layer0
+    del q, k, v, q4, k4, v4
+
+    # -- a greedy decode loop through make_serve_step: no kernel ---------
+    serve_step = St.make_serve_step(cfg)
+
+    def decode_loop():
+        cache = D.init_cache(cfg, MLA_DECODE_BATCH, MLA_DECODE_STEPS, "cuda")
+        tok = torch.randint(0, cfg.vocab, (MLA_DECODE_BATCH, 1),
+                            generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(MLA_DECODE_STEPS):
+            lg, cache = serve_step(params, tok, cache, t)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(lg).all()) and bool(
+            cache["latent"].ne(0).any(-1).all()),
+            f"{MLA_ARCH}: decode logits not finite, or a latent entry "
+            f"left unwritten")
+        return time.perf_counter() - t0
+
+    run_path(f"{MLA_ARCH} decode", (), decode_loop)
+    secs = decode_loop()
+    row["decode"] = {
+        "batch": MLA_DECODE_BATCH, "steps": MLA_DECODE_STEPS, "s": secs,
+        "ms_a_step": secs * 1e3 / MLA_DECODE_STEPS,
+        "tok_per_s": MLA_DECODE_BATCH * MLA_DECODE_STEPS / secs,
+        "latent_cache": list(D.cache_spec(cfg, MLA_DECODE_BATCH,
+                                          MLA_DECODE_STEPS)["latent"][0])}
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, tokens, step, serve_step
+    free()
+
+    # -- float32 step decode against the forward, nothing dropped --------
+    dcfg = dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32",
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+    caps = (MOE.capacity(FAMILY_DECODE_LEN, dcfg), MOE.capacity(1, dcfg))
+    require(caps == (FAMILY_DECODE_LEN, 1), f"{MLA_ARCH}: capacities {caps} "
+            f"at capacity factor {dcfg.capacity_factor}")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, dcfg, "cuda")
+    f32 = sizes(params)
+    check, dcounts = run_path(
+        f"{MLA_ARCH} float32 decode check", ("flash_attention",),
+        lambda: decode_against_forward(dcfg, params, torch.randint(
+            0, cfg.vocab, (1, FAMILY_DECODE_LEN), generator=gen,
+            device="cuda"), MLA_ARCH))
+    require(dcounts["flash_attention"] == cfg.n_layers,
+            f"{MLA_ARCH}: the float32 forward launched "
+            f"{dcounts['flash_attention']} flash_attention, not "
+            f"{cfg.n_layers}")
+    row["decode_vs_forward_f32"] = {
+        **check, **f32, "capacity_factor": dcfg.capacity_factor,
+        "capacity_forward": caps[0], "capacity_step": caps[1],
+        "forward_launches": dcounts["flash_attention"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params
+    free()
+
+    # -- serve.main of the reduced config: plain, then --compress-kv -----
+    row["serve_reduced"], _ = serve_row(MLA_ARCH, ["--reduced"], (), seed)
+    row["serve_reduced_compress_kv"], _ = serve_row(
+        MLA_ARCH, ["--reduced", "--compress-kv", "--kv-encode-backend",
+                   "cuda"], SERVE_KV_KERNELS, seed)
+    free()
+
+    # -- MLA_TRAIN_LAYERS layers and the MTP head: the gradient ----------
+    tcfg = dataclasses.replace(full, n_layers=MLA_TRAIN_LAYERS,
+                               first_k_dense=1)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, tcfg, "cuda")
+    tsizes = sizes(params)
+    batch = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=MLA_TRAIN_SEQ,
+                                   global_batch=MLA_TRAIN_BATCH, seed=seed),
+                        device="cuda").batch_at(0)
+    times = []
+
+    def grads():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = St.grads_of(params, batch, tcfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ((loss, metrics), g), tcounts = run_path(
+        f"{MLA_ARCH} train", ("flash_attention",), grads)
+    want = 2 * tcfg.n_layers + 1
+    require(tcounts["flash_attention"] == want,
+            f"{MLA_ARCH} train: {tcounts['flash_attention']} flash_attention "
+            f"launches, not {want} (forward and recompute a layer, the MTP "
+            f"block's forward)")
+    vals = {k: float(v) for k, v in metrics.items()}
+    require(math.isfinite(float(loss)) and sorted(vals) == [
+        "aux", "ce", "mtp"] and all(math.isfinite(v) for v in vals.values())
+        and vals["aux"] > 0, f"{MLA_ARCH} train: loss {float(loss)}, "
+        f"metrics {vals}")
+    zero = [name for name, t in _named_leaves({
+        "dense_layers": {"attn": g["dense_layers"][0]["attn"]},
+        "layers": {"attn": g["layers"][0]["attn"]}, "mtp": g["mtp"]})
+        if not bool(t.ne(0).any())]
+    require(not zero, f"{MLA_ARCH} train: zero gradient on {zero}")
+    n_grad = sum(t.numel() for t in _leaves(g))
+    del g
+    free()
+    grads()
+    row["train"] = {
+        **tsizes, "layers": tcfg.n_layers, "dense_layers": 1,
+        "mtp_head": True,
+        "batch": MLA_TRAIN_BATCH, "seq": MLA_TRAIN_SEQ,
+        "capacity": MOE.capacity(MLA_TRAIN_BATCH * MLA_TRAIN_SEQ, tcfg),
+        "grads_ms": times, "loss": float(loss), **vals,
+        "grad_values": n_grad,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_launches": tcounts["flash_attention"]}
+    del params, batch
+    free()
+
+    # -- the reduced config, the card against the CPU --------------------
+    row["train_card_vs_cpu"] = check_train_step(MLA_ARCH, seed,
+                                                param_dtype="float32")
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"mla {json.dumps(row)}")
+    return row
+
+
 def _grads(fn, inputs, cotangents, **kw):
     """``fn(*inputs, **kw)`` under autograd from fresh leaves: (outputs,
     the inputs' gradients) for the loss ``sum(out_i * cotangent_i)``."""
@@ -3336,7 +3664,7 @@ def _train_step_on(cfg, params, batch, ocfg):
     return float(loss), grads, new, metrics
 
 
-def check_train_step(arch: str, seed: int) -> dict:
+def check_train_step(arch: str, seed: int, **over) -> dict:
     """One train step of the reduced ``arch`` (float32 compute) on the card
     and on the CPU from the same parameters and batch: the loss within
     1e-5 relative, each gradient within 1e-4 of its leaf's scale, the grad
@@ -3345,7 +3673,8 @@ def check_train_step(arch: str, seed: int) -> dict:
     sign(g)``: a gradient cut at a kernel moves it by ``lr`` the other
     way).  Fails unless the card's step launched the kernel.  encdec gets
     seeded stub frames; the reduced danube's 64 tokens pass its window of
-    32."""
+    32.  ``over``: more fields of the reduced config (deepseek's float32
+    parameters: its bf16 ones would round each gradient)."""
     import torch
 
     from repro_torch import configs
@@ -3354,7 +3683,7 @@ def check_train_step(arch: str, seed: int) -> dict:
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw as O
 
-    cfg = configs.get_config(arch).reduced(compute_dtype="float32")
+    cfg = configs.get_config(arch).reduced(compute_dtype="float32", **over)
     kname = ("gla_time_mix" if cfg.family == "rwkv"
              else "flash_attention")
     ocfg = O.AdamWConfig(lr=TRAIN_CHECK_LR)
@@ -4296,6 +4625,7 @@ def main() -> int:
     model = run_model(args.seed)
     families = run_families(args.seed)
     moe = run_moe(args.seed)
+    mla = run_mla(args.seed)
     trained = run_train(args.seed)
     pager = run_pager(args.seed)
     consumers = {"checkpoint": run_checkpoint(args.seed),
@@ -4435,6 +4765,13 @@ def main() -> int:
                 "prefill": moe["prefill_launches"],
                 "train": moe["train"]["train_launches"]}
             kernels[-1]["moe_layer0"] = moe["layer0_kernel"]
+            # deepseek-v3-671b: its 4-layer prefill's and its 2-layer
+            # gradient's launches, and the kernel at its layer 0 (D 192
+            # over Dv 128)
+            kernels[-1]["mla_launches"] = {
+                "prefill": mla["prefill_launches"],
+                "train": mla["train"]["train_launches"]}
+            kernels[-1]["mla_layer0"] = mla["layer0_kernel"]
     require(len(kernels) == len(REPLACES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
     # The yardsticks: kernels of the port that replace no TPU kernel.

@@ -55,18 +55,31 @@
 //     exactly;
 //   * the epilogue divides by max(l, 1e-30) in float32, rounds to bf16 once
 //     and stages the tile in shared memory for 16-byte coalesced stores.
-//   D and Dv up to 128 are zero-padded in shared memory to 64 or 128
-//   (template arguments); the products run over the padded width in
-//   straight-line code, the k16 steps outermost, so that neighbouring MMAs
-//   write different accumulators and no branch splits them.  Rows not a
-//   multiple of 8 elements long (or unaligned tensors) are staged by plain
-//   loads instead of cp.async; the arithmetic is the same.
+//   D up to 192 and Dv up to 128 are zero-padded in shared memory to 64,
+//   128 or 192 (D) and 64 or 128 (Dv) (template arguments); the products
+//   run over the padded width in straight-line code, the k16 steps
+//   outermost, so that neighbouring MMAs write different accumulators and
+//   no branch splits them.  Rows not a multiple of 8 elements long (or
+//   unaligned tensors) are staged by plain loads instead of cp.async; the
+//   arithmetic is the same.
+//
+//   The (192, 128) template is multi-head latent attention's prefill
+//   (deepseek-v3: a query/key head of qk_nope 128 + qk_rope 64, a value
+//   head of 128).  Its Q fragments take 48 registers a thread beside the
+//   64 of the O accumulator and 32 of S, and its tiles take 2 x (64 x 200
+//   + 2 x 64 x 200 + 2 x 64 x 136) = 111,616 bytes of shared memory: two
+//   blocks an SM, past the 48 KiB default, so launch_mma opts in.  At
+//   deepseek's prefill shape (B 2, 128 heads, S 2048, causal) the floor is
+//   the products: 537 M pairs x 2 x (192 + 128) = 344 GFLOP, 0.348 ms at
+//   989 TFLOP/s, against 671 MB of Q, K, V and O, 0.200 ms.
 //
 // float32 (only the float32 step-decode check's forward runs it),
 // flash_attn_f32_kernel: scalar float32 FMAs from shared memory, q scaled
 // in float32 first, p kept in float32; its gate against the plain version
 // (2e-5) rules out bf16 or TF32 tensor-core products.  It is held by
-// shared-memory loads (about 1.1 a FMA), far above the floor.
+// shared-memory loads (about 1.1 a FMA), far above the floor.  It takes D
+// up to 192 and Dv up to 128: its accumulator holds Dv columns, its
+// shared Q and K rows D + 1 floats.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -74,7 +87,8 @@
 
 namespace repro_torch {
 
-constexpr int kMaxD = 128;       // largest D and Dv
+constexpr int kMaxD = 192;       // largest D (query and key head)
+constexpr int kMaxDv = 128;      // largest Dv (value head)
 
 // ---------------------------------------------------------------------------
 // bfloat16: tensor-core tiles
@@ -446,10 +460,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                     : launch_mma<64, 128>(q, k, v, out, bh, groups, sq, skv,
                                           d, dv, causal, window, q_offset,
                                           scale, s);
-  return dv <= 64 ? launch_mma<128, 64>(q, k, v, out, bh, groups, sq, skv, d,
+  if (d <= 128)
+    return dv <= 64 ? launch_mma<128, 64>(q, k, v, out, bh, groups, sq, skv,
+                                          d, dv, causal, window, q_offset,
+                                          scale, s)
+                    : launch_mma<128, 128>(q, k, v, out, bh, groups, sq, skv,
+                                           d, dv, causal, window, q_offset,
+                                           scale, s);
+  return dv <= 64 ? launch_mma<192, 64>(q, k, v, out, bh, groups, sq, skv, d,
                                         dv, causal, window, q_offset, scale,
                                         s)
-                  : launch_mma<128, 128>(q, k, v, out, bh, groups, sq, skv,
+                  : launch_mma<192, 128>(q, k, v, out, bh, groups, sq, skv,
                                          d, dv, causal, window, q_offset,
                                          scale, s);
 }
@@ -461,7 +482,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 constexpr int kBQ = 64;          // query rows a block
 constexpr int kBK = 32;          // kv rows a tile
 constexpr int kThreads = 256;    // 16 x 16
-constexpr int kAccCols = kMaxD / 16;
+constexpr int kAccCols = kMaxDv / 16;
 constexpr float kNegInf = -1e30f;
 
 inline size_t flash_smem(int d, int dv) {
@@ -657,7 +678,7 @@ extern "C" int repro_flash_attn(const void* q, const void* k, const void* v,
                                 int bf16, void* stream) {
   using namespace repro_torch;
   if (bh < 1 || groups < 1 || bh % groups != 0 || sq < 1 || skv < 1 ||
-      d < 1 || d > kMaxD || dv < 1 || dv > kMaxD || window < 0 ||
+      d < 1 || d > kMaxD || dv < 1 || dv > kMaxDv || window < 0 ||
       window >= (1 << 30) || q_offset <= -(1 << 30) ||
       q_offset >= (1 << 30) - sq)
     return -1;

@@ -7,9 +7,11 @@ softmax's ``(m, l, acc)`` in registers across the kv loop, tiles above the
 causal diagonal and tiles wholly below a sliding window skipped).  The
 kernel chooses by dtype: bfloat16 runs on the tensor cores (``mma.sync``
 bf16 tiles, double-buffered ``cp.async`` K and V, p rounded to bf16 for
-the P V product), float32 runs scalar float32 FMAs.  Beyond the Pallas kernel it takes any ``Sq`` and
-``Skv`` (the ragged last tiles are masked), a ``scale`` (default
-``D ** -0.5``; the model passes a pre-scaled ``q`` with ``scale=1.0``, as
+the P V product; D up to 192 and Dv up to 128, padded to the template
+widths), float32 runs scalar float32 FMAs.  Beyond the Pallas kernel it
+takes any ``Sq`` and ``Skv`` (the ragged last tiles are masked), a
+``scale`` (default ``D ** -0.5``; the model passes a pre-scaled ``q`` with
+``scale=1.0``, as
 the reference's model scales ``q`` in its working type) and GQA: ``q`` has
 ``groups`` times the rows of ``k`` and ``v``, and query row ``bh`` reads kv
 row ``bh // groups`` (the ``(B, H, S, D)`` layout flattened, b-major).
@@ -40,8 +42,11 @@ from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import launches
 
 NEG_INF = -1e30
-#: Largest ``D`` and ``Dv`` the kernel takes.
-MAX_HEAD_DIM = 128
+#: Largest query/key head ``D`` the kernel takes (192: multi-head latent
+#: attention's qk_nope 128 + qk_rope 64).
+MAX_HEAD_DIM = 192
+#: Largest value head ``Dv`` the kernel takes.
+MAX_V_HEAD_DIM = 128
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -64,9 +69,12 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention needs non-empty q, k, v and "
                          f"BH % BHkv == 0, got q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")
-    if not (1 <= d <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
-        raise ValueError(f"flash_attention takes D and Dv up to "
-                         f"{MAX_HEAD_DIM}, got {d} and {dv}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a query/key head D up to "
+                         f"{MAX_HEAD_DIM}, got D {d}")
+    if not 1 <= dv <= MAX_V_HEAD_DIM:
+        raise ValueError(f"flash_attention takes a value head Dv up to "
+                         f"{MAX_V_HEAD_DIM}, got Dv {dv}")
     if max(q.numel(), v.numel() // bkv * bh) >= 1 << 31:
         raise ValueError("flash_attention takes fewer than 2**31 values a "
                          "tensor")
@@ -163,7 +171,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``blockwise_attn`` rule.  A shape in which some query row sees no key
     raises ``ValueError`` (the reference would give it the mean of ``v``;
     no caller makes one).  ``q``, ``k``, ``v``: float32 or bfloat16 alike,
-    contiguous, D and Dv at most ``MAX_HEAD_DIM``.
+    contiguous, D at most ``MAX_HEAD_DIM`` and Dv at most
+    ``MAX_V_HEAD_DIM``.
     """
     groups = _check(q, k, v)
     bh, sq, d = q.shape

@@ -36,6 +36,13 @@ Usage:
       --compress-kv
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \\
+      --reduced --device cpu --compress-kv --kv-backend ref
+
+deepseek-v3-671b (the mla_moe family) caches one ``latent`` tensor (the
+MLA's ``[c_kv | k_rope]`` a layer and token) in place of ``k`` and ``v``;
+``--compress-kv`` and ``--kv-offload`` take it as they take ``k`` and
+``v``.
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@ The reference's parameter tree (``src/repro/models/transformer.py``
 ``init_model``) stacks each per-layer leaf on axis 0; the port keeps a list
 of per-layer dicts.  So a tree crosses by a rename and an unstack:
 ``params["layers"]["attn"]["wq"][i]`` there is ``params["layers"][i]["attn"]
-["wq"]`` here (the encdec family's ``params["encoder"]`` and the moe
-family's ``params["dense_layers"]`` likewise), and ``stack_layers`` goes
-back.  The trees come and go as numpy arrays
+["wq"]`` here (the encdec family's ``params["encoder"]`` and the moe and
+mla_moe families' ``params["dense_layers"]`` likewise), and
+``stack_layers`` goes back.  deepseek-v3's ``params["mtp"]`` (``fuse``, a
+dense ``block``, ``norm``) is one layer's nested dict on both sides and
+crosses as it is.  The trees come and go as numpy arrays
 (``jax.tree.map(np.asarray, ...)`` on the other side);
 bfloat16 arrays (``ml_dtypes``) cross through their 16-bit patterns.
 Decode caches keep the same keys and stacked layouts on both sides.
@@ -64,8 +66,8 @@ def _unstack(tree, i):
 #: (``first_k_dense``).  A group's layer count is its arrays' leading
 #: dimension.
 STACKED = ("layers", "encoder", "dense_layers")
-#: The groups that cross as they are.
-PLAIN = ("embed", "unembed", "final_norm", "enc_norm")
+#: The groups that cross as they are (``mtp`` a nested dict of them).
+PLAIN = ("embed", "unembed", "final_norm", "enc_norm", "mtp")
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
@@ -173,7 +175,7 @@ def opt_state_to_numpy(state):
 def cache_from_jax(np_cache, device="cuda"):
     """A decode cache (same keys and layouts) from numpy arrays: int8 codes
     and float32 scales (``kv_quant``) as they are, bfloat16 through its
-    bits."""
+    bits; mla_moe's ``latent`` (L, B, S, kvr + dr) like ``k``."""
     return {k: to_torch(v, device) for k, v in np_cache.items()}
 
 

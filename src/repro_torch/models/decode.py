@@ -1,7 +1,7 @@
 """Single-token decode with per-layer caches (the serve step's substrate).
 
 Port of ``src/repro/models/decode.py`` for the ``dense``, ``vlm``,
-``moe``, ``encdec`` and ``rwkv`` families.  The caches keep the
+``moe``, ``mla_moe``, ``encdec`` and ``rwkv`` families.  The caches keep the
 reference's keys and stacked layouts:
 
   dense/vlm : k, v  (L, B, S_kv, Hkv, Dh) in the compute type, S_kv capped
@@ -11,6 +11,10 @@ reference's keys and stacked layouts:
               it); a step runs the experts on its B tokens, so their
               capacity is computed from B; a ``first_k_dense`` prefix
               raises ``NotImplementedError``, as in the reference
+  mla_moe   : latent (L, B, S_kv, kv_lora_rank + qk_rope_dim) in the
+              compute type, the dense prefix's layers first: each layer's
+              ``[c_kv | k_rope]`` (``mla.mla_decode``); the prefix runs its
+              dense FFN, the rest their experts (capacity from B)
   encdec    : self k, v (L, B, S_kv, Hkv, Dh) + cross xk, xv (L, B, T_enc,
               Hkv, Dh), precomputed from encoder features (``cross_cache``)
   rwkv      : state (L, B, H, dk, dv) float32 + shift carries tshift,
@@ -28,6 +32,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models import transformer as T
@@ -47,6 +52,9 @@ def cache_spec(cfg: ModelConfig, batch: int, kv_len: int, dtype=None):
                 "v_scale": (shape[:-1], torch.float32)}
     if cfg.family in ("dense", "vlm", "moe"):
         return {"k": (shape, dt), "v": (shape, dt)}
+    if cfg.family == "mla_moe":
+        width = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return {"latent": ((cfg.n_layers, batch, kv_len, width), dt)}
     if cfg.family == "encdec":
         cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
                  cfg.head_dim)
@@ -86,7 +94,18 @@ def forward_decode(params, token, cache, pos, cfg: ModelConfig):
             "decode of a moe model with a dense prefix (first_k_dense): "
             "the reference's forward_decode has none either")
     x = params["embed"][token].to(cfg.cdt)
-    if cfg.family in ("dense", "vlm") and cfg.kv_quant:
+    if cfg.family == "mla_moe":
+        # the dense prefix's layers hold the cache's first entries
+        layers = [(lp, False) for lp in params.get("dense_layers", ())] + \
+            [(lp, True) for lp in params["layers"]]
+        for i, (lp, routed) in enumerate(layers):
+            h, _ = MLA.mla_decode(L.rms_norm(x, lp["ln1"]), lp["attn"], cfg,
+                                  cache["latent"][i], pos)
+            x = x + h
+            xn = L.rms_norm(x, lp["ln2"])
+            x = x + (MOE.moe_block(xn, lp["moe"], cfg)[0] if routed
+                     else L.mlp_apply(xn, lp["mlp"], cfg.act))
+    elif cfg.family in ("dense", "vlm") and cfg.kv_quant:
         names = ("k", "v", "k_scale", "v_scale")
         for i, lp in enumerate(params["layers"]):
             h, _ = A.decode_attn_int8(

@@ -6,8 +6,10 @@ Port of ``src/repro/models/steps.py``: ``cross_entropy``,
 serve and prefill steps run under ``torch.inference_mode()``; the train
 step takes its gradients with ``torch.autograd.grad`` from parameters
 detached from the caller's, so it is functional as the reference's is.
-The loss adds the forward's ``aux``, the moe family's router loss.  The
-MTP head belongs to the ``mla_moe`` family, which raises (ROADMAP A10).
+The loss adds the forward's ``aux``, the moe and mla_moe families' router
+loss, and for a config with ``mtp`` (deepseek-v3) ``MTP_WEIGHT`` times the
+multi-token-prediction head's CE, the head run on the embedding stream as
+the reference runs it.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
+
+MTP_WEIGHT = 0.3
 
 
 def cross_entropy(logits, labels):
@@ -80,13 +84,28 @@ def chunked_softmax_xent(hidden, unembed, labels, seq_chunk: int = 1024):
 
 def loss_fn(params, batch, cfg: ModelConfig):
     """``(loss, {"ce", "aux"})``: the mean next-token CE of the batch's
-    labels (-1 is ignored) plus the auxiliary loss."""
+    labels (-1 is ignored) plus the auxiliary loss.  With ``cfg.mtp`` and
+    an ``mtp`` group, plus ``MTP_WEIGHT`` times the MTP head's CE
+    (``metrics["mtp"]``): the head runs on the tokens' embeddings (the
+    reference's cheap surrogate for the trunk's hidden state), its label at
+    t the label at t + 1 where the label at t is valid, none at the last
+    position."""
     hidden, aux = T.forward_hidden(params, batch["tokens"], cfg,
                                    extra_embeds=batch.get("extra_embeds"))
     unembed = params.get("unembed", params["embed"]).to(hidden.dtype)
     s_nll, n_valid = chunked_softmax_xent(hidden, unembed, batch["labels"])
     loss = s_nll / n_valid.clamp(min=1)
     metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp and "mtp" in params:
+        tokens, labels = batch["tokens"], batch["labels"]
+        hidden = params["embed"][tokens].to(cfg.cdt)
+        mlogits = T.mtp_logits(params, tokens, hidden, cfg)
+        mtp_labels = torch.where(labels >= 0, torch.roll(labels, -1, dims=-1),
+                                 -1)
+        mtp_labels[:, -1] = -1
+        mtp_loss = cross_entropy(mlogits, mtp_labels)
+        loss = loss + MTP_WEIGHT * mtp_loss
+        metrics["mtp"] = mtp_loss
     return loss + aux, metrics
 
 
@@ -213,8 +232,9 @@ def make_serve_step(cfg: ModelConfig):
 def make_prefill_step(cfg: ModelConfig):
     """Prefill: the forward over a prompt, (params, tokens (B, S),
     extra_embeds=None) -> logits (B, S_total, V); the attention of the
-    dense, vlm, moe and encdec families runs the ``flash_attention``
-    kernel, the rwkv family's time-mix ``gla_time_mix``."""
+    dense, vlm, moe, mla_moe and encdec families runs the
+    ``flash_attention`` kernel, the rwkv family's time-mix
+    ``gla_time_mix``."""
 
     def prefill_step(params, tokens, extra_embeds=None):
         with torch.inference_mode():

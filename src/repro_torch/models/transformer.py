@@ -5,19 +5,23 @@ families (GQA attention with qk-norm / QKV bias / a sliding window / M-RoPE,
 gated or plain MLP; qwen3-0.6b, h2o-danube-1.8b, qwen2-vl-72b), the ``moe``
 family (GQA attention + shared and routed top-k experts, the router's aux
 loss, an optional ``first_k_dense`` prefix of dense layers;
-qwen2-moe-a2.7b), the ``encdec`` family (a bidirectional encoder over stub
+qwen2-moe-a2.7b), the ``mla_moe`` family (multi-head latent attention in
+every layer, a dense-FFN prefix of ``first_k_dense`` layers, then shared
+and routed experts, and the multi-token-prediction head ``mtp``;
+deepseek-v3-671b), the ``encdec`` family (a bidirectional encoder over stub
 frame embeddings and a causal decoder with cross-attention; whisper-base)
 and the ``rwkv`` family (RWKV-6 time-mix + channel-mix; rwkv6-3b).  The
-other families raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+``hybrid_ssm`` family raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 
 Parameters are a dict shaped like the reference's tree, except that the
 per-layer stack is a list: ``params["layers"][i]["attn"]["wq"]`` here is
 ``params["layers"]["attn"]["wq"][i]`` there (``models/convert.py`` moves a
 tree across; ``params["encoder"]`` and ``params["dense_layers"]``
-likewise).  The layers run as a
-Python loop (the reference's ``lax.scan``).  With ``cfg.remat``, while
-autograd records, each layer body runs under ``torch.utils.checkpoint``
+likewise; the ``mtp`` group is one plain nested dict on both sides).  The
+layers run as a Python loop (the reference's ``lax.scan``).  With
+``cfg.remat``, while autograd records, each layer body runs under
+``torch.utils.checkpoint``
 (non-reentrant): its activations are recomputed in the backward, as the
 reference's ``jax.checkpoint`` (``_maybe_remat``) has them.
 """
@@ -29,17 +33,17 @@ from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
 from repro_torch.models.config import ModelConfig
 
 #: The ROADMAP item that ports each model family not ported yet.
 UNPORTED_FAMILIES = {
-    "mla_moe": "A10 (the mla_moe family, deepseek-v3)",
     "hybrid_ssm": "A10 (the hybrid_ssm family, zamba2)",
 }
 #: The families the port runs.
-FAMILIES = ("dense", "vlm", "moe", "encdec", "rwkv")
+FAMILIES = ("dense", "vlm", "moe", "mla_moe", "encdec", "rwkv")
 
 
 def check_family(cfg: ModelConfig):
@@ -97,13 +101,39 @@ def _init_dense_layer(gen, cfg: ModelConfig, cross: bool = False):
     return p
 
 
+def _init_layer_attn(gen, cfg: ModelConfig):
+    """A moe / mla_moe layer's attention: MLA for mla_moe, GQA for moe."""
+    if cfg.family == "mla_moe":
+        return MLA.init_mla(gen, cfg)
+    return A.init_attn(gen, cfg)
+
+
+def _init_prefix_layer(gen, cfg: ModelConfig):
+    """A ``first_k_dense`` layer: the family's attention, a dense FFN."""
+    return {
+        "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
+        "attn": _init_layer_attn(gen, cfg),
+        "ln2": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
+        "mlp": _init_mlp(gen, cfg),
+    }
+
+
 def _init_moe_layer(gen, cfg: ModelConfig):
     return {
         "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
-        "attn": A.init_attn(gen, cfg),
+        "attn": _init_layer_attn(gen, cfg),
         "ln2": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
         "moe": MOE.init_moe(gen, cfg),
     }
+
+
+def _init_mtp(gen, cfg: ModelConfig):
+    """DeepSeek-V3's multi-token-prediction head: ``fuse`` (2d, d), a dense
+    (GQA) layer and its norm."""
+    d = cfg.d_model
+    return {"fuse": L.dense_init(gen, (2 * d, d), cfg.pdt),
+            "block": _init_dense_layer(gen, cfg),
+            "norm": L.full(gen, (d,), 1.0, cfg.pdt)}
 
 
 def _init_rwkv_layer(gen, cfg: ModelConfig):
@@ -137,14 +167,16 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
         params["layers"] = [_init_dense_layer(gen, cfg, cross=True)
                             for _ in range(cfg.n_layers)]
         return params
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "mla_moe"):
         # the first_k_dense layers run a dense MLP in place of the experts
         nk = cfg.first_k_dense
         if nk:
-            params["dense_layers"] = [_init_dense_layer(gen, cfg)
+            params["dense_layers"] = [_init_prefix_layer(gen, cfg)
                                       for _ in range(nk)]
         params["layers"] = [_init_moe_layer(gen, cfg)
                             for _ in range(cfg.n_layers - nk)]
+        if cfg.mtp:
+            params["mtp"] = _init_mtp(gen, cfg)
         return params
     layer_init = (_init_rwkv_layer if cfg.family == "rwkv"
                   else _init_dense_layer)
@@ -169,9 +201,23 @@ def _dense_layer(x, p, cfg: ModelConfig, positions, *, causal=True,
     return x + L.mlp_apply(L.rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
 
 
+def _layer_attn(xn, p, cfg: ModelConfig, positions):
+    """A moe / mla_moe layer's causal attention of the normed ``xn``."""
+    if cfg.family == "mla_moe":
+        return MLA.mla_block(xn, p, cfg, positions)
+    return A.attn_block(xn, p, cfg, positions)
+
+
+def _prefix_layer(x, p, cfg: ModelConfig, positions):
+    """A moe / mla_moe ``first_k_dense`` layer: the family's attention,
+    then the dense FFN."""
+    x = x + _layer_attn(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions)
+    return x + L.mlp_apply(L.rms_norm(x, p["ln2"]), p["mlp"], cfg.act)
+
+
 def _moe_layer(x, p, cfg: ModelConfig, positions):
     """(x, aux): attention, then the experts on the normed residual."""
-    x = x + A.attn_block(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions)
+    x = x + _layer_attn(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions)
     mo, aux = MOE.moe_block(L.rms_norm(x, p["ln2"]), p["moe"], cfg)
     return x + mo, aux
 
@@ -250,9 +296,10 @@ def forward_hidden(params, tokens, cfg: ModelConfig, extra_embeds=None):
         enc = encode(params, extra_embeds, cfg)
     positions = _positions(cfg, x.shape[1], x.device)
     body = _maybe_remat(_dense_layer, cfg)
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "mla_moe"):
+        prefix = _maybe_remat(_prefix_layer, cfg)
         for lp in params.get("dense_layers", ()):
-            x = body(x, lp, cfg, positions)
+            x = prefix(x, lp, cfg, positions)
         body = _maybe_remat(_moe_layer, cfg)
         auxs = []
         for lp in params["layers"]:
@@ -275,3 +322,23 @@ def forward(params, tokens, cfg: ModelConfig, extra_embeds=None):
     """Full forward: (logits (B, S_total, V), aux)."""
     x, aux = forward_hidden(params, tokens, cfg, extra_embeds=extra_embeds)
     return unembed(params, x), aux
+
+
+def mtp_logits(params, tokens, hidden, cfg: ModelConfig):
+    """DeepSeek-V3 multi-token prediction: predict t+2 from [h_t; e_{t+1}].
+
+    ``hidden`` (B, S, d); the next token's embedding is the tokens'
+    embedding rolled by -1 (the last position wraps to the first, as the
+    reference's ``jnp.roll``); ``fuse`` maps the concatenation to d, the
+    head's dense layer (outside remat, as the reference's) and norm follow,
+    then the unembedding.  None when the parameters have no ``mtp``."""
+    if "mtp" not in params:
+        return None
+    p = params["mtp"]
+    emb_next = torch.roll(params["embed"][tokens].to(hidden.dtype), -1,
+                          dims=1)
+    fused = torch.cat([hidden, emb_next], dim=-1) @ p["fuse"].to(
+        hidden.dtype)
+    positions = _positions(cfg, fused.shape[1], fused.device)
+    h = _dense_layer(fused, p["block"], cfg, positions)
+    return unembed(params, L.rms_norm(h, p["norm"]))

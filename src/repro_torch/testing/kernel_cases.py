@@ -11,7 +11,9 @@ one 64-row kv tile, ``Sq`` and ``Skv`` one off a multiple of 64, and a
 scale other than the default; the sliding window at 1, 16 (inside one
 tile), 63, 64 and 65 (one off the tile), at least ``Skv`` (no window),
 without the causal mask, with ``q_offset`` and with GQA 8; qwen2-moe's
-layer shape (GQA 1, D 128, causal, no window); for the recurrence, ``dv``
+layer shape (GQA 1, D 128, causal, no window); multi-head latent
+attention's (GQA 1, D 192 over Dv 128, and D 160 padded to the 192
+template, and D 192 over Dv 64), causal and not; for the recurrence, ``dv``
 that is no
 multiple of the 16 columns a block owns, ``dk`` 8 and widths that are no
 multiple of 4 floats.  Inputs are made with numpy from a seed, then
@@ -51,6 +53,14 @@ FLASH_CASES = [
     ("window_gqa8", 16, 300, 300, 128, 128, 8, True, None, 100, 0),
     # qwen2-moe-a2.7b's layer: 16 heads over 16 KV heads of 128, causal
     ("moe_layer_gqa1_d128", 4, 256, 256, 128, 128, 1, True, None, None, 0),
+    # deepseek-v3's MLA: a 192-wide query/key head over a 128-wide value
+    ("mla_d192_dv128", 4, 200, 200, 192, 128, 1, True, None, None, 0),
+    ("mla_d192_dv128_full", 2, 130, 77, 192, 128, 1, False, None, None, 0),
+    ("mla_d160_dv128_padded", 3, 129, 129, 160, 128, 1, True, None, None,
+     0),
+    ("mla_d160_dv128_full", 2, 65, 150, 160, 128, 1, False, None, None, 0),
+    ("mla_d192_dv64", 3, 150, 150, 192, 64, 1, True, None, None, 0),
+    ("mla_d192_dv64_full", 2, 100, 63, 192, 64, 1, False, None, None, 0),
 ]
 
 #: (name, BH, S, dk, dv, H, w_low, w_high, with_u, with_state)

@@ -28,6 +28,12 @@ wrapper on CPU tensors (its plain version), on every case of
 ``repro_torch.testing.kernel_cases.FLASH_CASES``, against the reference's
 ``blockwise_attn`` in float32 at 1e-5; the windowed backward against
 autograd through ``dense_attention`` at 1e-5 / 1e-6 (as the chunk test).
+
+Multi-head latent attention's head (D up to 192 over Dv up to 128): the
+plain version against ``dense_attention`` at D 192 over Dv 128 and D 48
+over Dv 32 (float32 1e-5, bfloat16 one bf16 ulp of the output's scale),
+the wrapper's refusal of D 193 and Dv 129, and the trainable wrapper's
+gradients at (192, 128) against autograd through the plain version.
 """
 
 import numpy as np
@@ -428,3 +434,66 @@ def test_trainable_only_while_recording(monkeypatch):
         A.blockwise_attn(q.detach(), q.detach(), q.detach(), causal=True)
     A.blockwise_attn(q.detach(), q.detach(), q.detach(), causal=True)
     assert calls == [1]
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention's head: D up to 192 over Dv up to 128
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d,dv", [(192, 128), (48, 32)])
+@pytest.mark.parametrize("sq,skv", [(77, 77), (130, 201)])
+def test_plain_matches_dense_at_mla_heads(sq, skv, d, dv, dtype):
+    """The wrapper (its plain version on CPU tensors) at deepseek-v3's
+    head (D 192 over Dv 128) and the reduced override's (D 48 over Dv 32),
+    causal, ragged lengths, against ``dense_attention`` (the reference's
+    ``_xla_attention``) on the same inputs: float32 within 1e-5; bfloat16
+    within one bf16 ulp of the output's scale (each rounds a float32
+    result once; the plain version scales q before the product, the dense
+    one the scores after it)."""
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _inputs(
+        (3, sq, d), (3, skv, d), (3, skv, dv), sq + skv + d))
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = FA.dense_attention(q, k, v, causal=True)
+    assert got.dtype == dtype and tuple(got.shape) == (3, sq, dv)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= KC.bf16_ulp(want.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("d,dv,match", [
+    (193, 128, "query/key head D up to 192, got D 193"),
+    (192, 129, "value head Dv up to 128, got Dv 129")])
+def test_wrapper_refuses_past_the_mla_head(d, dv, match):
+    """D 192 and Dv 128 are the kernel's widest; one past either raises,
+    and the message names the limit the call broke."""
+    assert (FA.MAX_HEAD_DIM, FA.MAX_V_HEAD_DIM) == (192, 128)
+    q = torch.zeros((2, 8, d))
+    v = torch.zeros((2, 8, dv))
+    with pytest.raises(ValueError, match=match):
+        FA.flash_attention(q, q, v)
+    assert FA.flash_attention(*(t[..., :192].contiguous() for t in (q, q)),
+                              v[..., :128].contiguous()).shape == (2, 8, 128)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_trainable_gradients_at_the_mla_head(causal):
+    """``flash_attention_trainable`` at D 192 over Dv 128 (ragged, Sq !=
+    Skv): its output and dq, dk, dv against autograd through the plain
+    version, float32, within 1e-5 / 1e-6 (as the chunk test)."""
+    q, k, v = _inputs((4, 90, 192), (4, 130, 192), (4, 130, 128), 77)
+    w = np.random.default_rng(8).standard_normal((4, 90, 128)).astype(
+        np.float32)
+    out, got = _grads_port(q, k, v, w, causal=causal, chunk=32)
+    ref, want = _grads_port(q, k, v, w, fn=FA.flash_attention_plain,
+                            causal=causal)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               rtol=1e-5, atol=1e-6)
+    for g, ww in zip(got, want):
+        assert g.shape == ww.shape
+        np.testing.assert_allclose(g.numpy(), ww.numpy(), rtol=1e-5,
+                                   atol=1e-6)
