@@ -111,6 +111,22 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     the MTP head at B 1 x 512 (remat: 5 ``flash_attention`` launches, the
     MTP block's outside remat); the reduced train step (AdamW, float32
     parameters), the card against the CPU;
+  * hybrid, zamba2-7b (81 Mamba2 layers, chunked SSD in torch ops, and
+    one weight-shared attention block, 32 heads of 112, window 4,096,
+    run after every 6th layer) at its published widths and full depth
+    (bf16 parameters, 13.50 GB) prefilling B 1 x 8,192 tokens (13 windowed
+    ``flash_attention`` launches, one an invocation, and no other
+    kernel), with the profiler's idle share; the kernel at the block's
+    first invocation (its inputs after the SSM layers 0-5) beside its
+    bound and SDPA with the boolean window mask; a greedy decode loop
+    through ``make_serve_step`` at B 4 (no kernel); float32 step decode
+    against the forward (float32 parameters, 27 GB; the float32 kernel at
+    D 112); ``launch.serve.main`` plain and with ``--compress-kv`` (the
+    whole cache, SSM state included, through a "cuda"-encode codec), and
+    the reduced config with ``--kv-offload`` (``k``, ``v`` paged); the
+    gradient and one AdamW step of 12 layers (two invocations) at B 1 x
+    2,048 (remat: 4 ``flash_attention`` launches); the reduced train step
+    (float32 parameters), the card against the CPU;
   * train, A10's training half: qwen3-0.6b at full width trained by
     ``launch.train.main`` (4 steps at B 4 x 1024, float32 parameters,
     bf16 compute, remat, no checkpoint), whose attention runs
@@ -245,8 +261,11 @@ The script
     ``--compress-kv``, the 2-layer train steps' ms, losses and peak
     memory, the card-against-CPU checks); the ``mla`` row (the same for
     deepseek-v3-671b's 4 layers, the decode loop's tokens a second, the
-    2-layer gradient's ms, peak memory and metrics); the model kernels'
-    times beside
+    2-layer gradient's ms, peak memory and metrics); the ``hybrid`` row
+    (zamba2-7b: prefill ms, tokens a second, peak memory and idle share,
+    the kernel at the shared block's first invocation, the decode loop,
+    the float32 decode check, the serve runs, the 12-layer gradient and
+    AdamW step); the model kernels' times beside
     their plain versions' and ``scaled_dot_product_attention``'s (the
     yardstick of ``flash_attention``, timed here and used nowhere in the
     port), ``torch.cumsum`` of hacc1d's int32 residuals (the yardstick of
@@ -279,8 +298,9 @@ The script
     (``replaces`` null, ``yardstick`` the reference function), with rows
     5 and 7 on both N-D fields, rows 13 and 14 with their train phase
     launches and backward ms, row 13 with its windowed shape, the
-    families' prefill launches and the moe and mla phases' launches and
-    layer-0 shapes, row 10 on all three
+    families' prefill launches and the moe, mla and hybrid phases'
+    launches and layer-0 (hybrid: first-invocation) shapes, row 10 on all
+    three
     fields, rows 8, 10 and 11 also on one KV page, and rows 1, 3 and 12
     also through their device-memory LUT, rows 1, 2, 8, 10 and 11 with
     their launches on the five consumer phases (``consumer_launches``).  Each
@@ -476,6 +496,23 @@ MLA_ARCH = "deepseek-v3-671b"
 MLA_LAYERS, MLA_BATCH, MLA_LEN = 4, 2, 2048
 MLA_DECODE_BATCH, MLA_DECODE_STEPS = 4, 32
 MLA_TRAIN_LAYERS, MLA_TRAIN_BATCH, MLA_TRAIN_SEQ = 2, 1, 512
+#: The hybrid phase: zamba2-7b at its published widths and full depth (81
+#: Mamba2 layers, the shared block after every 6th: 13 invocations;
+#: 6,748,175,952 bf16 parameters, 13.50 GB) prefilling B HYBRID_BATCH x
+#: HYBRID_LEN (past the block's window of 4,096); a greedy decode loop of
+#: HYBRID_DECODE_STEPS steps at B HYBRID_DECODE_BATCH after a prompt of
+#: HYBRID_DECODE_PROMPT; float32 step decode against the forward (float32
+#: parameters, 27 GB; B 1 x HYBRID_F32_LEN); serve.main plain and
+#: --compress-kv, and the reduced config with --kv-offload in blocks of
+#: HYBRID_KV_BLOCK; the gradient and one AdamW step of HYBRID_TRAIN_LAYERS
+#: layers (two invocations) at B HYBRID_TRAIN_BATCH x HYBRID_TRAIN_SEQ;
+#: the reduced train step (float32 parameters), the card against the CPU.
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_BATCH, HYBRID_LEN = 1, 8192
+HYBRID_DECODE_BATCH, HYBRID_DECODE_PROMPT, HYBRID_DECODE_STEPS = 4, 32, 32
+HYBRID_F32_LEN = 64
+HYBRID_KV_BLOCK = 8
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ = 12, 1, 2048
 
 
 def make_fields(seed: int):
@@ -2422,21 +2459,28 @@ def _dtype_name(t) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
-def layer0_kernel_inputs(cfg, params, tokens):
-    """The inputs layer 0 of the prefill forward gives its kernel: the
-    attention's (q, k, v) for the dense family, the recurrence's (r, k, v,
-    w, u, state) for rwkv, made by the port's own functions."""
+def first_kernel_inputs(cfg, params, tokens):
+    """The inputs the prefill forward gives its first kernel launch, made
+    by the port's own functions: layer 0's attention (q, k, v) for the
+    dense family, its recurrence's (r, k, v, w, u, state) for rwkv, and
+    for hybrid_ssm the shared block's (q, k, v) at its first invocation,
+    after the SSM layers 0 .. ``hybrid_attn_every`` - 1."""
     import torch
 
     from repro_torch.models import attention as A
     from repro_torch.models import layers as L
     from repro_torch.models import rwkv as R
+    from repro_torch.models import transformer as T
 
     with torch.inference_mode():
         x = params["embed"][tokens].to(cfg.cdt)
         lp = params["layers"][0]
+        if cfg.family == "hybrid_ssm":
+            for ssm_lp in params["layers"][:cfg.hybrid_attn_every]:
+                x = T._ssm_layer(x, ssm_lp, cfg)
+            lp = params["shared_attn"]
         xn = L.rms_norm(x, lp["ln1"])
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "hybrid_ssm"):
             positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                      device=tokens.device)
             return A.attn_kernel_inputs(*A._project_qkv(
@@ -2568,7 +2612,7 @@ def run_model(seed: int) -> dict:
             lambda: prefill(params, tokens))
 
         # the kernel against its plain version at layer 0's inputs
-        args = layer0_kernel_inputs(cfg, params, tokens)
+        args = first_kernel_inputs(cfg, params, tokens)
         if kname == "flash_attention":
             q, k, v = args
             err = check_model_kernel(
@@ -3584,6 +3628,289 @@ def run_mla(seed: int) -> dict:
                                                 param_dtype="float32")
     row["phase_s"] = time.perf_counter() - t_phase
     print(f"mla {json.dumps(row)}")
+    return row
+
+
+def run_hybrid(seed: int) -> dict:
+    """The hybrid phase: zamba2-7b at its published widths and full depth,
+    weights from ``seed`` on the card, each path with its own launch
+    check.  The prefill (``make_prefill_step``, B ``HYBRID_BATCH`` x
+    ``HYBRID_LEN``, bf16) launches ``flash_attention`` once an invocation
+    of the shared block (13, windowed at 4,096, D 112 padded to the
+    128-wide template) and no other kernel (the Mamba2 layers' chunked
+    SSD is torch ops, as the reference's is jnp); one more prefill under
+    the profiler gives the device's idle share.  The kernel against its
+    plain version at the block's first invocation, beside its bound and
+    SDPA with the boolean window mask.  A greedy decode loop through
+    ``make_serve_step`` (no kernel).  float32 step decode against the
+    forward (float32 parameters), whose forward runs the float32 kernel;
+    ``serve.main`` plain and with ``--compress-kv``, and the reduced
+    config with ``--kv-offload``; the gradient (``grads_of``) and one
+    ``make_train_step`` AdamW step of ``HYBRID_TRAIN_LAYERS`` layers,
+    remat on; the reduced train step, the card against the CPU.  Every
+    parameter of a path is freed before the next path makes its own.
+    Prints and returns one ``hybrid`` row."""
+    import dataclasses
+    import gc
+    import math
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attn as FA
+    from repro_torch.models import decode as D
+    from repro_torch.models import ssm as SSM
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import count_params
+    from repro_torch.optim import adamw as O
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = configs.get_config(HYBRID_ARCH)
+    every = cfg.hybrid_attn_every
+    n_inv = D.n_invocations(cfg)
+    gen = T.generator(seed + 5, "cuda")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def sizes(params):
+        leaves = list(_leaves(params))
+        return {"params": sum(t.numel() for t in leaves),
+                "param_bytes": sum(t.numel() * t.element_size()
+                                   for t in leaves)}
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, cfg, "cuda")
+    dv, h, ph = SSM.ssm_dims(cfg)
+    row = {**sizes(params), "count_params": count_params(cfg),
+           "layers": cfg.n_layers, "attn_every": every,
+           "invocations": n_inv, "window": cfg.swa_window,
+           "ssm": {"heads": h, "head": ph, "state": cfg.ssm_state,
+                   "chunk": cfg.ssm_chunk},
+           "attn_head": {"d": cfg.head_dim, "heads": cfg.n_heads,
+                         "kv_heads": cfg.n_kv_heads}}
+
+    # -- the prefill: a windowed flash_attention launch an invocation ----
+    tokens = torch.randint(0, cfg.vocab, (HYBRID_BATCH, HYBRID_LEN),
+                           generator=gen, device="cuda")
+    n_tok = tokens.numel()
+    step = St.make_prefill_step(cfg)
+    logits, counts = run_path(f"{HYBRID_ARCH} prefill", ("flash_attention",),
+                              lambda: step(params, tokens))
+    require(counts["flash_attention"] == n_inv,
+            f"{HYBRID_ARCH}: {counts['flash_attention']} flash_attention "
+            f"launches in the prefill, not {n_inv}")
+    require(tuple(logits.shape) == (HYBRID_BATCH, HYBRID_LEN, cfg.vocab)
+            and logits.dtype == torch.bfloat16
+            and bool(torch.isfinite(logits).all()),
+            f"{HYBRID_ARCH}: prefill logits {logits.dtype}"
+            f"{list(logits.shape)}")
+    del logits
+    row["prefill_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    ms = cuda_ms(lambda: step(params, tokens), 1)
+    _, prof = profile_once(lambda: step(params, tokens), top=10)
+    nc = HYBRID_LEN // SSM.chunk_len(HYBRID_LEN, cfg.ssm_chunk)
+    row.update(prefill_launches=counts["flash_attention"],
+               prefill_shape=[HYBRID_BATCH, HYBRID_LEN], prefill_ms=ms,
+               prefill_tok_per_s=n_tok / (ms * 1e-3), prefill_profile=prof,
+               ssd_chunks=nc, chunk_loop_steps=nc * cfg.n_layers)
+
+    # -- the shared block's first invocation: the kernel, bound, SDPA ----
+    q, k, v = first_kernel_inputs(cfg, params, tokens)
+    kw = {"causal": True, "scale": 1.0, "window": cfg.swa_window}
+    first = check_flash_at(q, k, v, kw, f"{HYBRID_ARCH} invocation 0")
+    require(first["shape"] == [
+        [HYBRID_BATCH * heads, HYBRID_LEN, cfg.head_dim]
+        for heads in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)],
+            f"{HYBRID_ARCH}: the first invocation's kernel inputs "
+            f"{first['shape']}")
+    first["plain_ms"] = cuda_ms(
+        lambda: FA.flash_attention_plain(q, k, v, **kw), 1)
+    q4, k4, v4 = (t.view(HYBRID_BATCH, t.shape[0] // HYBRID_BATCH,
+                         HYBRID_LEN, t.shape[-1]) for t in (q, k, v))
+    mask = FA.visible_mask(HYBRID_LEN, HYBRID_LEN, causal=True,
+                           window=cfg.swa_window, device="cuda")
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=mask, scale=1.0,
+            enable_gqa=cfg.n_heads != cfg.n_kv_heads)
+
+    out = FA.flash_attention(q, k, v, **kw)
+    first["library_max_abs_err"] = max_abs_err(
+        library().reshape(out.shape), out)
+    first["library_ms"] = cuda_ms(library, 5)
+    first["library_call"] = ("F.scaled_dot_product_attention(q, k, v, "
+                             "attn_mask=<bool (S, S) window mask>, "
+                             "scale=1.0)")
+    first["pairs"] = flash_pairs(HYBRID_LEN, HYBRID_LEN, True,
+                                 cfg.swa_window)
+    row["layer0_kernel"] = first
+    del q, k, v, q4, k4, v4, mask, out
+
+    # -- a greedy decode loop through make_serve_step: no kernel ---------
+    serve_step = St.make_serve_step(cfg)
+    n_steps = HYBRID_DECODE_PROMPT + HYBRID_DECODE_STEPS
+    prompt = torch.randint(0, cfg.vocab, (HYBRID_DECODE_BATCH,
+                                          HYBRID_DECODE_PROMPT),
+                           generator=gen, device="cuda")
+
+    def decode_loop():
+        # one slot more: the profiled step after the loop
+        cache = D.init_cache(cfg, HYBRID_DECODE_BATCH, n_steps + 1, "cuda")
+        for t in range(HYBRID_DECODE_PROMPT):
+            lg, cache = serve_step(params, prompt[:, t:t + 1], cache, t)
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(HYBRID_DECODE_PROMPT, n_steps):
+            lg, cache = serve_step(params, tok, cache, t)
+            tok = lg[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        require(bool(torch.isfinite(lg).all())
+                and bool(cache["k"][:, :, :n_steps].ne(0).any(-1).all())
+                and bool(cache["ssm"].ne(0).any()),
+                f"{HYBRID_ARCH}: decode logits not finite, or a cache "
+                f"entry left unwritten")
+        return secs, cache, tok
+
+    run_path(f"{HYBRID_ARCH} decode", (), decode_loop)
+    secs, cache, tok = decode_loop()
+    _, step_prof = profile_once(
+        lambda: serve_step(params, tok, cache, n_steps), top=8)
+    del cache
+    spec = D.cache_spec(cfg, HYBRID_DECODE_BATCH, n_steps + 1)
+    row["decode"] = {
+        "batch": HYBRID_DECODE_BATCH, "prompt": HYBRID_DECODE_PROMPT,
+        "steps": HYBRID_DECODE_STEPS, "s": secs,
+        "ms_a_step": secs * 1e3 / HYBRID_DECODE_STEPS,
+        "tok_per_s": HYBRID_DECODE_BATCH * HYBRID_DECODE_STEPS / secs,
+        "step_profile": step_prof,
+        "cache": {name: list(shape) for name, (shape, _) in spec.items()}}
+    row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, tokens, prompt, step, serve_step
+    free()
+
+    # -- float32 step decode against the forward -------------------------
+    dcfg = dataclasses.replace(cfg, param_dtype="float32",
+                               compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, dcfg, "cuda")
+    f32 = sizes(params)
+    check, dcounts = run_path(
+        f"{HYBRID_ARCH} float32 decode check", ("flash_attention",),
+        lambda: decode_against_forward(dcfg, params, torch.randint(
+            0, cfg.vocab, (1, HYBRID_F32_LEN), generator=gen,
+            device="cuda"), HYBRID_ARCH))
+    require(dcounts["flash_attention"] == n_inv,
+            f"{HYBRID_ARCH}: the float32 forward launched "
+            f"{dcounts['flash_attention']} flash_attention, not {n_inv}")
+    row["decode_vs_forward_f32"] = {
+        **check, **f32, "tokens": HYBRID_F32_LEN,
+        "forward_launches": dcounts["flash_attention"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params
+    free()
+
+    # -- serve.main: plain, --compress-kv; the reduced with --kv-offload -
+    directory = os.path.join(ROOT, "build", "chip_smoke_hybrid")
+    shutil.rmtree(directory, ignore_errors=True)
+    row["serve"], _ = serve_row(HYBRID_ARCH, [], (), seed)
+    free()
+    row["serve_compress_kv"], _ = serve_row(
+        HYBRID_ARCH, ["--compress-kv", "--kv-encode-backend", "cuda"],
+        SERVE_KV_KERNELS, seed)
+    free()
+    row["serve_reduced_kv_offload"], _ = serve_row(
+        HYBRID_ARCH, ["--reduced", "--kv-offload", "--kv-block",
+                      str(HYBRID_KV_BLOCK), "--kv-encode-backend", "cuda",
+                      "--kv-offload-dir", directory], SERVE_KV_KERNELS, seed)
+    shutil.rmtree(directory, ignore_errors=True)
+    free()
+
+    # -- HYBRID_TRAIN_LAYERS layers: the gradient, one AdamW step --------
+    tcfg = dataclasses.replace(cfg, n_layers=HYBRID_TRAIN_LAYERS)
+    t_inv = D.n_invocations(tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_model(seed, tcfg, "cuda")
+    tsizes = sizes(params)
+    batch = SyntheticLM(DataConfig(vocab=tcfg.vocab,
+                                   seq_len=HYBRID_TRAIN_SEQ,
+                                   global_batch=HYBRID_TRAIN_BATCH,
+                                   seed=seed), device="cuda").batch_at(0)
+    want = 2 * t_inv
+    times = {"grads_ms": [], "step_ms": []}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ((loss, metrics), g), gcounts = run_path(
+        f"{HYBRID_ARCH} gradient", ("flash_attention",),
+        lambda: timed("grads_ms", lambda: St.grads_of(params, batch, tcfg)))
+    require(gcounts["flash_attention"] == want,
+            f"{HYBRID_ARCH} gradient: {gcounts['flash_attention']} "
+            f"flash_attention launches, not {want} (forward and recompute "
+            f"an invocation)")
+    require(math.isfinite(float(loss)) and all(math.isfinite(float(v))
+                                               for v in metrics.values()),
+            f"{HYBRID_ARCH} gradient: loss {float(loss)}")
+    zero = [name for name, t in _named_leaves({
+        "shared_attn": g["shared_attn"],
+        "layers": [lp["ssm"] for lp in g["layers"]]})
+        if not bool(t.ne(0).any()) or not bool(torch.isfinite(t).all())]
+    require(not zero, f"{HYBRID_ARCH} gradient: zero or non-finite "
+            f"gradient on {zero}")
+    n_grad = sum(t.numel() for t in _leaves(g))
+    del g
+    free()
+    ocfg = O.AdamWConfig()
+    train_step = St.make_train_step(tcfg, ocfg)
+    opt = O.init(params, ocfg)
+    (new, opt, smet), scounts = run_path(
+        f"{HYBRID_ARCH} train step", ("flash_attention",),
+        lambda: timed("step_ms", lambda: train_step(params, opt, batch)))
+    require(scounts["flash_attention"] == want
+            and math.isfinite(float(smet["loss"]))
+            and abs(float(smet["loss"]) - float(loss)) <= 1e-3 * abs(
+                float(loss)),
+            f"{HYBRID_ARCH} train step: {scounts['flash_attention']} "
+            f"launches, loss {float(smet['loss'])} against the gradient's "
+            f"{float(loss)}")
+    moved = sum(int((a != b).sum()) for a, b in zip(_leaves(new),
+                                                    _leaves(params)))
+    require(moved > 0, f"{HYBRID_ARCH} train step moved no parameter")
+    del new
+    free()
+    timed("step_ms", lambda: train_step(params, opt, batch))
+    row["train"] = {
+        **tsizes, "layers": tcfg.n_layers, "invocations": t_inv,
+        "batch": HYBRID_TRAIN_BATCH, "seq": HYBRID_TRAIN_SEQ, **times,
+        "loss": float(loss), "grad_norm": float(smet["grad_norm"]),
+        "grad_values": n_grad, "moved_values": moved,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "train_launches": gcounts["flash_attention"]}
+    del params, batch, opt
+    free()
+
+    # -- the reduced config, the card against the CPU --------------------
+    row["train_card_vs_cpu"] = check_train_step(HYBRID_ARCH, seed,
+                                                param_dtype="float32")
+    row["phase_s"] = time.perf_counter() - t_phase
+    print(f"hybrid {json.dumps(row)}")
     return row
 
 
@@ -4626,6 +4953,7 @@ def main() -> int:
     families = run_families(args.seed)
     moe = run_moe(args.seed)
     mla = run_mla(args.seed)
+    hybrid = run_hybrid(args.seed)
     trained = run_train(args.seed)
     pager = run_pager(args.seed)
     consumers = {"checkpoint": run_checkpoint(args.seed),
@@ -4772,6 +5100,13 @@ def main() -> int:
                 "prefill": mla["prefill_launches"],
                 "train": mla["train"]["train_launches"]}
             kernels[-1]["mla_layer0"] = mla["layer0_kernel"]
+            # zamba2-7b: its full-depth prefill's and its 12-layer
+            # gradient's launches, and the kernel at the shared block's
+            # first invocation (D 112, window 4,096)
+            kernels[-1]["hybrid_launches"] = {
+                "prefill": hybrid["prefill_launches"],
+                "train": hybrid["train"]["train_launches"]}
+            kernels[-1]["hybrid_layer0"] = hybrid["layer0_kernel"]
     require(len(kernels) == len(REPLACES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels")
     # The yardsticks: kernels of the port that replace no TPU kernel.

@@ -38,11 +38,16 @@ Usage:
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \\
       --reduced --device cpu --compress-kv --kv-backend ref
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --reduced --device cpu --kv-offload --kv-backend ref
 
 deepseek-v3-671b (the mla_moe family) caches one ``latent`` tensor (the
 MLA's ``[c_kv | k_rope]`` a layer and token) in place of ``k`` and ``v``;
 ``--compress-kv`` and ``--kv-offload`` take it as they take ``k`` and
-``v``.
+``v``.  zamba2-7b (the hybrid_ssm family) caches each Mamba2 layer's
+float32 ``ssm`` state beside the shared block's ``k`` and ``v`` (an entry
+per invocation): ``--compress-kv`` takes the whole tree, ``--kv-offload``
+pages ``k`` and ``v`` only (the state has no token axis).
 """
 
 from __future__ import annotations

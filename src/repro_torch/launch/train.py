@@ -17,15 +17,17 @@ Port of ``src/repro/launch/train.py``, with its flags and output lines:
 
 ``--device`` (default ``cuda``) is where the weights, the optimizer state
 and the batches live; on the card the attention of the dense, vlm, moe,
-mla_moe and encdec families runs the ``flash_attention`` kernel and the
-rwkv family's time-mix ``gla_time_mix``, each inside its
-``torch.autograd.Function``; the moe and mla_moe families' loss adds the
-router's aux loss, and deepseek-v3's its MTP head's weighted CE.  A
-step's time is read after a device synchronize.  The ``vlm`` and ``encdec`` families get the
+mla_moe and encdec families and of hybrid_ssm's shared block runs the
+``flash_attention`` kernel and the rwkv family's time-mix
+``gla_time_mix``, each inside its ``torch.autograd.Function``;
+hybrid_ssm's Mamba2 layers run torch ops (the reference's are jnp); the
+moe and mla_moe families' loss adds the router's aux loss, and
+deepseek-v3's its MTP head's weighted CE.  A step's time is read after a
+device synchronize.  The ``vlm`` and ``encdec`` families get the
 reference's modality stubs in each batch (``extra_embeds``): 8 zero patch
 embeddings for vlm, its labels left-padded by -1 over them, and
-``encoder_seq`` zero frames for encdec.  The unported family (hybrid_ssm)
-raises ``NotImplementedError`` naming ROADMAP A10.
+``encoder_seq`` zero frames for encdec.  Every family of the reference
+trains.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
@@ -35,6 +37,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b \\
       --reduced --steps 6 --batch 2 --seq 32 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v3-671b \\
+      --reduced --steps 6 --batch 2 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --reduced --steps 6 --batch 2 --seq 32 --device cpu
 """
 

@@ -7,8 +7,9 @@ of per-layer dicts.  So a tree crosses by a rename and an unstack:
 ["wq"]`` here (the encdec family's ``params["encoder"]`` and the moe and
 mla_moe families' ``params["dense_layers"]`` likewise), and
 ``stack_layers`` goes back.  deepseek-v3's ``params["mtp"]`` (``fuse``, a
-dense ``block``, ``norm``) is one layer's nested dict on both sides and
-crosses as it is.  The trees come and go as numpy arrays
+dense ``block``, ``norm``) and zamba2-7b's weight-shared attention block
+``params["shared_attn"]`` are each one layer's nested dict on both sides
+and cross as they are.  The trees come and go as numpy arrays
 (``jax.tree.map(np.asarray, ...)`` on the other side);
 bfloat16 arrays (``ml_dtypes``) cross through their 16-bit patterns.
 Decode caches keep the same keys and stacked layouts on both sides.
@@ -66,8 +67,9 @@ def _unstack(tree, i):
 #: (``first_k_dense``).  A group's layer count is its arrays' leading
 #: dimension.
 STACKED = ("layers", "encoder", "dense_layers")
-#: The groups that cross as they are (``mtp`` a nested dict of them).
-PLAIN = ("embed", "unembed", "final_norm", "enc_norm", "mtp")
+#: The groups that cross as they are (``mtp`` and ``shared_attn`` nested
+#: dicts of them).
+PLAIN = ("embed", "unembed", "final_norm", "enc_norm", "mtp", "shared_attn")
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
@@ -85,9 +87,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda"):
         elif key in PLAIN:
             out[key] = _map(sub, lambda a: to_torch(a, device))
         else:
-            raise NotImplementedError(
-                f"parameter group {key!r} belongs to a family not ported "
-                f"yet (ROADMAP A10)")
+            raise ValueError(f"parameter group {key!r} is none of the "
+                             f"reference's: {STACKED + PLAIN}")
     return out
 
 

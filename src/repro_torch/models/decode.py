@@ -1,8 +1,7 @@
 """Single-token decode with per-layer caches (the serve step's substrate).
 
-Port of ``src/repro/models/decode.py`` for the ``dense``, ``vlm``,
-``moe``, ``mla_moe``, ``encdec`` and ``rwkv`` families.  The caches keep the
-reference's keys and stacked layouts:
+Port of ``src/repro/models/decode.py`` for all seven of its families.  The
+caches keep the reference's keys and stacked layouts:
 
   dense/vlm : k, v  (L, B, S_kv, Hkv, Dh) in the compute type, S_kv capped
               at the window for SWA (a ring buffer); under ``kv_quant`` k,
@@ -15,6 +14,12 @@ reference's keys and stacked layouts:
               compute type, the dense prefix's layers first: each layer's
               ``[c_kv | k_rope]`` (``mla.mla_decode``); the prefix runs its
               dense FFN, the rest their experts (capacity from B)
+  hybrid_ssm: ssm (L, B, H, N, P) float32, each Mamba2 layer's state
+              (``ssm.ssm_decode``) + the shared block's k, v (n_attn, B,
+              S_kv, Hkv, Dh), an entry per invocation of the block (n_attn
+              = max(1, L // hybrid_attn_every)), S_kv capped at the window;
+              as the reference's decode, the block's step passes no window
+              to ``decode_attn``, so a step past S_kv writes the last slot
   encdec    : self k, v (L, B, S_kv, Hkv, Dh) + cross xk, xv (L, B, T_enc,
               Hkv, Dh), precomputed from encoder features (``cross_cache``)
   rwkv      : state (L, B, H, dk, dv) float32 + shift carries tshift,
@@ -35,6 +40,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 
@@ -55,6 +61,12 @@ def cache_spec(cfg: ModelConfig, batch: int, kv_len: int, dtype=None):
     if cfg.family == "mla_moe":
         width = cfg.kv_lora_rank + cfg.qk_rope_dim
         return {"latent": ((cfg.n_layers, batch, kv_len, width), dt)}
+    if cfg.family == "hybrid_ssm":
+        _, h, p = SSM.ssm_dims(cfg)
+        attn = (n_invocations(cfg),) + shape[1:]
+        return {"ssm": ((cfg.n_layers, batch, h, cfg.ssm_state, p),
+                        torch.float32),
+                "k": (attn, dt), "v": (attn, dt)}
     if cfg.family == "encdec":
         cross = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
                  cfg.head_dim)
@@ -66,6 +78,12 @@ def cache_spec(cfg: ModelConfig, batch: int, kv_len: int, dtype=None):
         "tshift": ((cfg.n_layers, batch, cfg.d_model), dt),
         "cshift": ((cfg.n_layers, batch, cfg.d_model), dt),
     }
+
+
+def n_invocations(cfg: ModelConfig) -> int:
+    """The hybrid_ssm cache's count of shared-block entries: ``max(1,
+    n_layers // hybrid_attn_every)``."""
+    return max(1, cfg.n_layers // max(cfg.hybrid_attn_every, 1))
 
 
 def init_cache(cfg: ModelConfig, batch: int, kv_len: int, device="cuda"):
@@ -114,6 +132,23 @@ def forward_decode(params, token, cache, pos, cfg: ModelConfig):
             x = x + h
             x = x + L.mlp_apply(L.rms_norm(x, lp["ln2"]), lp["mlp"],
                                 cfg.act)
+    elif cfg.family == "hybrid_ssm":
+        every = max(cfg.hybrid_attn_every, 1)
+        shared = params["shared_attn"]
+        for i, lp in enumerate(params["layers"]):
+            h, st = SSM.ssm_decode(L.rms_norm(x, lp["ln1"]), lp["ssm"], cfg,
+                                   cache["ssm"][i])
+            x = x + h
+            cache["ssm"][i].copy_(st)
+            if i % every == every - 1:
+                # the block's caches are indexed by invocation
+                inv = min(i // every, n_invocations(cfg) - 1)
+                h, _, _ = A.decode_attn(L.rms_norm(x, shared["ln1"]),
+                                        shared["attn"], cfg, cache["k"][inv],
+                                        cache["v"][inv], pos)
+                x = x + h
+                x = x + L.mlp_apply(L.rms_norm(x, shared["ln2"]),
+                                    shared["mlp"], cfg.act)
     elif cfg.family != "rwkv":
         for i, lp in enumerate(params["layers"]):
             h, _, _ = A.decode_attn(L.rms_norm(x, lp["ln1"]), lp["attn"],

@@ -232,9 +232,10 @@ def make_serve_step(cfg: ModelConfig):
 def make_prefill_step(cfg: ModelConfig):
     """Prefill: the forward over a prompt, (params, tokens (B, S),
     extra_embeds=None) -> logits (B, S_total, V); the attention of the
-    dense, vlm, moe, mla_moe and encdec families runs the
-    ``flash_attention`` kernel, the rwkv family's time-mix
-    ``gla_time_mix``."""
+    dense, vlm, moe, mla_moe and encdec families and of hybrid_ssm's shared
+    block runs the ``flash_attention`` kernel, the rwkv family's time-mix
+    ``gla_time_mix`` (hybrid_ssm's Mamba2 layers are torch ops, as the
+    reference's are jnp)."""
 
     def prefill_step(params, tokens, extra_embeds=None):
         with torch.inference_mode():

@@ -1,29 +1,31 @@
 """Model assembly: init, ``forward_hidden`` and ``forward``.
 
-Port of ``src/repro/models/transformer.py`` for the ``dense`` and ``vlm``
-families (GQA attention with qk-norm / QKV bias / a sliding window / M-RoPE,
-gated or plain MLP; qwen3-0.6b, h2o-danube-1.8b, qwen2-vl-72b), the ``moe``
-family (GQA attention + shared and routed top-k experts, the router's aux
-loss, an optional ``first_k_dense`` prefix of dense layers;
-qwen2-moe-a2.7b), the ``mla_moe`` family (multi-head latent attention in
+Port of ``src/repro/models/transformer.py`` for all seven of its families:
+``dense`` and ``vlm`` (GQA attention with qk-norm / QKV bias / a sliding
+window / M-RoPE, gated or plain MLP; qwen3-0.6b, h2o-danube-1.8b,
+qwen2-vl-72b), ``moe`` (GQA attention + shared and routed top-k experts,
+the router's aux loss, an optional ``first_k_dense`` prefix of dense
+layers; qwen2-moe-a2.7b), ``mla_moe`` (multi-head latent attention in
 every layer, a dense-FFN prefix of ``first_k_dense`` layers, then shared
 and routed experts, and the multi-token-prediction head ``mtp``;
-deepseek-v3-671b), the ``encdec`` family (a bidirectional encoder over stub
-frame embeddings and a causal decoder with cross-attention; whisper-base)
-and the ``rwkv`` family (RWKV-6 time-mix + channel-mix; rwkv6-3b).  The
-``hybrid_ssm`` family raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+deepseek-v3-671b), ``hybrid_ssm`` (Mamba2 blocks, ``models/ssm.py``, with
+one weight-shared dense attention block ``shared_attn`` run after every
+``hybrid_attn_every``-th layer; zamba2-7b), ``encdec`` (a bidirectional
+encoder over stub frame embeddings and a causal decoder with
+cross-attention; whisper-base) and ``rwkv`` (RWKV-6 time-mix +
+channel-mix; rwkv6-3b).
 
 Parameters are a dict shaped like the reference's tree, except that the
 per-layer stack is a list: ``params["layers"][i]["attn"]["wq"]`` here is
 ``params["layers"]["attn"]["wq"][i]`` there (``models/convert.py`` moves a
 tree across; ``params["encoder"]`` and ``params["dense_layers"]``
-likewise; the ``mtp`` group is one plain nested dict on both sides).  The
-layers run as a Python loop (the reference's ``lax.scan``).  With
-``cfg.remat``, while autograd records, each layer body runs under
-``torch.utils.checkpoint``
-(non-reentrant): its activations are recomputed in the backward, as the
-reference's ``jax.checkpoint`` (``_maybe_remat``) has them.
+likewise; the ``mtp`` and ``shared_attn`` groups are one plain nested dict
+on both sides).  The layers run as a Python loop (the reference's
+``lax.scan``).  With ``cfg.remat``, while autograd records, each layer
+body runs under ``torch.utils.checkpoint`` (non-reentrant): its
+activations are recomputed in the backward, as the reference's
+``jax.checkpoint`` (``_maybe_remat``) has them; a hybrid_ssm layer's body
+is its SSM layer and, where it runs, the shared block.
 """
 
 from __future__ import annotations
@@ -36,14 +38,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as RWKV
+from repro_torch.models import ssm as SSM
 from repro_torch.models.config import ModelConfig
 
-#: The ROADMAP item that ports each model family not ported yet.
-UNPORTED_FAMILIES = {
-    "hybrid_ssm": "A10 (the hybrid_ssm family, zamba2)",
-}
-#: The families the port runs.
-FAMILIES = ("dense", "vlm", "moe", "mla_moe", "encdec", "rwkv")
+#: The ROADMAP item that ports each model family not ported yet: none.
+UNPORTED_FAMILIES: dict = {}
+#: The families the port runs: all seven of the reference's.
+FAMILIES = ("dense", "vlm", "moe", "mla_moe", "hybrid_ssm", "encdec",
+            "rwkv")
 
 
 def check_family(cfg: ModelConfig):
@@ -136,6 +138,15 @@ def _init_mtp(gen, cfg: ModelConfig):
             "norm": L.full(gen, (d,), 1.0, cfg.pdt)}
 
 
+def _init_ssm_layer(gen, cfg: ModelConfig):
+    # Mamba2 layers carry no separate MLP (Zamba2: the d_ff MLP lives in the
+    # weight-shared attention block only).
+    return {
+        "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
+        "ssm": SSM.init_ssm(gen, cfg),
+    }
+
+
 def _init_rwkv_layer(gen, cfg: ModelConfig):
     return {
         "ln1": L.full(gen, (cfg.d_model,), 1.0, cfg.pdt),
@@ -177,6 +188,11 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
                             for _ in range(cfg.n_layers - nk)]
         if cfg.mtp:
             params["mtp"] = _init_mtp(gen, cfg)
+        return params
+    if cfg.family == "hybrid_ssm":
+        params["layers"] = [_init_ssm_layer(gen, cfg)
+                            for _ in range(cfg.n_layers)]
+        params["shared_attn"] = _init_dense_layer(gen, cfg)
         return params
     layer_init = (_init_rwkv_layer if cfg.family == "rwkv"
                   else _init_dense_layer)
@@ -220,6 +236,22 @@ def _moe_layer(x, p, cfg: ModelConfig, positions):
     x = x + _layer_attn(L.rms_norm(x, p["ln1"]), p["attn"], cfg, positions)
     mo, aux = MOE.moe_block(L.rms_norm(x, p["ln2"]), p["moe"], cfg)
     return x + mo, aux
+
+
+def _ssm_layer(x, p, cfg: ModelConfig):
+    return x + SSM.ssm_block(L.rms_norm(x, p["ln1"]), p["ssm"], cfg)
+
+
+def _hybrid_layer(x, p, shared, idx: int, cfg: ModelConfig, positions):
+    """Layer ``idx`` of a hybrid_ssm stack: its SSM layer, then the
+    weight-shared dense block ``shared`` after every ``hybrid_attn_every``-th
+    layer (``idx % every == every - 1``; the block's attention takes the
+    config's window)."""
+    x = _ssm_layer(x, p, cfg)
+    every = max(cfg.hybrid_attn_every, 1)
+    if idx % every == every - 1:
+        x = _dense_layer(x, shared, cfg, positions)
+    return x
 
 
 def _rwkv_layer(x, p, cfg: ModelConfig):
@@ -295,6 +327,11 @@ def forward_hidden(params, tokens, cfg: ModelConfig, extra_embeds=None):
                              "(extra_embeds)")
         enc = encode(params, extra_embeds, cfg)
     positions = _positions(cfg, x.shape[1], x.device)
+    if cfg.family == "hybrid_ssm":
+        body = _maybe_remat(_hybrid_layer, cfg)
+        for idx, lp in enumerate(params["layers"]):
+            x = body(x, lp, params["shared_attn"], idx, cfg, positions)
+        return L.rms_norm(x, params["final_norm"]), aux
     body = _maybe_remat(_dense_layer, cfg)
     if cfg.family in ("moe", "mla_moe"):
         prefix = _maybe_remat(_prefix_layer, cfg)

@@ -61,6 +61,9 @@ FLASH_CASES = [
     ("mla_d160_dv128_full", 2, 65, 150, 160, 128, 1, False, None, None, 0),
     ("mla_d192_dv64", 3, 150, 150, 192, 64, 1, True, None, None, 0),
     ("mla_d192_dv64_full", 2, 100, 63, 192, 64, 1, False, None, None, 0),
+    # zamba2-7b's shared block: heads of 112 (padded to the 128-wide
+    # template), GQA 1, a sliding window
+    ("hybrid_d112_window_65", 4, 300, 300, 112, 112, 1, True, None, 65, 0),
 ]
 
 #: (name, BH, S, dk, dv, H, w_low, w_high, with_u, with_state)

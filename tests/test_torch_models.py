@@ -55,8 +55,9 @@ from repro_torch.models import steps as S
 from repro_torch.models import transformer as T
 
 ARCHS = ["qwen3-0.6b", "rwkv6-3b", "h2o-danube-1.8b", "whisper-base",
-         "qwen2-vl-72b", "qwen2-moe-a2.7b", "deepseek-v3-671b"]
+         "qwen2-vl-72b", "qwen2-moe-a2.7b", "deepseek-v3-671b", "zamba2-7b"]
 DTYPES = ["float32", "bfloat16"]
+#: The families the port once left unported, each with an arch of it.
 UNPORTED = {"zamba2-7b": "hybrid_ssm"}
 #: Tokens of the forward tests: past the reduced danube's window (32).
 SEQ = 40
@@ -590,10 +591,16 @@ def test_decode_matches_forward(arch):
     """The port's own step decode over a prompt against its forward, as
     the reference's TestDecodeConsistency holds the reference (danube 40
     tokens, past its window; whisper's cross entries from its encoder; the
-    vlm decodes text, so its forward has no patches)."""
+    vlm decodes text, so its forward has no patches).  zamba2 decodes its
+    window's 32 tokens: the reference's hybrid decode writes the shared
+    block's cache with no window, so past it decode and forward part on
+    both sides (ROADMAP §C; ``test_torch_ssm.py`` holds the port to the
+    reference there)."""
     cfg = PCFG.get_config(arch).reduced(n_layers=2)
     params = T.init_model(0, cfg, "cpu")
-    n = 40 if cfg.swa_window else 8
+    n = 8
+    if cfg.swa_window:
+        n = cfg.swa_window if cfg.family == "hybrid_ssm" else 40
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (1, n)))
     frames = _tx(_extra(cfg, 1)) if cfg.family == "encdec" else None
@@ -715,8 +722,27 @@ def test_serve_unported_flags_raise(flag, item, monkeypatch):
 
 
 @pytest.mark.parametrize("arch", list(UNPORTED))
-def test_unported_families_raise(arch):
+def test_unported_families_raise(arch, monkeypatch):
+    """No family is unported any more: ``UNPORTED_FAMILIES`` is empty and
+    ``FAMILIES`` holds the reference's seven, so the arch's family runs
+    (init, ``cache_spec``, a forward and a decode step on the CPU).  The
+    mechanism stays: a family entered in ``UNPORTED_FAMILIES`` raises
+    ``NotImplementedError`` naming its ROADMAP item from every entry
+    point, and an unknown family raises ``ValueError``."""
+    assert T.UNPORTED_FAMILIES == {}
+    assert sorted(T.FAMILIES) == sorted(
+        {c.family for c in JCFG.REGISTRY.values()}) and len(T.FAMILIES) == 7
     cfg = PCFG.get_config(arch).reduced()
+    assert cfg.family == UNPORTED[arch]
+    params = T.init_model(0, cfg, "cpu")
+    toks = torch.zeros((1, 2), dtype=torch.long)
+    logits, _ = T.forward(params, toks, cfg)
+    assert tuple(logits.shape) == (1, 2, cfg.vocab)
+    cache = D.init_cache(cfg, 1, 8, "cpu")
+    lg, _ = D.forward_decode(params, toks[:, :1], cache, 0, cfg)
+    assert bool(torch.isfinite(lg).all())
+    monkeypatch.setattr(T, "UNPORTED_FAMILIES",
+                        {cfg.family: "A10 (a test's entry)"})
     with pytest.raises(NotImplementedError, match="ROADMAP A10") as e:
         T.init_model(0, cfg, "cpu")
     assert UNPORTED[arch] in str(e.value)
@@ -725,6 +751,13 @@ def test_unported_families_raise(arch):
                                    cfg),
                  lambda: D.forward_decode({}, None, {}, 0, cfg)):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            call()
+    monkeypatch.undo()
+    bogus = dataclasses.replace(cfg, family="bogus")
+    for call in (lambda: T.check_family(bogus),
+                 lambda: T.init_model(0, bogus, "cpu"),
+                 lambda: D.cache_spec(bogus, 1, 8)):
+        with pytest.raises(ValueError, match="bogus"):
             call()
 
 

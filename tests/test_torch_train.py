@@ -64,7 +64,7 @@ ARCHS = ["qwen3-0.6b", "rwkv6-3b"]
 #: The families of the attention options (sliding window, encdec, vlm):
 #: their loss, gradients and a train step against the reference's.
 NEW_ARCHS = ["h2o-danube-1.8b", "whisper-base", "qwen2-vl-72b",
-             "qwen2-moe-a2.7b"]
+             "qwen2-moe-a2.7b", "zamba2-7b"]
 LR = 1e-3
 
 
@@ -474,6 +474,16 @@ def test_loss_and_grads_match_reference(arch, dtype):
             # side, which moves every leaf's gradient by up to a third of
             # its scale.  The float32 case holds the moe gradients.
             return
+        if pcfg.family == "hybrid_ssm":
+            # Not comparable leaf by leaf either: below the shared
+            # attention block (whose bf16 softmax the two frameworks round
+            # apart, attention.py) the SSM layer's bf16 gradients are
+            # noise-dominated on both sides: the reference's depart from
+            # its own float32 ones by up to 16% of a leaf's scale on this
+            # batch, the port's by up to 27%.  The float32 case holds the
+            # zamba2 gradients; test_torch_ssm.py holds ssm_block's bf16
+            # gradients to the float32 ones as the reference's are held.
+            return
         for k, w in want.items():
             assert np.abs(got[k] - w).max() <= 6e-2 * np.abs(w).max(), k
 
@@ -858,15 +868,28 @@ def test_train_main_sharded_resume(tmp_path, capsys, cpu_world):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b"])
-def test_unported_families_raise(arch, tmp_path):
+def test_unported_families_raise(arch, tmp_path, capsys, monkeypatch):
+    """The family the port once left unported trains now: train.main
+    takes one step of the reduced zamba2 (a finite loss, a checkpoint);
+    with its family entered in ``UNPORTED_FAMILIES`` again, train.main and
+    a train step raise ``NotImplementedError`` naming the ROADMAP item
+    before anything is written."""
+    train.main(["--arch", arch, "--reduced", "--steps", "1", "--batch",
+                "2", "--seq", "16", "--log-every", "1", "--device", "cpu",
+                "--ckpt-dir", str(tmp_path / "ran")])
+    losses = _losses(capsys.readouterr().out)
+    assert sorted(losses) == [0] and np.isfinite(losses[0])
+    assert os.listdir(tmp_path / "ran") == ["step_00000000"]
+    cfg = PCFG.get_config(arch).reduced()
+    monkeypatch.setattr(T, "UNPORTED_FAMILIES",
+                        {cfg.family: "A10 (a test's entry)"})
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         train.main(["--arch", arch, "--reduced", "--steps", "1",
-                    "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    cfg = PCFG.get_config(arch).reduced()
+                    "--device", "cpu", "--ckpt-dir", str(tmp_path / "no")])
     step = S.make_train_step(cfg, O.AdamWConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         step({}, {}, _pb(_batch(cfg.vocab)))
-    assert not os.listdir(tmp_path)
+    assert not os.path.exists(tmp_path / "no")
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
@@ -973,7 +996,8 @@ _NOT_YET: set = set()
 
 @pytest.mark.parametrize("name", [
     "repro.data.pipeline", "repro.optim.adamw", "repro.configs",
-    "repro.configs.shapes", "repro.models.steps", "repro.launch.train"])
+    "repro.configs.shapes", "repro.models.steps", "repro.launch.train",
+    "repro.models.ssm", "repro.models.decode", "repro.models.transformer"])
 def test_every_public_name_has_a_twin(name):
     """Every public name the reference module defines (not one it
     imports) has a twin in the port's."""
