@@ -168,7 +168,20 @@ All are compressed at the paper's setting, eb=1e-3 relative.  The paths:
     ``ShardedRestorer.decode_shards([0])``, then shard 1 overwritten by
     4 KiB and restored under "raise" and "zero_fill"; then
     ``make_dp_gradient_sync`` on a [28, 1024, 3072] gradient over the
-    one-rank NCCL group against the same call over gloo on the CPU.
+    one-rank NCCL group against the same call over gloo on the CPU;
+  * naive_ref, ``Codec(CodecConfig(method="naive_ref"))`` on the three
+    fields: no plan, the whole stream in one sequential scan through the
+    ``decode_chunked`` kernel (the stream as its one chunk, one thread),
+    bit-equal to the two-pass output and to the gap decode's codes;
+  * examples, the six ``examples/*_torch.py`` twins, each as its own
+    process on the card (``train_e2e_torch.py`` at 60 steps);
+  * dryrun, every cell of ``configs.cells()`` on both production layouts
+    (66) through ``launch/dryrun.run_cell``, traced on ``meta`` in a pool
+    of CPU processes started after the build and read at the end, then
+    one cross-check: qwen3-0.6b's prefill (B 4 x 1024) on a {data: 1,
+    model: 1} layout against the same step run on the card (parameter
+    bytes, ``flash_attention`` launches, ``FlopCounterMode``'s matrix
+    FLOPs, the peak within 2x), its roofline bound beside its time.
 
 The script
 
@@ -323,11 +336,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: Published HBM3 bandwidth of the H100 SXM (bytes/s), for the byte bounds.
-HBM_BYTES_PER_S = 3.35e12
-#: Published dense peaks of the H100 SXM by input type (FLOP/s): bf16 on
-#: the tensor cores, float32 without them.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 #: The TPU kernels these CUDA kernels replace (file:line of the def).
 REPLACES = {"count_subseq": "src/repro/kernels/huffman_decode.py:52",
             "decode_tiles": "src/repro/kernels/huffman_decode.py:105",
@@ -974,6 +982,7 @@ def run_selfsync(results) -> dict:
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.kernels.cost import HBM_BYTES_PER_S
     from repro_torch.core.huffman import pipeline as hp
     from repro_torch.kernels import huffman_decode as K
     from repro_torch.kernels import huffman_selfsync as S
@@ -1134,6 +1143,7 @@ def run_encode(seed: int, xs) -> dict:
     import torch
 
     from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.kernels.cost import HBM_BYTES_PER_S
     from repro_torch.core.huffman import pipeline as hp
     from repro_torch.core.sz import compressor, lorenzo
     from repro_torch.kernels import histogram as H
@@ -1354,6 +1364,7 @@ def run_chunked(results, rows, selfsync) -> dict:
     import torch
 
     from repro_torch.core.huffman import decode as hd
+    from repro_torch.kernels.cost import HBM_BYTES_PER_S
     from repro_torch.core.huffman import encode as he
     from repro_torch.core.huffman import pipeline as hp
     from repro_torch.kernels import huffman_chunked as HC
@@ -2414,47 +2425,6 @@ def run_sharded(seed: int) -> dict:
     return row
 
 
-def flash_pairs(sq: int, skv: int, causal: bool = True, window=None,
-                q_offset: int = 0) -> int:
-    """The (query, key) pairs ``flash_attention``'s mask keeps: for query
-    position ``p = q_offset + i``, keys ``max(0, p - window + 1)`` to
-    ``min(skv - 1, p)`` (causal) or ``skv - 1``."""
-    import numpy as np
-
-    p = q_offset + np.arange(sq, dtype=np.int64)
-    lo = np.zeros_like(p) if window is None else np.maximum(0, p - window + 1)
-    hi = np.minimum(skv - 1, p) if causal else np.full_like(p, skv - 1)
-    return int(np.maximum(0, hi - lo + 1).sum())
-
-
-def model_kernel_bound(kname: str, args, out, mask=None) -> tuple:
-    """``(bound_ms, bound_by)`` of one launch at these inputs: the larger of
-    the bytes (each input read once, each output written once) at the HBM
-    rate and the operations at the card's peak for their type.  flash:
-    2 (D + Dv) FLOP for each (query, key) pair the mask keeps (``mask``:
-    the causal, window and q_offset keywords; causal alone by default), at
-    the bf16 tensor-core peak; gla: 7 float32 FLOP a state element a step
-    (k v, u (k v) + S, r (...) summed, w S + k v), at the float32 peak."""
-    nbytes = sum(t.numel() * t.element_size() for t in args
-                 if t is not None)
-    nbytes += sum(t.numel() * t.element_size() for t in out)
-    if kname == "flash_attention":
-        q, k, v = args
-        bh, sq, d = q.shape
-        skv, dv = k.shape[1], v.shape[2]
-        mask = {"causal": True} if mask is None else mask
-        pairs = flash_pairs(sq, skv, **{key: mask[key] for key in (
-            "causal", "window", "q_offset") if key in mask})
-        ops_s = 2 * bh * pairs * (d + dv) / PEAK_FLOPS[_dtype_name(q)]
-    else:
-        r, _, v = args[:3]
-        bh, s, dk = r.shape
-        ops_s = 7 * bh * s * dk * v.shape[2] / PEAK_FLOPS[_dtype_name(r)]
-    bytes_s = nbytes / HBM_BYTES_PER_S
-    return max(bytes_s, ops_s) * 1e3, ("bytes" if bytes_s >= ops_s
-                                       else "operations")
-
-
 def _dtype_name(t) -> str:
     return str(t.dtype).replace("torch.", "")
 
@@ -2540,6 +2510,7 @@ def run_model(seed: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch import configs
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.kernels import rwkv_gla as GLA
     from repro_torch.launch import serve
@@ -2653,8 +2624,8 @@ def run_model(seed: int) -> dict:
                      outs[1])
             err = max(err, check_model_kernel(kname, dargs,
                                               f"{arch} decode step"))
-            dbound, _ = model_kernel_bound(kname, dargs,
-                                           GLA.gla_time_mix(*dargs))
+            dbound, _ = cost.model_kernel_bound(kname, dargs,
+                                                GLA.gla_time_mix(*dargs))
             n_dec = 200
             entry.update({
                 "decode_shape": [list(t.shape) for t in dargs],
@@ -2667,7 +2638,7 @@ def run_model(seed: int) -> dict:
                         "device_ms"] / n_dec,
                 "decode_bound_ms": dbound})
             del dargs
-        entry["bound_ms"], entry["bound_by"] = model_kernel_bound(
+        entry["bound_ms"], entry["bound_by"] = cost.model_kernel_bound(
             kname, kargs, outs)
         entry["max_abs_err"] = max(err, case_errs[kname])
         entry["shape"] = [list(t.shape) for t in kargs if t is not None]
@@ -2736,12 +2707,13 @@ def check_flash_at(q, k, v, kw, stage: str) -> dict:
     """``flash_attention`` at one of a path's shapes: the kernel against
     its plain version (``check_model_kernel``), its time, its bound from
     the pairs its mask keeps, and its inputs' shapes."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn as FA
 
     err = check_model_kernel("flash_attention", (q, k, v, kw), stage)
     out = FA.flash_attention(q, k, v, **kw)
-    bound, by = model_kernel_bound("flash_attention", (q, k, v), (out,),
-                                   kw)
+    bound, by = cost.model_kernel_bound("flash_attention", (q, k, v),
+                                        (out,), kw)
     return {"shape": [list(t.shape) for t in (q, k, v)],
             "dtype": _dtype_name(q), **kw,
             "max_abs_err": err, "bound_ms": bound, "bound_by": by,
@@ -2843,6 +2815,7 @@ def run_families(seed: int) -> dict:
     import torch.nn.functional as F
 
     from repro_torch import configs
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.models import attention as A
     from repro_torch.models import decode as D
@@ -2925,8 +2898,8 @@ def run_families(seed: int) -> dict:
                            "enable_gqa=True)")
     win["no_window_ms"] = cuda_ms(lambda: FA.flash_attention(
         q, k, v, causal=True, scale=1.0), 10)
-    win["pairs"] = flash_pairs(s, s, True, cfg.swa_window)
-    win["causal_pairs"] = flash_pairs(s, s, True)
+    win["pairs"] = cost.flash_pairs(s, s, True, cfg.swa_window)
+    win["causal_pairs"] = cost.flash_pairs(s, s, True)
     r["layer0_kernel"] = win
     del q, k, v, q4, k4, v4, mask, out, x
     r["decode_vs_forward_f32"] = decode_against_forward(
@@ -3660,6 +3633,7 @@ def run_hybrid(seed: int) -> dict:
 
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attn as FA
     from repro_torch.models import decode as D
     from repro_torch.models import ssm as SSM
@@ -3751,7 +3725,7 @@ def run_hybrid(seed: int) -> dict:
     first["library_call"] = ("F.scaled_dot_product_attention(q, k, v, "
                              "attn_mask=<bool (S, S) window mask>, "
                              "scale=1.0)")
-    first["pairs"] = flash_pairs(HYBRID_LEN, HYBRID_LEN, True,
+    first["pairs"] = cost.flash_pairs(HYBRID_LEN, HYBRID_LEN, True,
                                  cfg.swa_window)
     row["layer0_kernel"] = first
     del q, k, v, q4, k4, v4, mask, out
@@ -4317,6 +4291,356 @@ def run_train(seed: int) -> dict:
     return row
 
 
+def run_naive_ref(results) -> dict:
+    """``method="naive_ref"`` on the card: each field's payload decompressed
+    by ``Codec(CodecConfig(method="naive_ref"))``, the whole stream in one
+    sequential scan through the ``decode_chunked`` kernel (the stream as
+    its one chunk, one thread), counts zeroed just before and read just
+    after: one ``decode_chunked`` launch a field and no other kernel.  The
+    output is held against the two-pass output and its codes against the
+    gap decode's, bit for bit.  Prints and returns one ``naive_ref`` row."""
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.kernels import launches
+
+    t_phase = time.perf_counter()
+    codec = Codec(CodecConfig(method="naive_ref"))
+    launches.reset()
+    outs = {}
+    for name, (_, c, _, _, _) in results.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = codec.decompress(c)
+        torch.cuda.synchronize()
+        outs[name] = (y, time.perf_counter() - t0)
+    counts = launches.counts()
+    print(f"naive_ref path launches: {json.dumps(counts)}")
+    for kname, n in counts.items():
+        require(n == (len(results) if kname == "decode_chunked" else 0),
+                f"naive_ref path: kernel {kname} launched {n} times")
+    fields = {}
+    for name, (gcodec, c, y, _, _) in results.items():
+        y2, secs = outs[name]
+        require(y2.device.type == "cuda" and same(y2, y),
+                f"{name}: naive_ref output differs from the two-pass output")
+        codes = hp.decode_naive_ref(c.stream, c.codebook, c.n_symbols)
+        gap = gcodec.decode(c.stream, c.codebook, c.n_symbols)
+        require(same(codes, gap),
+                f"{name}: naive_ref codes differ from the gap decode's")
+        fields[name] = {"n_symbols": c.n_symbols, "decompress_s": secs,
+                        "decode_gbps": c.quant_code_bytes / secs / 1e9}
+    row = {"launches": counts["decode_chunked"], "fields": fields,
+           "bit_equal_to_gap": True,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"naive_ref {json.dumps(row)}")
+    return row
+
+
+#: The archs whose traces are longest (rwkv6-3b's per-step GLA backward,
+#: deepseek-v3's 8 micro-batches, zamba2-7b's chunk loop): queued first.
+DRYRUN_HEAVY = ("rwkv6-3b", "deepseek-v3-671b", "zamba2-7b")
+#: The dryrun phase's one-card cross-checks on a {data: 1, model: 1}
+#: layout: the model phase's qwen3-0.6b prefill (B x S), and a qwen3-0.6b
+#: decode step against a cache that outweighs the parameters (B x S).
+CROSS_ARCH, CROSS_BATCH, CROSS_LEN = "qwen3-0.6b", 4, 1024
+CROSS_DECODE_BATCH, CROSS_DECODE_LEN = 8, 8192
+#: The predicted peak must lie within this factor of the card's.
+CROSS_PEAK_FACTOR = 1.1
+
+
+def _dryrun_worker_init():
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+
+
+def _dryrun_cell(arch: str, shape: str, multi_pod: bool) -> dict:
+    """One dry-run cell (``launch/dryrun.run_cell``); a cell that raises is
+    written with ``ok: false`` and its error, as the reference's
+    orchestrator writes a failed one."""
+    import traceback
+
+    from repro_torch.launch import dryrun
+
+    try:
+        return dryrun.run_cell(arch, shape, multi_pod)
+    except Exception:
+        return {"arch": arch, "shape": shape, "multi_pod": multi_pod,
+                "ok": False, "error": traceback.format_exc()[-2000:]}
+
+
+def dryrun_cells() -> tuple:
+    """Every cell of ``configs.cells()`` on both meshes (66), traced in a
+    pool of ``os.cpu_count()`` spawned processes (train cells and the heavy
+    archs first) while no card phase runs.  Returns ``(records, workers,
+    wall seconds)``."""
+    import multiprocessing
+
+    from repro_torch import configs
+
+    kinds = {"train": 0, "prefill": 1, "decode": 2}
+    cells = sorted(((a, s, mp) for a, s, _ in configs.cells()
+                    for mp in (False, True)),
+                   key=lambda c: (kinds[configs.SHAPES[c[1]].kind],
+                                  c[0] not in DRYRUN_HEAVY))
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_dryrun_worker_init) as pool:
+        records = pool.starmap(_dryrun_cell, cells, chunksize=1)
+    return records, workers, time.perf_counter() - t0
+
+
+def _card_peak(step, args, seed_bytes: int) -> tuple:
+    """``(allocator peak, traced peak)`` of one ``step(*args)`` on the card
+    above the ``seed_bytes`` allocated before its inputs were made: the
+    allocator's ``max_memory_allocated``, and the peak of the storages the
+    step makes as ``hlo_cost.StepCost`` follows them in this real run (the
+    inputs held, as in the dry run), which splits a gap between the
+    prediction and the allocator into the trace's ops and the allocator."""
+    import torch
+
+    from repro_torch.launch import hlo_cost
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(*args)
+    torch.cuda.synchronize()
+    alloc = torch.cuda.max_memory_allocated() - seed_bytes
+    traced = hlo_cost.step_costs(step, *args)["peak_bytes"]
+    torch.cuda.synchronize()
+    return alloc, traced
+
+
+def dryrun_cross_check(seed: int, kind: str) -> dict:
+    """The dry run's figures for one qwen3-0.6b step on a ``{data: 1,
+    model: 1}`` layout, held against the same step run for real on the
+    card.  ``kind`` "prefill": B ``CROSS_BATCH`` x ``CROSS_LEN``, the
+    ``flash_attention`` launches ``kernels/launches`` counts equal to the
+    predicted.  "decode": one token at B ``CROSS_DECODE_BATCH`` against a
+    cache of ``CROSS_DECODE_LEN`` (its bytes equal to the predicted, no
+    kernel launched).  Both: parameter bytes exactly, the matrix FLOPs
+    ``FlopCounterMode`` counts (the kernel is opaque to it, as to the
+    trace, which counts it apart), and the predicted peak (parameters,
+    cache, inputs and the step's own) within ``CROSS_PEAK_FACTOR`` of the
+    allocator's, beside the peak the trace follows on the card; the
+    roofline bound beside the measured step time."""
+    import gc
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.kernels import launches
+    from repro_torch.launch import dryrun
+    from repro_torch.models import decode as D
+    from repro_torch.models import steps as St
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(CROSS_ARCH)
+    if kind == "prefill":
+        b, s = CROSS_BATCH, CROSS_LEN
+    else:
+        b, s = CROSS_DECODE_BATCH, CROSS_DECODE_LEN
+    pred = dryrun.trace_cell(cfg, ShapeCell(f"smoke_{kind}", kind, s, b),
+                             {"data": 1, "model": 1})
+    mem = pred["mem"]
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    seed_bytes = torch.cuda.memory_allocated()
+    params = T.init_model(seed, cfg, "cuda")
+    gen = T.generator(seed + 11, "cuda")
+    if kind == "prefill":
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                               device="cuda", dtype=torch.int32)
+        step = St.make_prefill_step(cfg)
+        args = (params, tokens)
+        cache_bytes = 0
+    else:
+        token = torch.randint(0, cfg.vocab, (b, 1), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        cache = D.init_cache(cfg, b, s, "cuda")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in cache.values())
+        require(cache_bytes == mem["cache_bytes"],
+                f"dryrun {kind} cross-check: cache bytes {cache_bytes} on "
+                f"the card, {mem['cache_bytes']} predicted")
+        step = St.make_serve_step(cfg)
+        args = (params, token, cache, s - 1)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    require(param_bytes == mem["param_bytes"],
+            f"dryrun {kind} cross-check: parameter bytes {param_bytes} on "
+            f"the card, {mem['param_bytes']} predicted")
+    step(*args)                     # warm-up: cuBLAS handles, the kernel
+    torch.cuda.synchronize()
+    launches.reset()
+    step(*args)
+    torch.cuda.synchronize()
+    got = {k: n for k, n in launches.counts().items() if n}
+    want = {k: r["launches"] for k, r in pred["cost"]["kernels"].items()}
+    require(got == want, f"dryrun {kind} cross-check: launches {got} on "
+            f"the card, {want} predicted")
+    with FlopCounterMode(display=False) as counter:
+        step(*args)
+    real_flops = counter.get_total_flops()
+    pred_flops = pred["cost"]["matrix_flops_per_device"]
+    require(real_flops == pred_flops,
+            f"dryrun {kind} cross-check: {real_flops} matrix FLOPs counted "
+            f"on the card, {pred_flops} predicted")
+    real_peak, traced_step = _card_peak(step, args, seed_bytes)
+    pred_peak = (mem["param_bytes"] + mem.get("cache_bytes", 0)
+                 + mem["input_bytes"] + mem["step_peak_bytes"])
+    ratio = pred_peak / real_peak
+    require(1 / CROSS_PEAK_FACTOR <= ratio <= CROSS_PEAK_FACTOR,
+            f"dryrun {kind} cross-check: predicted peak {pred_peak} B is "
+            f"{ratio:.3f}x the card's {real_peak} B")
+    ms = cuda_ms(lambda: step(*args), 3)
+    bound_ms = pred["roofline"]["bound_step_s"] * 1e3
+    row = {"arch": CROSS_ARCH, "kind": kind, "batch": b, "seq": s,
+           "layout": {"data": 1, "model": 1},
+           "param_bytes": param_bytes, "cache_bytes": cache_bytes,
+           "launches": got, "matrix_flops": real_flops,
+           "kernel_flops": sum(r["flops"] for r in
+                               pred["cost"]["kernels"].values()),
+           "peak_bytes": real_peak, "predicted_peak_bytes": pred_peak,
+           "peak_ratio": ratio,
+           "predicted_step_peak_bytes": mem["step_peak_bytes"],
+           "card_traced_step_peak_bytes": traced_step,
+           "card_step_peak_bytes": real_peak - param_bytes - cache_bytes,
+           "step_ms": ms, "bound_ms": bound_ms,
+           "bound_dominant": pred["roofline"]["dominant"],
+           "predicted_bytes": pred["cost"]["bytes_per_device"],
+           "t_trace_s": pred["t_trace_s"]}
+    del params, args, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = 2 ** 30
+    print(f"dryrun {kind} cross-check: parameter bytes {param_bytes}"
+          f"{f', cache bytes {cache_bytes}' if cache_bytes else ''} = "
+          f"predicted, launches {got} = predicted, {real_flops} matrix "
+          f"FLOPs = predicted; peak {real_peak / gib:.3f} GiB on the card, "
+          f"{pred_peak / gib:.3f} predicted (ratio {ratio:.3f}); the step's "
+          f"own {mem['step_peak_bytes'] / gib:.3f} GiB predicted, "
+          f"{traced_step / gib:.3f} traced on the card, "
+          f"{row['card_step_peak_bytes'] / gib:.3f} by the allocator; "
+          f"{kind} {ms:.3f} ms against a roofline bound of {bound_ms:.3f} ms "
+          f"({row['bound_dominant']})")
+    return row
+
+
+def run_dryrun(seed: int) -> dict:
+    """The dryrun phase, after every other card phase: the 66 cells'
+    records (:func:`dryrun_cells`; each must be ``ok``; a line a cell: the
+    per-device peak, FLOPs, the dominant term and ``bound_step_s``),
+    written as JSON lines to ``chiprun_out/dryrun_results.jsonl``, then the
+    one-card cross-checks (:func:`dryrun_cross_check`, prefill and
+    decode).  Prints and returns one ``dryrun`` row."""
+    records, workers, cells_s = dryrun_cells()
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "dryrun_results.jsonl"), "w") as f:
+        for rec in records:
+            f.write(json.dumps(rec) + "\n")
+    for rec in records:
+        require(rec.get("ok"), f"dryrun cell {rec['arch']} x {rec['shape']} "
+                f"multi_pod={rec['multi_pod']} failed: {rec.get('error')}")
+        print(f"dryrun {rec['arch']} x {rec['shape']} mesh={rec['mesh']}: "
+              f"peak {rec['mem']['peak_per_device_gib']} GiB/device, "
+              f"{rec['cost']['flops_per_device']:.3e} flops/device, "
+              f"coll {rec['collectives']['total'] / 2**20:.1f} MiB/device, "
+              f"dominant={rec['roofline']['dominant']}, bound_step_s="
+              f"{rec['roofline']['bound_step_s']:.4g} "
+              f"(trace {rec['t_trace_s']} s)")
+    require(len(records) == 66, f"dryrun: {len(records)} cells, not 66")
+    t1 = time.perf_counter()
+    cross = {kind: dryrun_cross_check(seed, kind)
+             for kind in ("prefill", "decode")}
+    row = {"cells": len(records), "ok": sum(bool(r.get("ok"))
+                                            for r in records),
+           "workers": workers, "cells_wall_s": cells_s,
+           "trace_s_sum": sum(r["t_trace_s"] for r in records),
+           "trace_s_max": max(r["t_trace_s"] for r in records),
+           "cross_check": cross, "cross_check_s": time.perf_counter() - t1}
+    print(f"dryrun {json.dumps(row)}")
+    return row
+
+
+#: The examples phase: each twin, its arguments on the card, and the lines
+#: (substrings) its output must hold.
+EXAMPLES = (
+    ("quickstart_torch.py", (), (
+        "decompress[gap       ]", "decompress[selfsync  ]",
+        "decompress[naive_ref ]", "decompress[cuda-tuned]",
+        "decompress_batch[4 shards]", "step passthrough 3")),
+    ("kv_offload_paging_torch.py", (), ("paged 2 blocks out / 2 in",)),
+    ("long_context_serve_torch.py", (), ("generated token matrix",)),
+    ("train_e2e_torch.py", ("--steps", "60"), (": OK",)),
+    ("compressed_checkpoint_torch.py", (), (
+        "restore within error bound: OK", "continued training")),
+    ("grad_compression_dp_torch.py", (), (
+        "exact_f32", "compressed  :", "encode dispatches, 0 fallbacks")),
+)
+#: Lines an example's output must hold as many times as given.
+EXAMPLE_OK_LINES = {"quickstart_torch.py": 3}
+#: Seconds an example may take.
+EXAMPLE_TIMEOUT = 300
+
+
+def run_examples() -> dict:
+    """The examples phase: the six ``examples/*_torch.py`` twins, each as
+    its own process on the card (``grad_compression_dp_torch.py`` starts 8
+    gloo ranks of its own), through a launcher that prints the process's
+    kernel launch counts after the twin's ``main`` (its ranks' counts are
+    their own).  Each must exit 0 and print its lines; the lines ending in
+    OK are counted.  Prints and returns one ``examples`` row."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args, must in EXAMPLES:
+            path = os.path.join(ROOT, "examples", name)
+            argv = [path, *args]
+            if name == "train_e2e_torch.py":
+                argv += ["--ckpt-dir", os.path.join(tmp, "train_e2e")]
+            code = ("import json, runpy, sys; sys.argv = " + repr(argv)
+                    + "; runpy.run_path(sys.argv[0], run_name='__main__'); "
+                    "from repro_torch.kernels import launches; "
+                    "print('launches ' + json.dumps(launches.counts()))")
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=EXAMPLE_TIMEOUT)
+            secs = time.perf_counter() - t0
+            out = p.stdout
+            require(p.returncode == 0,
+                    f"example {name} exited {p.returncode}: "
+                    f"{p.stderr[-2000:]}")
+            for line in must:
+                require(line in out, f"example {name} printed no "
+                        f"{line!r}:\n{out[-2000:]}")
+            ok_lines = [ln for ln in out.splitlines()
+                        if ln.rstrip().endswith("OK")]
+            require(len(ok_lines) >= EXAMPLE_OK_LINES.get(name, 0),
+                    f"example {name}: {len(ok_lines)} OK lines")
+            counts = json.loads(out.rsplit("launches ", 1)[1])
+            rows[name] = {"s": secs, "ok_lines": len(ok_lines),
+                          "launches": {k: n for k, n in counts.items()
+                                       if n}}
+            print(f"example {name}: exit 0 in {secs:.1f} s; "
+                  + " | ".join(ln.strip() for ln in out.splitlines()
+                               if not ln.startswith("launches ")))
+    row = {"examples": rows, "phase_s": time.perf_counter() - t_phase}
+    print(f"examples {json.dumps(row)}")
+    return row
+
+
 def profile_breakdown(fn, top: int = 6) -> dict:
     """One call of ``fn`` after a warm-up call, under ``torch.profiler``
     (``profile_once``)."""
@@ -4665,10 +4989,7 @@ def main() -> int:
                              text=True, check=True).stdout.strip())
         return 0
 
-    from repro_torch.core.codec import Codec, CodecConfig
-    from repro_torch.core.sz import compressor, lorenzo
-    from repro_torch.kernels import _build, launches, ops
-    from repro_torch.kernels import huffman_decode as K
+    from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
     secs = _build.build()
@@ -4678,6 +4999,18 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    return smoke(args, t_start)
+
+
+def smoke(args, t_start: float) -> int:
+    """Every phase after the build (``main``)."""
+    import torch
+
+    from repro_torch.core.codec import Codec, CodecConfig
+    from repro_torch.kernels.cost import HBM_BYTES_PER_S
+    from repro_torch.core.sz import compressor, lorenzo
+    from repro_torch.kernels import _build, launches, ops
+    from repro_torch.kernels import huffman_decode as K
 
     t0 = time.perf_counter()
     fields = make_fields(args.seed)
@@ -4942,6 +5275,7 @@ def main() -> int:
     long_codes = long_code_kernels(*results["isabel3d"][:2])
     print(f"long codes {json.dumps(long_codes)}")
 
+    naive = run_naive_ref(results)
     selfsync = run_selfsync(results)
     batch = run_batch(args.seed, results, xs)
     encode = run_encode(args.seed, xs)
@@ -4960,6 +5294,9 @@ def main() -> int:
                  "faults": run_faults(), "serve": run_serve_kv(args.seed),
                  "loadgen": run_loadgen(args.seed),
                  "sharded": run_sharded(args.seed)}
+    examples = run_examples()
+    # last, so that its CPU traces share the host with no card phase
+    dryrun = run_dryrun(args.seed)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -5119,7 +5456,10 @@ def main() -> int:
         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": "bytes", "library_ms": None, "field": "hacc1d",
-        "chunk_symbols": CHUNK_SIZES[0], "fields_ms": k["fields_ms"]})
+        "chunk_symbols": CHUNK_SIZES[0], "fields_ms": k["fields_ms"],
+        "naive_ref_launches": naive["launches"],
+        "naive_ref_decompress_s": {f: r["decompress_s"]
+                                   for f, r in naive["fields"].items()}})
     require(len(kernels) == len(REPLACES) + len(YARDSTICKS)
             == len(_build.SIGNATURES),
             f"{len(kernels)} kernel rows for {len(REPLACES)} TPU kernels, "
@@ -5128,6 +5468,7 @@ def main() -> int:
     print(f"table V {json.dumps(table_v(chunked))}")
     print(f"store and pager {json.dumps(store_summary(store, pager))}")
     print(f"consumers {json.dumps(consumer_summary(consumers))}")
+    print(f"new phases {json.dumps({'naive_ref_s': naive['phase_s'], 'examples_s': examples['phase_s'], 'dryrun_cells_wall_s': dryrun['cells_wall_s'], 'dryrun_cross_check_s': dryrun['cross_check_s']})}")
     print(json.dumps({"kernels": kernels}))
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,10 @@ from repro_torch.kernels.huffman_selfsync import selfsync_smem
 from repro_torch.runtime import fault_tolerance as ft
 
 VALID_MODES = ("rel", "abs")
-#: The reference's methods less its host oracle "naive_ref", which is no
-#: decode path of the port.
-VALID_METHODS = hp.VALID_PLAN_METHODS
+#: The reference's decode methods: "gap", "selfsync" and the sequential
+#: oracle "naive_ref" (on the card, the ``decode_chunked`` kernel with the
+#: stream as its one chunk; ``pipeline.decode_naive_ref``).
+VALID_METHODS = hp.VALID_METHODS
 VALID_STRATEGIES = hp.VALID_STRATEGIES
 
 DEFAULT_EB = compressor.DEFAULT_EB
@@ -77,7 +78,12 @@ class CodecConfig:
       method           "gap" (sync points from the stored gap array) |
                        "selfsync" (found by self-synchronization: on
                        "cuda" the ``selfsync_intra`` kernel and the
-                       chaining of sequence heads)
+                       chaining of sequence heads) | "naive_ref" (the
+                       sequential oracle: no plan, the whole stream in
+                       one scan, on the card the ``decode_chunked``
+                       kernel with the stream as its one chunk; not
+                       fused, a ``decompress_batch`` is one
+                       ``decompress`` a tensor)
       backend          "cuda" (the CUDA kernels) | "ref" (plain torch)
       strategy         "tile" (fixed tiles, paper Alg. 1) | "tuned"
                        (per-CR-class tiles, paper Alg. 2) | "padded" (the
@@ -113,8 +119,6 @@ class CodecConfig:
 
     The reference's encode backends "jnp", "pallas" and "pallas-compiled"
     are no names of the port: "cuda" stands for them.
-    The reference's sequential oracle ``method="naive_ref"`` is no decode
-    path of the port.
     """
 
     eb: float = DEFAULT_EB
@@ -306,7 +310,7 @@ class Codec:
         """
         c = self.config
         compressed = self._local(compressed)
-        if plan is None:
+        if plan is None and c.method != "naive_ref":
             plan = self.plan_for(compressed)
         return compressor.decompress(compressed, method=c.method,
                                      tile_syms=c.tile_syms,
@@ -323,6 +327,8 @@ class Codec:
         if not cs:
             return []
         c = self.config
+        if c.method == "naive_ref":
+            return [self.decompress(x) for x in cs]
         if plans is None:
             plans = [self.plan_for(x) for x in cs]
         return compressor.decompress_batch(cs, method=c.method,

@@ -71,10 +71,12 @@ DEFAULT_TILE_SYMS = 4096
 
 #: Decode-write strategies accepted by ``decode`` (and ``CodecConfig``).
 VALID_STRATEGIES = ("tuned", "tile", "padded")
-#: Sync-discovery methods of the reference.  The reference's sequential
-#: oracle method "naive_ref" is no decode path of the port:
-#: ``decode.decode_sequential`` stays a CPU test oracle.
+#: Sync-discovery methods of the reference: the methods that build a plan.
 VALID_PLAN_METHODS = ("gap", "selfsync")
+#: Every decode method of the reference: the plan methods and the
+#: sequential oracle "naive_ref", which builds no plan
+#: (:func:`decode_naive_ref`).
+VALID_METHODS = VALID_PLAN_METHODS + ("naive_ref",)
 
 #: Options of the reference whose code waits for a later slice, and the
 #: ROADMAP.md item that ports each (none left).
@@ -632,9 +634,34 @@ def check_method(method: str):
     """Raise for a method the port lacks (``NotImplementedError``) or that
     the reference does not know (``ValueError``)."""
     check_ported("method", method)
-    if method not in VALID_PLAN_METHODS:
+    if method not in VALID_METHODS:
         raise ValueError(f"unknown method {method!r}; valid methods: "
-                         f"{list(VALID_PLAN_METHODS)}")
+                         f"{list(VALID_METHODS)}")
+
+
+def decode_naive_ref(stream: EncodedStream, codebook,
+                     n_out: int) -> torch.Tensor:
+    """``method="naive_ref"``: the whole stream decoded by one sequential
+    scan, with no plan (the reference's ``decode.decode_sequential``, a
+    ``lax.scan`` of peek, LUT lookup and advance).  Returns uint16[n_out]
+    on the stream's device.
+
+    On the card it runs the ``decode_chunked`` kernel (one thread a chunk)
+    with the stream as its only chunk: ``units`` as a ``[1, n_units]``
+    row, the stream's valid bits as the row's bits, ``n_out`` symbols.
+    The kernel peeks as ``decode_sequential`` does (the unit at ``pos >>
+    5`` clipped to the row, the next one read as 0 past it) and stops at
+    the row's bits; a stream's ``n_out`` codewords end exactly at its
+    ``total_bits``, so it gives the same ``n_out`` symbols.  On the CPU,
+    ``decode_sequential`` itself, the kernel's plain version here.
+    """
+    luts = _as_luts(codebook, stream.device)
+    if stream.device.type == "cpu":
+        return hd.decode_sequential(stream.units, luts.dec_sym, luts.dec_len,
+                                    n_out, luts.max_len)
+    return hd.decode_chunked(
+        stream.units.reshape(1, -1), [stream.total_bits], [n_out],
+        luts.dec_sym, luts.dec_len, luts.max_len, n_out).reshape(-1)
 
 
 def build_plan(stream: EncodedStream, codebook, method: str = "gap",
@@ -655,6 +682,9 @@ def build_plan(stream: EncodedStream, codebook, method: str = "gap",
     """
     be = get_backend(backend)
     check_method(method)
+    if method not in VALID_PLAN_METHODS:
+        raise ValueError(f"unknown method {method!r}; valid methods: "
+                         f"{list(VALID_PLAN_METHODS)}")
     if method == "selfsync" and be.sync_fn is None:
         raise ValueError(f"backend {be.name!r} registers no sync_fn: it "
                          f"serves method 'gap' only")

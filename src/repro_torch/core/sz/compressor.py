@@ -332,7 +332,9 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
 def _guard_symbol_count(c: Compressed, plan, backend) -> None:
     """Decoder guard: a plan must decode exactly ``c.n_symbols`` symbols;
     a mismatch (corrupt stream metadata) counts a guard trip and raises
-    ``DecodeGuardError``."""
+    ``DecodeGuardError``.  No plan (``method="naive_ref"``): no guard."""
+    if plan is None:
+        return
     total = int(np.asarray(plan.seq_counts).sum())
     if total != c.n_symbols:
         hp.get_backend(backend).bump("decode_guard_trips")
@@ -347,12 +349,16 @@ def decompress(c: Compressed, method: str = "gap",
                backend: "str | hp.DecodeBackend" = "cuda",
                strategy: str = "tile", t_high: int = hp.T_HIGH_DEFAULT,
                plan=None, fused: bool = False) -> torch.Tensor:
-    """Decompress on the device ``c`` lives on; ``method`` is "gap" or
-    "selfsync" (``pipeline.VALID_PLAN_METHODS``).
+    """Decompress on the device ``c`` lives on; ``method`` in {"gap",
+    "selfsync", "naive_ref"} (``pipeline.VALID_METHODS``).
 
     Decoding goes through ``pipeline.decode`` on ``backend`` with
     ``strategy`` ("tile", "tuned" or "padded"); ``plan`` may carry a
     prebuilt ``DecoderPlan``, else one is built with ``method``.
+    "naive_ref", the reference's sequential oracle, builds no plan and
+    decodes the whole stream in one sequential scan
+    (``pipeline.decode_naive_ref``: on the card the ``decode_chunked``
+    kernel with the stream as its one chunk).
     ``fused=True`` runs phase 4, dequantization and the inverse Lorenzo
     without a two-pass dequantize: one CUDA kernel on "cuda" for "tile",
     and the padded decode followed by one epilogue kernel for "padded"; the
@@ -363,7 +369,7 @@ def decompress(c: Compressed, method: str = "gap",
     """
     book = c.codebook
     hp.check_method(method)
-    if plan is None:
+    if plan is None and method in hp.VALID_PLAN_METHODS:
         plan = hp.build_plan(c.stream, book, method=method, backend=backend,
                              t_high=t_high)
     _guard_symbol_count(c, plan, backend)
@@ -379,9 +385,12 @@ def decompress(c: Compressed, method: str = "gap",
             return out.reshape(c.shape)
         hp.get_backend(backend).bump("fused_fallbacks")
 
-    codes = hp.decode(c.stream, book, c.n_symbols, plan=plan, method=method,
-                      backend=backend, strategy=strategy, tile_syms=tile_syms,
-                      t_high=t_high)
+    if method == "naive_ref":
+        codes = hp.decode_naive_ref(c.stream, book, c.n_symbols)
+    else:
+        codes = hp.decode(c.stream, book, c.n_symbols, plan=plan,
+                          method=method, backend=backend, strategy=strategy,
+                          tile_syms=tile_syms, t_high=t_high)
     return _dequantize(c, codes)
 
 

@@ -37,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -84,11 +85,8 @@ int launch(const void* units, long long n_units, const void* start_abs,
            int lut_size, int max_len, int blocks, int threads, int smem,
            void* counts, void* landing, void* stream) {
   auto kernel = count_subseq_kernel<kGlobalLut>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_units,
       static_cast<const int*>(start_abs), static_cast<const int*>(end_abs), n,

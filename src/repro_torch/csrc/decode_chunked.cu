@@ -46,6 +46,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -118,11 +119,8 @@ int launch(const void* units, int n_chunks, int max_units,
            int lut, int max_len, int chunk_symbols, int blocks, int threads,
            int smem, void* out, void* stream) {
   auto kernel = decode_chunked_kernel<kGlobalLut>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_chunks, max_units,
       static_cast<const long long*>(chunk_bits),

@@ -38,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -98,12 +99,8 @@ int launch(const void* units, long long n_units, const void* start_abs,
   const int threads = 256;
   const size_t smem = kGlobalLut ? 0 : 3 * static_cast<size_t>(lut_size);
   auto kernel = decode_padded_kernel<kGlobalLut>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   const int blocks = (n + threads - 1) / threads;
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_units,

@@ -52,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -183,11 +184,8 @@ int launch(const void* units, long long n_units, const void* start_abs,
            int n_tiles, int blocks, int threads, int smem, void* out,
            void* stream) {
   auto kernel = decode_tiles_kernel<kGlobalLut>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_units,
       static_cast<const int*>(start_abs), static_cast<const int*>(end_abs),

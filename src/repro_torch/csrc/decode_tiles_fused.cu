@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "fused.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -172,11 +173,8 @@ int launch(const void* units, long long n_units, const void* start_abs,
            int radius, float two_eb, void* ticket, void* status, void* out,
            void* stream) {
   auto kernel = decode_tiles_fused_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, kFusedMaxThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_units,

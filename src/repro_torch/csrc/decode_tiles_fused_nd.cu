@@ -36,6 +36,7 @@
 #include <cuda_runtime.h>
 
 #include "fused.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -84,11 +85,8 @@ int launch(const void* units, long long n_units, const void* start_abs,
            int smem, void* ticket, void* done, void* flags, void* vals,
            void* out, void* stream) {
   auto kernel = decode_tiles_fused_nd_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<grid.units_p * grid.units_k, threads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(units), n_units,

@@ -38,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "fused.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -63,11 +64,8 @@ int launch(const void* codes, int tile, int n_tiles, int unit_tiles,
            const void* oval, const void* obounds, int radius, float two_eb,
            void* ticket, void* status, void* out, void* stream) {
   auto kernel = dequant_reconstruct_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, kEpilogueThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(codes), tile, n_tiles, unit_tiles, window,

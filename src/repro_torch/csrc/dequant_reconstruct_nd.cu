@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "fused.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -61,11 +62,8 @@ int launch(const void* codes, const NdGrid& grid, long long n_out,
            int radius, float two_eb, int threads, int smem, void* ticket,
            void* done, void* flags, void* vals, void* out, void* stream) {
   auto kernel = dequant_reconstruct_nd_kernel<T>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<grid.units_p * grid.units_k, threads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(codes), grid, n_out,

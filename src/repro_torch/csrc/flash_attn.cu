@@ -85,6 +85,8 @@
 
 #include <cstdint>
 
+#include "smem.cuh"
+
 namespace repro_torch {
 
 constexpr int kMaxD = 192;       // largest D (query and key head)
@@ -648,12 +650,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
   const long long n_blocks = static_cast<long long>(n_qt) * bh;
   if (n_blocks >= (1ll << 31)) return -1;
   const size_t smem = flash_smem(d, dv);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_attn_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(flash_attn_f32_kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   flash_attn_f32_kernel<<<static_cast<unsigned>(n_blocks), kThreads, smem,
                           stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

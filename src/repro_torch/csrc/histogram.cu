@@ -39,6 +39,8 @@
 
 #include <cstdint>
 
+#include "smem.cuh"
+
 namespace repro_torch {
 
 constexpr int kHistMaxThreads = 1024;
@@ -130,11 +132,8 @@ int launch_variant(const void* x, long long n, int head, long long vectors,
                    cudaStream_t stream) {
   auto kernel = histogram_kernel<T, kShared>;
   const int smem = kShared ? 4 * nbins : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, threads, smem, stream>>>(static_cast<const T*>(x), n,
                                             head, vectors, nbins, single,
                                             static_cast<int*>(out));

@@ -47,6 +47,8 @@
 
 #include <cstdint>
 
+#include "smem.cuh"
+
 namespace repro_torch {
 
 constexpr int kRun = 8;  // symbols a thread takes at once: 16 B of uint16
@@ -215,12 +217,9 @@ int launch(const uint16_t* symbols, const int* starts, long long n,
            const uint32_t* enc_code, const uint8_t* enc_len, int n_codes,
            long long n_units, int tile_units, unsigned blocks, int threads,
            size_t smem, uint32_t* units, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pack_tiles_kernel<kSmemTables, kVec>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed =
+      allow_dynamic_smem(pack_tiles_kernel<kSmemTables, kVec>, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   pack_tiles_kernel<kSmemTables, kVec><<<blocks, threads, smem, stream>>>(
       symbols, starts, n, enc_code, enc_len, n_codes, n_units, tile_units,
       units);

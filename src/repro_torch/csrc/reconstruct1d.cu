@@ -24,6 +24,7 @@
 #include <cuda_runtime.h>
 
 #include "fused.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -40,11 +41,8 @@ int launch(const void* resid, long long n, int unit_len, int window,
            int blocks, int smem, float two_eb, void* ticket, void* status,
            void* out, void* stream) {
   auto kernel = reconstruct1d_kernel;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t allowed = allow_dynamic_smem(kernel, smem);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
   kernel<<<blocks, kEpilogueThreads, smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(resid), n, unit_len, window, two_eb,

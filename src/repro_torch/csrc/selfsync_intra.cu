@@ -50,6 +50,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "smem.cuh"
 
 namespace repro_torch {
 
@@ -196,14 +197,6 @@ __global__ void selfsync_intra_block_kernel(
   if (t == 0) rounds_out[seq] = rounds;
 }
 
-// Opt in to more than 48 KB of dynamic shared memory where needed.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
 // Check the geometry against sps and launch the kernel it names.
 template <bool kGlobalLut>
 int launch(const uint32_t* u, long long n_units, const int* h, int n_seq,
@@ -221,7 +214,7 @@ int launch(const uint32_t* u, long long n_units, const int* h, int n_seq,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaError_t e =
-        allow_smem(selfsync_intra_warp_kernel<kGlobalLut>, smem);
+        allow_dynamic_smem(selfsync_intra_warp_kernel<kGlobalLut>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int blocks = (n_seq + seqs_per_block - 1) / seqs_per_block;
     selfsync_intra_warp_kernel<kGlobalLut><<<blocks, threads, smem, s>>>(
@@ -232,7 +225,7 @@ int launch(const uint32_t* u, long long n_units, const int* h, int n_seq,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const cudaError_t e =
-        allow_smem(selfsync_intra_block_kernel<kGlobalLut>, smem);
+        allow_dynamic_smem(selfsync_intra_block_kernel<kGlobalLut>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     selfsync_intra_block_kernel<kGlobalLut><<<n_seq, threads, smem, s>>>(
         u, n_units, h, sps, total_bits, sym, len, lut_size, max_len,

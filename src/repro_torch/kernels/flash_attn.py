@@ -21,8 +21,11 @@ and ``q_offset`` (the absolute position of query 0 against key 0); see
 :func:`flash_attention` for the rule.
 
 The wrapper follows the port's rules: input checks, the kernel for CUDA
-tensors, the plain version for CPU tensors, any other device raises, and
-each launch is counted (``kernels/launches``).
+tensors, the plain version for CPU tensors, and each launch is counted
+(``kernels/launches``).  ``meta`` tensors launch nothing: the wrapper
+notes the launch's FLOPs and bytes with the active cost model
+(``kernels/cost.note``, read by ``launch/hlo_cost.py``) and returns an
+empty output of the kernel's shape and type.  Any other device raises.
 
 ``flash_attention_trainable`` is the training counterpart (reference
 ``flash_attention_trainable``, a Pallas forward with a recomputed XLA
@@ -38,6 +41,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import launches
 
@@ -80,7 +84,7 @@ def _check(q, k, v):
                          "tensor")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel and no plain path for device "
                          f"{q.device}")
     return bh // bkv
@@ -183,6 +187,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      window=window, q_offset=q_offset)
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        cost.note("flash_attention", *cost.flash_attention_cost(
+            q, k, v, out, causal, window, q_offset))
+        return out
     launch = _build.load("flash_attn")
     rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bh, groups, sq, skv, d, dv, int(causal), kwin,

@@ -16,8 +16,11 @@ With a zero state in, ``u`` of shape ``(BH, dk)`` and the state out dropped,
 it is the reference's ``gla_time_mix``.
 
 The wrapper follows the port's rules: input checks, the kernel for CUDA
-tensors, the plain version for CPU tensors, any other device raises, and
-each launch is counted (``kernels/launches``).
+tensors, the plain version for CPU tensors, and each launch is counted
+(``kernels/launches``).  ``meta`` tensors launch nothing: the wrapper
+notes the launch's FLOPs and bytes with the active cost model
+(``kernels/cost.note``) and returns empty outputs of the kernel's shapes
+and types.  Any other device raises.
 
 ``gla_time_mix_trainable`` is the training counterpart: a
 ``torch.autograd.Function`` whose forward runs ``gla_time_mix`` one chunk
@@ -36,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import cost
 from repro_torch.kernels import huffman_decode as K
 from repro_torch.kernels import launches
 
@@ -73,7 +77,7 @@ def _check(r, k, v, w, u, state):
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
-    if r.device.type not in ("cpu", "cuda"):
+    if r.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel and no plain path for device "
                          f"{r.device}")
 
@@ -110,6 +114,10 @@ def gla_time_mix(r, k, v, w, u, state=None):
     y = torch.empty((bh, s, dv), dtype=torch.float32, device=r.device)
     state_out = torch.empty((bh, dk, dv), dtype=torch.float32,
                             device=r.device)
+    if r.device.type == "meta":
+        cost.note("gla_time_mix", *cost.gla_time_mix_cost(
+            r, k, v, w, u, state, y, state_out))
+        return y, state_out
     launch = _build.load("gla_time_mix")
     rc = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                 u.data_ptr(), None if state is None else state.data_ptr(),

@@ -102,7 +102,8 @@ def apply_mrope(x, positions3, sections, theta: float = 1e4):
     # the position stream of each frequency slot
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(list(sections), device=x.device))     # (D/2,)
+        torch.tensor(list(sections), device=x.device),
+        output_size=half)                                  # (D/2,)
     pos = positions3.index_select(-2, sec_id).movedim(-2, -1)  # (..., S, D/2)
     ang = pos.to(torch.float32) * inv
     sin = torch.sin(ang)[..., None, :]
@@ -117,11 +118,22 @@ def apply_mrope(x, positions3, sections, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 
 
+class MetaGenerator:
+    """Stands for a ``torch.Generator`` on ``meta``, which torch refuses:
+    the init helpers build empty ``meta`` leaves from it and draw
+    nothing."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen, shape, dtype, scale: float | None = None):
     """Normal(0, 1) * scale, scale ``fan_in ** -0.5`` by default (fan_in =
     shape[0]); drawn on ``gen``'s device.  Scaled in place: a float32
     draw is the only temporary (deepseek-v3's (256, 7168, 2048) expert
-    weight is 15 GB of it)."""
+    weight is 15 GB of it).  On ``meta`` (a :class:`MetaGenerator`) an
+    empty leaf of the shape and dtype, nothing drawn."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 1 else 1
     scale = scale if scale is not None else fan_in ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,

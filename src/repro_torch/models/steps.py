@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch.utils import checkpoint as _checkpoint
 
+from repro_torch.kernels import cost
 from repro_torch.models import decode as D
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -131,6 +132,7 @@ def grads_of(params, batch, cfg: ModelConfig):
     got = iter([torch.zeros_like(t) if g is None else g
                 for t, g in zip(leaves, got)])
     grads = adamw.tree_map(lambda _: next(got), params)
+    cost.derived(grads, params)
     return (loss.detach(), _detach(metrics)), grads
 
 
@@ -180,6 +182,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
             acc = adamw.tree_map(
                 lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device), params)
+            cost.derived(acc, params)
             if grad_shardings is not None:
                 acc = _place(acc, grad_shardings)
             div = None

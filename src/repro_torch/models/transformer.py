@@ -62,8 +62,11 @@ def check_family(cfg: ModelConfig):
 
 def generator(seed: int, device) -> torch.Generator:
     """A ``torch.Generator`` on ``device`` seeded with ``seed``; raises a
-    clear ``RuntimeError`` for a CUDA device when PyTorch sees none."""
+    clear ``RuntimeError`` for a CUDA device when PyTorch sees none.  For
+    ``meta`` a ``layers.MetaGenerator``, which draws nothing."""
     device = torch.device(device)
+    if device.type == "meta":
+        return L.MetaGenerator()
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device} was asked for, but torch.cuda.is_available() "
@@ -160,7 +163,9 @@ def init_model(seed: int, cfg: ModelConfig, device="cuda"):
     """Random parameters from ``seed``, drawn on ``device`` (the card by
     default).  Shapes, dtypes and scales are the reference's (embed 0.02,
     ``w0`` -6, mixes 0.5, ``u`` 0, ``w_lora_b`` 1e-2, norms 1, the rest
-    ``fan_in ** -0.5``); the values are ``torch.Generator``'s."""
+    ``fan_in ** -0.5``); the values are ``torch.Generator``'s.  On
+    ``meta`` every leaf is an empty ``meta`` tensor of its shape and dtype:
+    nothing is drawn (the dry run's parameter tree)."""
     check_family(cfg)
     gen = generator(seed, device)
     d = cfg.d_model

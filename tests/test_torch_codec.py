@@ -221,15 +221,30 @@ def test_guards_count_trips():
 
 
 def test_naive_ref_method():
-    """The reference's sequential oracle method is no decode path of the
-    port; its oracle stays a CPU test helper that agrees with the codec."""
+    """The reference's sequential oracle method: ``CodecConfig`` takes it
+    (every method the reference takes), it decodes the JAX package's
+    bytes on every backend with no plan, and its CPU path,
+    ``decode_sequential``, agrees with the codec and takes only CPU
+    tensors."""
     from repro_torch.core.huffman import decode as hd
 
-    _, _, _, ct = _case(3, "f16", "abs", 1e-3)
-    with pytest.raises(ValueError, match="unknown method 'naive_ref'"):
-        _config(method="naive_ref")
-    with pytest.raises(ValueError, match="unknown method 'naive_ref'"):
-        compressor.decompress(ct, method="naive_ref", backend="ref")
+    _, cj, want, ct = _case(3, "f16", "abs", 1e-3)
+    from repro.core import codec as jcodec
+    from repro_torch.core import codec as tcodec
+
+    assert tcodec.VALID_METHODS == jcodec.VALID_METHODS
+    for method in jcodec.VALID_METHODS:
+        assert _config(method=method).method == method
+    with pytest.raises(ValueError, match="unknown method 'sequential'"):
+        _config(method="sequential")
+    for backend in ("cuda", "ref"):
+        got = compressor.decompress(ct, method="naive_ref", backend=backend)
+        assert as_bytes(got) == want
+        codec = Codec(_config(1e-3, "abs", method="naive_ref",
+                              backend=backend))
+        codec.reset_stats()
+        assert as_bytes(codec.decompress(ct)) == want
+        assert codec.stats["plan_builds"] == 0
     codec = Codec(_config())
     luts = hp._as_luts(ct.codebook, "cpu")
     seq = hd.decode_sequential(ct.stream.units, luts.dec_sym, luts.dec_len,

@@ -83,6 +83,37 @@ def test_kernels_match_plain(cuda, shape, noise, tile):
     assert torch.equal(_signed(kt), _signed(want))
 
 
+def test_decode_tiles_from_threads(cuda):
+    """Threads launching ``decode_tiles`` at once at two shared-memory
+    sizes, both past 48 KB (a sharded restore decodes its shards on a
+    thread pool): the opt-in limit is only ever raised, so no launch
+    fails, and every output equals the plain decode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    codec, x, c = _payload(cuda, (200000,), 3, 1e-3)
+    plan = codec.plan_for(c)
+    luts = hp._as_luts(c.codebook, cuda)
+    cases, smems = {}, set()
+    for tile in (20000, 24000):
+        ss_max = hp.ss_max_for_tile(tile, luts.max_len)
+        s0 = ops._tile_inputs(plan.offsets, c.stream.n_subseq, c.n_symbols,
+                              tile)
+        cases[tile] = (c.stream.units, plan.start_bits, plan.end_bits,
+                       plan.offsets, s0, c.stream.total_bits, luts.dec_sym,
+                       luts.dec_len, luts.max_len, tile, ss_max, c.n_symbols)
+        smems.add(K.decode_tiles_geometry(
+            s0.numel(), c.stream.n_subseq, tile, ss_max,
+            luts.dec_sym.numel(), K.sm_count(cuda.index or 0))[2])
+    assert len(smems) == 2 and min(smems) > 48 * 1024
+    want = {tile: K.decode_tiles_plain(*a) for tile, a in cases.items()}
+    tiles = [(20000, 24000)[i % 2] for i in range(400)]
+    with ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(lambda t: K.decode_tiles(*cases[t]), tiles))
+    torch.cuda.synchronize()
+    for tile, out in zip(tiles, got):
+        assert torch.equal(_signed(out), _signed(want[tile]))
+
+
 def test_merged_lut_base(cuda):
     codec, x, c = _payload(cuda, (5000,), 5, 1e-3)
     plan = codec.plan_for(c)
@@ -2551,3 +2582,33 @@ def test_train_main_preempts_and_resumes_on_card(cuda, tmp_path, capsys):
     assert "resumed from step 3" in capsys.readouterr().out
     assert K.count_subseq.launches > 0 and K.decode_tiles.launches > 0
     assert np.isfinite(first) and np.isfinite(last)
+
+
+@pytest.mark.parametrize("shape,noise,max_len", [
+    ((20000,), 1e-4, 12), ((30, 40, 50), 2e-3, 12), ((300, 400), 3e-2, 20),
+    ((7, 9), 0.0, 12), ((1,), 0.0, 12)])
+def test_naive_ref_one_chunk_decode(cuda, shape, noise, max_len):
+    """``method="naive_ref"`` on the card: the ``decode_chunked`` kernel
+    with the stream as its one chunk (a ``[1, n_units]`` row, the stream's
+    valid bits, ``n`` symbols) gives ``decode_sequential``'s codes and the
+    gap decode's output bit for bit, in one launch and with no plan."""
+    codec, x, c = _payload(cuda, shape, 11, noise, max_len=max_len)
+    luts = hp._as_luts(c.codebook, "cpu")
+    want = hd.decode_sequential(c.stream.units.cpu(), luts.dec_sym,
+                                luts.dec_len, c.n_symbols, luts.max_len)
+    launches.reset()
+    codes = hp.decode_naive_ref(c.stream, c.codebook, c.n_symbols)
+    assert launches.counts()["decode_chunked"] == 1
+    assert codes.device.type == "cuda"
+    assert torch.equal(codes.cpu().to(torch.int32), want.to(torch.int32))
+    naive = Codec(CodecConfig(method="naive_ref", max_len=max_len,
+                              device=str(cuda)))
+    naive.reset_stats()
+    launches.reset()
+    y = naive.decompress(c)
+    counts = launches.counts()
+    assert counts["decode_chunked"] == 1
+    assert sum(counts.values()) == 1
+    assert naive.stats["plan_builds"] == 0
+    assert torch.equal(y.view(torch.int32),
+                       codec.decompress(c).view(torch.int32))
