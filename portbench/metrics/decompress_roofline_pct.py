@@ -1,0 +1,7 @@
+"""Share of the HBM bound in the device time of the traced reads."""
+
+from portbench.metrics._roofline import share
+
+
+def read(m):
+    return share(m, "read")

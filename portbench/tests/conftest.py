@@ -1,0 +1,12 @@
+"""The benchmark's tests: tiny fields on the CPU, one card test.
+
+The repository root and ``src`` go on the path, as ``run.py`` puts them.
+"""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
