@@ -27,6 +27,8 @@ import zlib
 import numpy as np
 import torch
 
+from repro_torch.core import trace
+
 
 def _host(a):
     """numpy view of a tensor (copied to the host) or array."""
@@ -54,12 +56,15 @@ def payload_crc(units, gaps, outlier_pos, outlier_val) -> int:
     the valid prefix keeps the digest -- and therefore every plan-cache key
     -- identical across all of them.
     """
-    pos = _host(outlier_pos).astype(np.int32, copy=False)
-    val = _host(outlier_val).astype(np.int32, copy=False)
+    device = units.device if isinstance(units, torch.Tensor) else None
+    with trace.crossing("repro_torch.digest.payload.sync", device):
+        units, gaps, pos, val = (_host(a) for a in (units, gaps, outlier_pos,
+                                                    outlier_val))
+    pos = pos.astype(np.int32, copy=False)
+    val = val.astype(np.int32, copy=False)
     n = int((pos >= 0).sum())
-    return crc32_arrays(_host(units).astype(np.uint32, copy=False),
-                        _host(gaps).astype(np.uint8, copy=False), pos[:n],
-                        val[:n])
+    return crc32_arrays(units.astype(np.uint32, copy=False),
+                        gaps.astype(np.uint8, copy=False), pos[:n], val[:n])
 
 
 def codebook_digest(enc_code, enc_len, max_len: int) -> str:
@@ -100,6 +105,16 @@ def compressed_digest(c) -> str:
     d = getattr(c, "_digest", None)
     if d is not None:
         return d
+    with trace.span("repro_torch.digest"):
+        d = _digest(c)
+    try:
+        c._digest = d
+    except AttributeError:
+        pass
+    return d
+
+
+def _digest(c) -> str:
     book = c.codebook
     cbd = getattr(book, "_digest", None)
     if cbd is None:
@@ -112,13 +127,9 @@ def compressed_digest(c) -> str:
             pass
     crc = payload_crc(c.stream.units, c.stream.gaps,
                       c.outlier_pos, c.outlier_val)
-    d = chunk_digest(crc, int(c.stream.total_bits), int(c.stream.n_symbols),
-                     int(c.stream.subseqs_per_seq), cbd)
-    try:
-        c._digest = d
-    except AttributeError:
-        pass
-    return d
+    return chunk_digest(crc, int(c.stream.total_bits),
+                        int(c.stream.n_symbols),
+                        int(c.stream.subseqs_per_seq), cbd)
 
 
 class PlanCache:

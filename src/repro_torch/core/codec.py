@@ -33,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import trace
 from repro_torch.core.cache import (DEFAULT_PLAN_CACHE, PlanCache,
                                     compressed_digest)
 from repro_torch.core.huffman import codebook as cb
@@ -293,7 +294,11 @@ class Codec:
         method and ``t_high`` (so a cached plan's CR classes are always
         those of this codec's ``t_high``); single-flight: concurrent misses
         on one payload build it once."""
-        compressed = self._local(compressed)
+        with trace.span("repro_torch.session.plan_for",
+                        _digest_tag(compressed)):
+            return self._plan_for(self._local(compressed))
+
+    def _plan_for(self, compressed: Compressed) -> hp.DecoderPlan:
         c = self.config
         key = (compressed_digest(compressed), c.method, c.t_high)
         return self.plan_cache.get_or_build_plan(
@@ -309,14 +314,17 @@ class Codec:
         ``stats["fused_fallbacks"]``.
         """
         c = self.config
-        compressed = self._local(compressed)
-        if plan is None and c.method != "naive_ref":
-            plan = self.plan_for(compressed)
-        return compressor.decompress(compressed, method=c.method,
-                                     tile_syms=c.tile_syms,
-                                     backend=self.backend,
-                                     strategy=c.strategy, t_high=c.t_high,
-                                     plan=plan, fused=c.fused)
+        with trace.span("repro_torch.session.decompress",
+                        _digest_tag(compressed)):
+            compressed = self._local(compressed)
+            if plan is None and c.method != "naive_ref":
+                plan = self._plan_for(compressed)
+            return compressor.decompress(compressed, method=c.method,
+                                         tile_syms=c.tile_syms,
+                                         backend=self.backend,
+                                         strategy=c.strategy,
+                                         t_high=c.t_high, plan=plan,
+                                         fused=c.fused)
 
     def decompress_batch(self, cs, *, plans=None) -> list:
         """Decompress many tensors: one decode-write dispatch per CR class
@@ -420,6 +428,13 @@ class Codec:
                 elif s is not None:
                     leaves[i] = torch.as_tensor(leaves[i]).to(s)
         return pytree.tree_unflatten(leaves, treedef)
+
+
+def _digest_tag(compressed) -> "str | None":
+    """The first 12 hex characters of a payload's memoized digest, which
+    tie one read's root spans together; None before it is computed."""
+    d = getattr(compressed, "_digest", None)
+    return None if d is None else d[:12]
 
 
 def _leaf_dtype_name(leaf) -> "str | None":

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.huffman.bits import SUBSEQ_BITS, peek
 from repro_torch.core.huffman.encode import EncodedStream  # noqa: F401
 
@@ -324,9 +325,11 @@ def decode_chunked(units_rows, chunk_bits, chunk_syms, dec_sym, dec_len,
     from repro_torch.kernels import huffman_chunked
 
     device = units_rows.device
+    with trace.crossing("repro_torch.decode.chunks.h2d", device):
+        chunk_bits = torch.as_tensor(chunk_bits).to(device, torch.int64)
+        chunk_syms = torch.as_tensor(chunk_syms).to(device, torch.int32)
     return huffman_chunked.decode_chunked(
-        units_rows, torch.as_tensor(chunk_bits).to(device, torch.int64),
-        torch.as_tensor(chunk_syms).to(device, torch.int32),
+        units_rows, chunk_bits, chunk_syms,
         torch.as_tensor(dec_sym).to(device, torch.uint16),
         torch.as_tensor(dec_len).to(device, torch.uint8), max_len,
         chunk_symbols)

@@ -45,6 +45,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.huffman import codebook as _cb
 from repro_torch.core.huffman import decode as hd
 from repro_torch.core.huffman import encode as he
@@ -655,13 +656,17 @@ def decode_naive_ref(stream: EncodedStream, codebook,
     ``total_bits``, so it gives the same ``n_out`` symbols.  On the CPU,
     ``decode_sequential`` itself, the kernel's plain version here.
     """
-    luts = _as_luts(codebook, stream.device)
-    if stream.device.type == "cpu":
-        return hd.decode_sequential(stream.units, luts.dec_sym, luts.dec_len,
-                                    n_out, luts.max_len)
-    return hd.decode_chunked(
-        stream.units.reshape(1, -1), [stream.total_bits], [n_out],
-        luts.dec_sym, luts.dec_len, luts.max_len, n_out).reshape(-1)
+    with trace.span("repro_torch.decode"):
+        with trace.crossing("repro_torch.decode.luts.h2d", stream.device):
+            luts = _as_luts(codebook, stream.device)
+        with trace.span("repro_torch.decode.phase4"):
+            if stream.device.type == "cpu":
+                return hd.decode_sequential(stream.units, luts.dec_sym,
+                                            luts.dec_len, n_out,
+                                            luts.max_len)
+            return hd.decode_chunked(
+                stream.units.reshape(1, -1), [stream.total_bits], [n_out],
+                luts.dec_sym, luts.dec_len, luts.max_len, n_out).reshape(-1)
 
 
 def build_plan(stream: EncodedStream, codebook, method: str = "gap",
@@ -694,8 +699,16 @@ def build_plan(stream: EncodedStream, codebook, method: str = "gap",
         be.bump("decode_guard_trips")
         raise DecodeGuardError("corrupt codebook rejected at build_plan: "
                                + "; ".join(problems))
+    with trace.span("repro_torch.plan"):
+        return _build_plan(stream, codebook, method, be, t_high, early_exit)
+
+
+def _build_plan(stream: EncodedStream, codebook, method: str,
+                be: DecodeBackend, t_high: int,
+                early_exit: bool) -> DecoderPlan:
     device = stream.units.device
-    luts = _as_luts(codebook, device)
+    with trace.crossing("repro_torch.plan.luts.h2d", device):
+        luts = _as_luts(codebook, device)
     n_subseq = stream.n_subseq
     sps = stream.subseqs_per_seq
     boundaries = torch.arange(n_subseq, dtype=torch.int32,
@@ -707,24 +720,31 @@ def build_plan(stream: EncodedStream, codebook, method: str = "gap",
         # so sync starts stay inside the window their counts were computed
         # for, and count the containment.
         gaps = stream.gaps.to(torch.int32)
-        if n_subseq and int(stream.gaps.max()) > SUBSEQ_BITS:
+        with trace.crossing("repro_torch.plan.gap.sync", device):
+            corrupt = n_subseq and int(stream.gaps.max()) > SUBSEQ_BITS
+        if corrupt:
             be.bump("decode_guard_trips")
             gaps = gaps.clamp(max=SUBSEQ_BITS)
         starts = boundaries + gaps
-        counts = be.count_fn(stream.units, luts.dec_sym, luts.dec_len,
-                             starts, ends, stream.total_bits, luts.max_len)
+        with trace.span("repro_torch.plan.count"):
+            counts = be.count_fn(stream.units, luts.dec_sym, luts.dec_len,
+                                 starts, ends, stream.total_bits,
+                                 luts.max_len)
     else:
         try:
-            starts, counts = be.sync_fn(stream.units, luts.dec_sym,
-                                        luts.dec_len, stream.total_bits,
-                                        n_subseq, sps, luts.max_len,
-                                        early_exit=early_exit)
+            with trace.span("repro_torch.plan.count"):
+                starts, counts = be.sync_fn(stream.units, luts.dec_sym,
+                                            luts.dec_len, stream.total_bits,
+                                            n_subseq, sps, luts.max_len,
+                                            early_exit=early_exit)
         except DecodeGuardError:
             be.bump("decode_guard_trips")
             raise
-    offsets = hd.output_offsets(counts)
-    seq_counts = counts.reshape(-1, sps).sum(dim=1, dtype=torch.int64)
-    seq_counts = seq_counts.cpu().numpy()
+    with trace.span("repro_torch.plan.offsets"):
+        offsets = hd.output_offsets(counts)
+        seq_counts = counts.reshape(-1, sps).sum(dim=1, dtype=torch.int64)
+    with trace.crossing("repro_torch.plan.counts.sync", device):
+        seq_counts = seq_counts.cpu().numpy()
     return DecoderPlan(method=method, start_bits=starts, end_bits=ends,
                        counts=counts, offsets=offsets, seq_counts=seq_counts,
                        subseqs_per_seq=sps, t_high=t_high)
@@ -778,7 +798,18 @@ def decode(stream: EncodedStream, codebook, n_out: int, *,
     if plan is None:
         plan = build_plan(stream, codebook, method=method, backend=be,
                           t_high=t_high, early_exit=early_exit)
-    luts = _as_luts(codebook, stream.units.device)
+    with trace.span("repro_torch.decode"):
+        with trace.crossing("repro_torch.decode.luts.h2d", stream.device):
+            luts = _as_luts(codebook, stream.device)
+        with trace.span("repro_torch.decode.phase4"):
+            return _phase4(be, stream, luts, plan, n_out, strategy,
+                           tile_syms, transform)
+
+
+def _phase4(be: DecodeBackend, stream: EncodedStream, luts: DecodeLuts,
+            plan: DecoderPlan, n_out: int, strategy: str, tile_syms: int,
+            transform: "OutputTransform | None") -> torch.Tensor:
+    """The backend's phase-4 dispatch for ``decode``."""
     lut_args = (stream.units, luts.dec_sym, luts.dec_len)
     if transform is not None:
         t = transform
@@ -825,7 +856,8 @@ def _max_tile_span(offsets: torch.Tensor, tile_syms: int, n_sym: int) -> int:
     s0 = torch.searchsorted(offsets, base, right=True) - 1
     last = torch.clamp(base + tile_syms, max=n_sym) - 1
     s1 = torch.maximum(torch.searchsorted(offsets, last, right=True) - 1, s0)
-    return int((s1 - s0 + 1).max())
+    with trace.crossing("repro_torch.decode.tile_span.sync", offsets.device):
+        return int((s1 - s0 + 1).max())
 
 
 def _tensor_meta(plan: DecoderPlan, n_out: int, t_high: int,
@@ -883,15 +915,20 @@ def _class_dispatch(tiles_fn, units, dec_sym, dec_len, max_len: int,
     # subsequence finds its tensor by a search over the tensors' ends (a
     # repeat_interleave would give one tensor's subsequences to one warp).
     counts = torch.cat([p.counts.to(torch.int32) for p in plans])
-    sub_end = torch.as_tensor(np.cumsum([p.start_bits.shape[0]
-                                         for p in plans]), device=device)
+    seq_sps = np.repeat([p.subseqs_per_seq for p in plans],
+                        [len(p.seq_counts) for p in plans])
+    with trace.crossing("repro_torch.decode.classes.h2d", device):
+        sub_end = torch.as_tensor(np.cumsum([p.start_bits.shape[0]
+                                             for p in plans]), device=device)
+        per_tensor = torch.as_tensor(np.array(
+            [[m["bit_offset"] for m in tensors],
+             [2**31 - 1 if m["clamp_bits"] is None else m["clamp_bits"]
+              for m in tensors],
+             [m["lut_base"] or 0 for m in tensors]], np.int64), device=device)
+        seq_cls_d = torch.as_tensor(seq_cls.astype(np.int64), device=device)
+        seq_sps_d = torch.as_tensor(seq_sps.astype(np.int64), device=device)
     owner = torch.searchsorted(
         sub_end, torch.arange(counts.shape[0], device=device), right=True)
-    per_tensor = torch.as_tensor(np.array(
-        [[m["bit_offset"] for m in tensors],
-         [2**31 - 1 if m["clamp_bits"] is None else m["clamp_bits"]
-          for m in tensors],
-         [m["lut_base"] or 0 for m in tensors]], np.int64), device=device)
     shift, clamp, lut = per_tensor[:, owner]
     starts = (torch.cat([p.start_bits.to(torch.int64) for p in plans])
               + shift).to(torch.int32)
@@ -900,16 +937,14 @@ def _class_dispatch(tiles_fn, units, dec_sym, dec_len, max_len: int,
             + shift).to(torch.int32)
     lut = (lut.to(torch.int32)
            if any(m["lut_base"] is not None for m in tensors) else None)
-    seq_sps = np.repeat([p.subseqs_per_seq for p in plans],
-                        [len(p.seq_counts) for p in plans])
-    sub_cls = torch.repeat_interleave(
-        torch.as_tensor(seq_cls.astype(np.int64), device=device),
-        torch.as_tensor(seq_sps.astype(np.int64), device=device),
-        output_size=counts.shape[0])
+    sub_cls = torch.repeat_interleave(seq_cls_d, seq_sps_d,
+                                      output_size=counts.shape[0])
     key, order = torch.sort(torch.where(counts > 0, sub_cls, 0), stable=True)
     # lane_end[c]: where class c's lanes end in `order` (class 0: dropped)
     lane_end = torch.searchsorted(
-        key, torch.arange(t_high + 2, device=device), right=True).cpu()
+        key, torch.arange(t_high + 2, device=device), right=True)
+    with trace.crossing("repro_torch.decode.lanes.sync", device):
+        lane_end = lane_end.cpu()
 
     out = torch.zeros(int(out_base[-1]), dtype=torch.int16, device=device)
     for c in range(1, t_high + 2):
@@ -934,9 +969,10 @@ def _class_dispatch(tiles_fn, units, dec_sym, dec_len, max_len: int,
         # destination plus j minus the codes of the class's earlier
         # sequences.
         cnt = seq_cnt[sel]
-        head = torch.as_tensor(np.stack([seq_dest[sel] - (np.cumsum(cnt)
-                                                          - cnt), cnt]),
-                               device=device)
+        with trace.crossing("repro_torch.decode.class.h2d", device):
+            head = torch.as_tensor(np.stack([seq_dest[sel] - (np.cumsum(cnt)
+                                                              - cnt), cnt]),
+                                   device=device)
         pos = torch.arange(class_n, device=device) + torch.repeat_interleave(
             head[0], head[1], output_size=class_n)
         out[pos] = class_out.view(torch.int16)

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.huffman import codebook as cb
 from repro_torch.core.huffman import encode as he
 from repro_torch.core.huffman import pipeline as hp
@@ -227,9 +228,10 @@ def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
 
 
 def _dequantize(c: Compressed, codes: torch.Tensor) -> torch.Tensor:
-    return lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
-                              c.outlier_val, c.eb, c.shape, radius=c.radius,
-                              dtype=c.dtype)
+    with trace.span("repro_torch.dequantize"):
+        return lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
+                                  c.outlier_val, c.eb, c.shape,
+                                  radius=c.radius, dtype=c.dtype)
 
 
 def _fused_transform(c: Compressed) -> hp.OutputTransform:

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
+
 DEFAULT_RADIUS = 512  # 1024 quantization bins, cuSZ default
 
 
@@ -96,5 +98,7 @@ def dequantize(codes: torch.Tensor, outlier_pos: torch.Tensor,
     for axis in range(q.ndim):
         q = torch.cumsum(q, dim=axis, dtype=torch.int32)
     compute = torch.float64 if dtype == torch.float64 else torch.float32
-    two_eb = torch.tensor(eb, dtype=compute, device=codes.device) * 2
+    with trace.crossing("repro_torch.dequantize.eb.h2d", codes.device):
+        eb_t = torch.tensor(eb, dtype=compute, device=codes.device)
+    two_eb = eb_t * 2
     return (q.to(compute) * two_eb).to(dtype)

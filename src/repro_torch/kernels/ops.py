@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.huffman import encode as he
 from repro_torch.core.huffman.encode import SUBSEQ_BITS
 from repro_torch.core.huffman.pipeline import (DecodeGuardError,
@@ -98,7 +99,9 @@ def selfsync_sync(units, dec_sym, dec_len, total_bits: int, n_subseq: int,
         total_rounds += rounds
         new_heads = torch.cat([torch.zeros_like(heads[:1]),
                                landing[:-1, -1:] - 128])
-        if torch.equal(new_heads, heads):
+        with trace.crossing("repro_torch.plan.heads.sync", device):
+            settled = torch.equal(new_heads, heads)
+        if settled:
             break
         heads = new_heads
     else:
