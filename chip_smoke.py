@@ -358,8 +358,14 @@ YARDSTICKS = {"decode_chunked": "src/repro/core/huffman/decode.py:372"}
 SOURCES = {name: f"src/repro_torch/csrc/{name}.cu"
            for name in (*REPLACES, *YARDSTICKS)}
 SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attn.cu"
+#: The two-pass dequantize's epilogue kernels on the card: 1-D, and 2-D /
+#: 3-D after the unit axes are squeezed (``compressor._dequantize``).  A
+#: read of the three fields launches both.
+DEQUANT_KERNELS = ("dequant_reconstruct", "dequant_reconstruct_nd")
 #: The kernels each path must launch; every other kernel must not launch.
-TWO_PASS_KERNELS = ("count_subseq", "decode_tiles")
+#: ``run_path`` holds the epilogues, where a path does not name them, to
+#: exactly the launches its two-pass reads take (``dequant_launches``).
+TWO_PASS_KERNELS = ("count_subseq", "decode_tiles", *DEQUANT_KERNELS)
 FUSED_KERNELS = ("count_subseq", "decode_tiles_fused",
                  "decode_tiles_fused_nd")
 PADDED_KERNELS = ("count_subseq", "decode_padded")
@@ -553,23 +559,64 @@ def make_pages(seed: int):
                 np.float32) for i in range(N_PAGES)]
 
 
+def dequant_launches(cs) -> dict:
+    """``{kernel: launches}`` of ``DEQUANT_KERNELS`` that a two-pass read
+    of each of the ``Compressed`` ``cs`` makes on the card: one launch of
+    the epilogue ``compressor._dequantize`` picks for each shape and dtype
+    it takes, none for the others."""
+    from repro_torch.core.sz import compressor
+    from repro_torch.kernels import ops
+
+    want = dict.fromkeys(DEQUANT_KERNELS, 0)
+    for c in cs:
+        if compressor.reconstruct_unsupported_reason(c.shape,
+                                                     c.dtype) is None:
+            want[DEQUANT_KERNELS[ops.fused_squeeze(c.shape) is not None]] += 1
+    return want
+
+
 def run_path(name: str, kernels, drive):
     """Zero every launch count, run ``drive()``, read the counts; fail if a
-    kernel of the path was not launched or another kernel was.  Returns
+    kernel of the path was not launched or another kernel was.  An
+    epilogue of ``DEQUANT_KERNELS`` that the path does not name must
+    launch exactly as often as ``dequant_launches`` gives for the payloads
+    its two-pass reads dequantized on the card through a backend with the
+    op (each recorded as ``compressor._dequantize`` is called).  Returns
     ``(drive(), counts)``."""
     import torch
 
+    from repro_torch.core.huffman import pipeline as hp
+    from repro_torch.core.sz import compressor
     from repro_torch.kernels import launches
 
+    read = []
+    stock = compressor._dequantize
+
+    def dequantize(c, codes, backend):
+        if (codes.device.type == "cuda"
+                and hp.get_backend(backend).dequant_fn is not None):
+            read.append(c)
+        return stock(c, codes, backend)
+
     launches.reset()
-    out = drive()
-    torch.cuda.synchronize()
+    compressor._dequantize = dequantize
+    try:
+        out = drive()
+        torch.cuda.synchronize()
+    finally:
+        compressor._dequantize = stock
     counts = launches.counts()
-    print(f"{name} path launches: {json.dumps(counts)}")
+    want = dequant_launches(read)
+    print(f"{name} path launches: {json.dumps(counts)}; two-pass reads "
+          f"on the card: {len(read)}, epilogues {json.dumps(want)}")
     for kname, n in counts.items():
         if kname in kernels:
             require(n > 0, f"kernel {kname} was not launched on the {name} "
                     f"path")
+        elif kname in want:
+            require(n == want[kname], f"kernel {kname} was launched {n} "
+                    f"times on the {name} path; its two-pass reads take "
+                    f"{want[kname]}")
         else:
             require(n == 0, f"kernel {kname} was launched on the {name} path")
     return out, counts
@@ -956,8 +1003,8 @@ def run_batch(seed: int, results, xs) -> dict:
                                     [c.n_symbols for c in cs], plans=plans,
                                     backend="cuda"), 5),
         "dequantize_each_ms": cuda_ms(
-            lambda: [compressor._dequantize(c, q) for c, q in zip(cs, replay)],
-            5),
+            lambda: [compressor._dequantize(c, q, "cuda")
+                     for c, q in zip(cs, replay)], 5),
         "decompress_each_cached_plan_ms": cuda_ms(
             lambda: [codec.decompress(c) for c in cs], 3),
         "decompress_batch_with_plans_ms": cuda_ms(
@@ -4317,8 +4364,10 @@ def run_naive_ref(results) -> dict:
         outs[name] = (y, time.perf_counter() - t0)
     counts = launches.counts()
     print(f"naive_ref path launches: {json.dumps(counts)}")
+    want = {"decode_chunked": len(results), **dequant_launches(
+        c for _, c, _, _, _ in results.values())}
     for kname, n in counts.items():
-        require(n == (len(results) if kname == "decode_chunked" else 0),
+        require(n == want.get(kname, 0),
                 f"naive_ref path: kernel {kname} launched {n} times")
     fields = {}
     for name, (gcodec, c, y, _, _) in results.items():
@@ -5023,6 +5072,7 @@ def smoke(args, t_start: float) -> int:
 
     # -- two-pass path: counts zeroed just before, read just after ----------
     results = {}
+    read_launches = {}
     launches.reset()
     for name, x in xs.items():
         codec = Codec(CodecConfig())
@@ -5030,9 +5080,12 @@ def smoke(args, t_start: float) -> int:
         c = codec.compress(x)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        before = launches.counts()
         y = codec.decompress(c)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        after = launches.counts()
+        read_launches[name] = {k: after[k] - before[k] for k in after}
         results[name] = (codec, c, y, t1 - t0, t2 - t1)
     two_pass_launches = launches.counts()
     print(f"two-pass path launches: {json.dumps(two_pass_launches)}")
@@ -5043,6 +5096,15 @@ def smoke(args, t_start: float) -> int:
         else:
             require(n == 0, f"kernel {kname} was launched on the two-pass "
                     f"path")
+    # The default read dequantizes in one epilogue launch: the 3-D field
+    # through dequant_reconstruct_nd.
+    for name, (_, c, _, _, _) in results.items():
+        got = {k: read_launches[name][k] for k in DEQUANT_KERNELS}
+        require(got == dequant_launches([c]),
+                f"{name}: two-pass read launched {got}")
+    require(read_launches["isabel3d"]["dequant_reconstruct_nd"] == 1,
+            "isabel3d: the two-pass read did not dequantize in one "
+            "dequant_reconstruct_nd launch")
 
     # -- fused path: counts zeroed just before, read just after -------------
     fused = {}
@@ -5227,8 +5289,10 @@ def smoke(args, t_start: float) -> int:
         # The decode-work yardstick of decode_tiles: count_subseq runs the
         # same lane loop over the same windows and writes no codes.
         row["decode_tiles"]["decode_work_ms"] = row["count_subseq"]["ms"]
+        # The two-pass dequantize as a read runs it (on "cuda" the epilogue
+        # and its input preparation).
         row["dequantize_ms"] = cuda_ms(
-            lambda: compressor._dequantize(c, got), 10)
+            lambda: compressor._dequantize(c, got, codec.backend), 10)
         row["plan_ms"] = cuda_ms(
             lambda: codec.build_plan(c.stream, c.codebook), 5)
         row["decompress_cached_plan_ms"] = cuda_ms(
@@ -5248,7 +5312,10 @@ def smoke(args, t_start: float) -> int:
         row["decode_ms_tuned"] = cuda_ms(
             lambda: tcodec.decode(c.stream, c.codebook, c.n_symbols), 5)
         # The torch-ops dequantize beside the epilogue kernel.
-        row[ename]["torch_ops_ms"] = row["dequantize_ms"]
+        row[ename]["torch_ops_ms"] = cuda_ms(
+            lambda: lorenzo.dequantize(
+                got.reshape(c.shape), c.outlier_pos, c.outlier_val, c.eb,
+                c.shape, radius=c.radius, dtype=c.dtype), 10)
         if ename == "dequant_reconstruct":
             row[ename]["device_ms"] = launch_split(
                 lambda: ekernel(*eargs))["device_ms"]

@@ -240,6 +240,14 @@ class DecodeBackend:
     A backend registered without them still works everywhere; fused
     requests fall back to the two-pass path, recorded in
     ``stats["fused_fallbacks"]``.
+
+    ``dequant_fn`` (codes, n_out, opos, oval, eb, radius, shape, out_dtype)
+                   -> ``out_dtype[n_out]`` (flat, C order): the two-pass
+                   dequantize of a CUDA tensor whose shape and dtype the
+                   padded epilogue takes
+                   (``compressor.reconstruct_unsupported_reason``).  A
+                   backend without it, every CPU tensor and every other
+                   shape run ``lorenzo.dequantize``'s torch ops.
     """
 
     name: str
@@ -249,6 +257,7 @@ class DecodeBackend:
     sync_fn: "Callable | None" = None
     fused_tiles_fn: "Callable | None" = None
     fused_padded_fn: "Callable | None" = None
+    dequant_fn: "Callable | None" = None
     stats: dict = dataclasses.field(
         default_factory=lambda: {"decode_write_dispatches": 0,
                                  "plan_builds": 0,
@@ -408,7 +417,8 @@ def _make_cuda_backend() -> DecodeBackend:
     return DecodeBackend(name="cuda", count_fn=count, sync_fn=sync,
                          tiles_fn=ops.decode_write_tiles, padded_fn=padded,
                          fused_tiles_fn=ops.decode_write_tiles_fused,
-                         fused_padded_fn=ops.decode_padded_fused)
+                         fused_padded_fn=ops.decode_padded_fused,
+                         dequant_fn=ops.dequant_epilogue)
 
 
 register_backend("ref", _make_ref_backend)

@@ -227,13 +227,6 @@ def compress(x, eb: float = DEFAULT_EB, mode: str = "rel",
                       radius=radius, rel_range=rng, max_abs=max_abs)
 
 
-def _dequantize(c: Compressed, codes: torch.Tensor) -> torch.Tensor:
-    with trace.span("repro_torch.dequantize"):
-        return lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
-                                  c.outlier_val, c.eb, c.shape,
-                                  radius=c.radius, dtype=c.dtype)
-
-
 def _fused_transform(c: Compressed) -> hp.OutputTransform:
     return hp.OutputTransform(eb=c.eb, radius=c.radius,
                               outlier_pos=c.outlier_pos,
@@ -299,25 +292,46 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
                 "breaks the sequential reconstruction carry")
     if not be.supports_fused:
         return f"backend {be.name!r} registers no fused ops"
-    if dtype_name(c.dtype) not in FUSED_DTYPES:
-        return f"dtype {dtype_name(c.dtype)} not in fused set {FUSED_DTYPES}"
-    sq = tuple(s for s in c.shape if s != 1)
+    return reconstruct_unsupported_reason(c.shape, c.dtype, strategy,
+                                          c.codebook.max_len, tile_syms)
+
+
+def reconstruct_unsupported_reason(shape, dtype: torch.dtype,
+                                   strategy: str = "padded",
+                                   max_len: int = cb.DEFAULT_MAX_LEN,
+                                   tile_syms: int = hp.DEFAULT_TILE_SYMS
+                                   ) -> "str | None":
+    """Why the fused reconstruction of ``strategy`` cannot take a tensor of
+    ``shape`` and ``dtype`` (None = it can): the shape and dtype half of
+    :func:`fused_unsupported_reason`, with its reason strings.
+
+    With ``strategy="padded"`` (the default) these are the bounds of the
+    epilogue kernels over a code array (``dequant_reconstruct``,
+    ``dequant_reconstruct_nd``), which do not depend on ``max_len``: the
+    padded strategy's fused form and the card's two-pass dequantize
+    (:func:`_dequantize`) both ask here, so the two cannot drift apart.
+    With "tile" they are the bounds of the fused decode kernels, whose
+    block holds the ``2**max_len``-entry LUT beside a tile of
+    ``tile_syms`` codes.
+    """
+    if dtype_name(dtype) not in FUSED_DTYPES:
+        return f"dtype {dtype_name(dtype)} not in fused set {FUSED_DTYPES}"
+    sq = tuple(s for s in shape if s != 1)
     if len(sq) > 3:
         return (f"{len(sq)}-D Lorenzo reconstruction (fused epilogue "
                 f"covers up to 3-D)")
     padded = strategy == "padded"
-    max_cols = (FUSED_PADDED_MAX_COLS if padded
-                else fused_max_cols(c.codebook.max_len))
+    max_cols = FUSED_PADDED_MAX_COLS if padded else fused_max_cols(max_len)
     if len(sq) >= 2 and sq[-1] > max_cols:
         return (f"fastest axis {sq[-1]} exceeds the per-tile row bound "
                 f"{max_cols}")
     if len(sq) == 3 and sq[-2] * sq[-1] > FUSED_MAX_PLANE:
         return (f"plane {sq[-2]}x{sq[-1]} exceeds the VMEM plane-carry "
                 f"bound {FUSED_MAX_PLANE}")
-    nd = fused_squeeze(c.shape)
+    nd = fused_squeeze(shape)
     tile = PADDED_EPILOGUE_BLOCK if padded else tile_syms
     block = tile if nd is None else fused_tile_rows(nd, tile) * nd[-1]
-    lut = 1 << c.codebook.max_len
+    lut = 1 << max_len
     if padded:
         smem = (fd.epilogue_smem(2 * block) if nd is None
                 else fd.dequant_reconstruct_smem(block))
@@ -329,6 +343,43 @@ def fused_unsupported_reason(c: Compressed, backend, method: str,
         return (f"a fused tile of {block} codes needs {smem} B of shared "
                 f"memory per block; Hopper allows {K.SMEM_LIMIT}")
     return None
+
+
+def _dequantize(c: Compressed, codes: torch.Tensor,
+                backend: "str | hp.DecodeBackend") -> torch.Tensor:
+    """The two-pass dequantize: ``2eb * cumsum_every_axis(code - radius)``
+    with the outliers scattered in, a float32 product (float64 for a
+    float64 output) and one cast to ``c.dtype``.
+
+    Codes on the card, of a shape and dtype the padded epilogue takes
+    (:func:`reconstruct_unsupported_reason`), go to ``backend``'s
+    ``dequant_fn`` where it registers one: on "cuda" one launch of the
+    epilogue kernel, ``eb`` passed by value (``ops.dequant_epilogue``:
+    ``dequant_reconstruct_nd`` for 2-D/3-D after the unit axes are
+    squeezed, ``dequant_reconstruct`` for 1-D).  Every other tensor, every
+    tensor off the card and every backend without the op ("ref") run
+    ``lorenzo.dequantize``'s torch ops.  Both give the same bits: int32
+    sums wrap alike in any order.  The span ``repro_torch.dequantize``
+    says which ran (args ``"kernel"`` or ``"torch"``).
+
+    The kernel path assumes the outlier positions ascend with the ``-1``
+    padding at the tail, as both packages' ``compress`` write them (each
+    tile finds its slice of the list by ``searchsorted``).  On both paths
+    a position below 0 or at or past ``c.n_symbols`` is dropped: past the
+    end it lands in the pad or in no tile, and the pad is cut off.
+    """
+    dequant_fn = hp.get_backend(backend).dequant_fn
+    on_kernel = (dequant_fn is not None and codes.device.type == "cuda"
+                 and reconstruct_unsupported_reason(c.shape, c.dtype) is None)
+    with trace.span("repro_torch.dequantize",
+                    "kernel" if on_kernel else "torch"):
+        if on_kernel:
+            return dequant_fn(codes.reshape(-1), c.n_symbols, c.outlier_pos,
+                              c.outlier_val, c.eb, c.radius, c.shape,
+                              c.dtype).reshape(c.shape)
+        return lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
+                                  c.outlier_val, c.eb, c.shape,
+                                  radius=c.radius, dtype=c.dtype)
 
 
 def _guard_symbol_count(c: Compressed, plan, backend) -> None:
@@ -393,7 +444,7 @@ def decompress(c: Compressed, method: str = "gap",
         codes = hp.decode(c.stream, book, c.n_symbols, plan=plan,
                           method=method, backend=backend, strategy=strategy,
                           tile_syms=tile_syms, t_high=t_high)
-    return _dequantize(c, codes)
+    return _dequantize(c, codes, backend)
 
 
 def decompress_batch(cs: "list[Compressed]", method: str = "gap",
@@ -449,7 +500,7 @@ def decompress_batch(cs: "list[Compressed]", method: str = "gap",
             [cs[i].n_symbols for i in rest], plans=[plans[i] for i in rest],
             method=method, backend=be, t_high=t_high)
         for i, q in zip(rest, codes):
-            outs[i] = _dequantize(cs[i], q)
+            outs[i] = _dequantize(cs[i], q, be)
     return outs
 
 

@@ -158,12 +158,17 @@ def fused_tile_rows(shape, tile_syms: int) -> int:
 def _outlier_bounds(opos, n_tiles: int, block: int):
     """Each tile's slice ``[b[t], b[t + 1])`` of the outlier side list
     (int32[n_tiles + 1]).  Assumes the positions ascend with the ``-1``
-    padding at the tail, as both packages' ``compress`` write them."""
-    key = torch.where(opos >= 0, opos.to(torch.int64),
-                      torch.iinfo(torch.int64).max)
-    edges = torch.arange(n_tiles + 1, dtype=torch.int64,
-                         device=opos.device) * block
-    return torch.searchsorted(key, edges).to(torch.int32)
+    padding at the tail, as both packages' ``compress`` write them.
+
+    The padding becomes the key dtype's largest value, past every tile
+    edge.  The keys stay int32 while the edges fit it: four launches (a
+    compare, a select, the edges, the search) and no casts."""
+    end = n_tiles * block
+    dtype = torch.int32 if end < torch.iinfo(torch.int32).max else torch.int64
+    key = opos.to(dtype)
+    key = torch.where(key >= 0, key, torch.iinfo(dtype).max)
+    edges = torch.arange(0, end + 1, block, dtype=dtype, device=opos.device)
+    return torch.searchsorted(key, edges, out_int32=True)
 
 
 def fused_tile_inputs(units, dec_sym, dec_len, start_bits, end_bits,
@@ -307,6 +312,16 @@ def decode_padded_fused(units, dec_sym, dec_len, start_abs, end_abs,
     squeezed).  Returns ``out_dtype[n_out]`` (flat, C order)."""
     codes, _ = decode_padded_compact(units, dec_sym, dec_len, start_abs,
                                      end_abs, total_bits, max_len, n_out)
+    return dequant_epilogue(codes, n_out, opos, oval, eb, radius, shape,
+                            out_dtype)
+
+
+def dequant_epilogue(codes, n_out: int, opos, oval, eb, radius: int,
+                     shape=None, out_dtype=torch.float32):
+    """The dequantize and inverse Lorenzo of ``codes`` (uint16[n_out]) in
+    one launch of the epilogue kernel :func:`padded_epilogue_inputs` picks,
+    ``eb`` passed by value.  Returns ``out_dtype[n_out]`` (flat, C order).
+    The "cuda" decode backend's two-pass dequantize on the card."""
     kernel, _, args = padded_epilogue_inputs(codes, n_out, opos, oval, eb,
                                              radius, shape, out_dtype)
     return kernel(*args)[:n_out]

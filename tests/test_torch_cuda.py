@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.codec import Codec, CodecConfig
 from repro_torch.core.huffman import codebook, encode
 from repro_torch.core.huffman import decode as hd
@@ -1206,6 +1207,133 @@ def test_codec_strategies_and_batch(cuda):
                                           len(cs) * (1 << 12))
     for y, w in zip(outs, want):
         assert torch.equal(y, w)
+
+
+# ---------------------------------------------------------------------------
+# The two-pass dequantize on the card: one epilogue launch
+# ---------------------------------------------------------------------------
+
+#: shape, dtype, radius, noise, the epilogue kernel the read launches.
+DEQUANT_CASES = {
+    # 74 tiles of 4,096 codes, the last one ragged
+    "1d-ragged": ((300_001,), torch.float32, 512, 1e-3,
+                  "dequant_reconstruct"),
+    # 8-row tiles: 300 rows leave a ragged last tile
+    "2d-ragged": ((300, 500), torch.float32, 512, 1e-3,
+                  "dequant_reconstruct_nd"),
+    "3d-bf16": ((30, 40, 50), torch.bfloat16, 512, 1e-3,
+                "dequant_reconstruct_nd"),
+    "3d-f16": ((30, 40, 50), torch.float16, 512, 1e-3,
+               "dequant_reconstruct_nd"),
+    # most codes are outliers
+    "2d-radius-2": ((300, 500), torch.float32, 2, 5e-2,
+                    "dequant_reconstruct_nd"),
+    "1d-radius-2-bf16": ((300_001,), torch.bfloat16, 2, 5e-2,
+                         "dequant_reconstruct"),
+    "unit-axes": ((1, 64, 1, 80), torch.float32, 512, 1e-3,
+                  "dequant_reconstruct_nd"),
+    # the benchmark's Hurricane ISABEL field
+    "isabel3d": ((100, 500, 500), torch.float32, 512, 1e-3,
+                 "dequant_reconstruct_nd"),
+}
+
+
+def _dequantize_span_args(monkeypatch):
+    """The ``args`` of every ``repro_torch.dequantize`` span opened from
+    now on, in order."""
+    seen = []
+    stock = trace.span
+
+    def span(name, args=None):
+        if name == "repro_torch.dequantize":
+            seen.append(args)
+        return stock(name, args)
+
+    monkeypatch.setattr(trace, "span", span)
+    return seen
+
+
+def _profiled_names(fn):
+    """``fn()`` under a CPU profiler, synchronised: its result and the
+    names of the events recorded."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, {e.name for e in prof.events()}
+
+
+@pytest.mark.parametrize("case", list(DEQUANT_CASES))
+def test_two_pass_dequantize_is_one_epilogue_launch(cuda, no_plain_versions,
+                                                    monkeypatch, case):
+    """Codec().decompress and decompress_batch on the card give
+    lorenzo.dequantize's torch ops over the same decoded codes bit for
+    bit, through one launch of the epilogue a read: span args "kernel",
+    no eb upload and no aten scan."""
+    shape, dtype, radius, noise, name = DEQUANT_CASES[case]
+    codec, c = _fused_payload(cuda, shape, 13, noise, dtype, radius)
+    codes = codec.decode(c.stream, c.codebook, c.n_symbols)
+    want = lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
+                              c.outlier_val, c.eb, c.shape, radius=c.radius,
+                              dtype=c.dtype)
+    if radius == 2:
+        assert int((c.outlier_pos >= 0).sum()) > c.n_symbols // 4
+    codec.plan_for(c)
+    seen = _dequantize_span_args(monkeypatch)
+    other = ({"dequant_reconstruct", "dequant_reconstruct_nd"} - {name}).pop()
+    launches.reset()
+    y = codec.decompress(c)
+    assert launches.counts()[name] == 1 and launches.counts()[other] == 0
+    ys = codec.decompress_batch([c, c])
+    assert launches.counts()[name] == 3 and launches.counts()[other] == 0
+    assert seen == ["kernel"] * 3
+    for got in (y, *ys):
+        assert got.shape == c.shape and got.dtype == dtype
+        assert torch.equal(_bits(got), _bits(want)), case
+    got, names = _profiled_names(lambda: codec.decompress(c))
+    assert torch.equal(_bits(got), _bits(want))
+    assert "repro_torch.dequantize" in names
+    assert "repro_torch.dequantize.eb.h2d" not in names
+    assert "aten::cumsum" not in names
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 8, 16, 128), torch.float32),
+                                         ((300, 400), torch.float64)])
+def test_two_pass_dequantize_torch_path(cuda, monkeypatch, shape, dtype):
+    """A 4-D tensor and a float64 tensor launch no epilogue: their span
+    says "torch", and the eb upload is traced."""
+    codec, c = _fused_payload(cuda, shape, 14, 1e-3, dtype)
+    codes = codec.decode(c.stream, c.codebook, c.n_symbols)
+    want = lorenzo.dequantize(codes.reshape(c.shape), c.outlier_pos,
+                              c.outlier_val, c.eb, c.shape, radius=c.radius,
+                              dtype=c.dtype)
+    seen = _dequantize_span_args(monkeypatch)
+    launches.reset()
+    y = codec.decompress(c)
+    ys = codec.decompress_batch([c])
+    assert launches.counts()["dequant_reconstruct"] == 0
+    assert launches.counts()["dequant_reconstruct_nd"] == 0
+    assert seen == ["torch"] * 2
+    assert torch.equal(y, want) and torch.equal(ys[0], want)
+    _, names = _profiled_names(lambda: codec.decompress(c))
+    assert "repro_torch.dequantize.eb.h2d" in names
+
+
+def test_ref_backend_dequantize_is_torch_ops(cuda, monkeypatch):
+    """The "ref" backend registers no dequantize op: on the card its reads
+    of a shape the epilogue takes launch no kernel, their span says
+    "torch", and the output is the "cuda" backend's bit for bit."""
+    codec, c = _fused_payload(cuda, (30, 40, 50), 15, 1e-3, torch.float32)
+    want = codec.decompress(c)
+    ref = Codec(CodecConfig(backend="ref", device=str(cuda)))
+    seen = _dequantize_span_args(monkeypatch)
+    launches.reset()
+    y = ref.decompress(c)
+    ys = ref.decompress_batch([c])
+    assert all(n == 0 for n in launches.counts().values())
+    assert seen == ["torch"] * 2
+    assert torch.equal(_bits(y), _bits(want))
+    assert torch.equal(_bits(ys[0]), _bits(want))
 
 
 # ---------------------------------------------------------------------------
@@ -2591,7 +2719,8 @@ def test_naive_ref_one_chunk_decode(cuda, shape, noise, max_len):
     """``method="naive_ref"`` on the card: the ``decode_chunked`` kernel
     with the stream as its one chunk (a ``[1, n_units]`` row, the stream's
     valid bits, ``n`` symbols) gives ``decode_sequential``'s codes and the
-    gap decode's output bit for bit, in one launch and with no plan."""
+    gap decode's output bit for bit, in one launch and with no plan; the
+    read adds the dequantize's one epilogue launch."""
     codec, x, c = _payload(cuda, shape, 11, noise, max_len=max_len)
     luts = hp._as_luts(c.codebook, "cpu")
     want = hd.decode_sequential(c.stream.units.cpu(), luts.dec_sym,
@@ -2608,7 +2737,8 @@ def test_naive_ref_one_chunk_decode(cuda, shape, noise, max_len):
     y = naive.decompress(c)
     counts = launches.counts()
     assert counts["decode_chunked"] == 1
-    assert sum(counts.values()) == 1
+    assert counts["dequant_reconstruct"] + counts["dequant_reconstruct_nd"] == 1
+    assert sum(counts.values()) == 2
     assert naive.stats["plan_builds"] == 0
     assert torch.equal(y.view(torch.int32),
                        codec.decompress(c).view(torch.int32))
